@@ -1,0 +1,787 @@
+"""ChebyshevApproximation: full-tensor multi-dimensional Chebyshev
+interpolation with analytical derivatives, on PyTorch.
+
+The port of ``pychebyshev_tpu.models.approximation`` (main-path surface):
+construction with a fixed grid or auto-N, single-point host evaluation,
+batched f64 and f32 device evaluation, multi-spec batches, the error
+estimate, ``from_values``, and pickle / ``.pcb`` serialization.
+
+- Grid data (nodes, barycentric weights, differentiation matrices) and
+  the value tensor live on ``device`` as float64 tensors.
+- Single-point queries run on the host in NumPy against cached copies.
+- Batched queries run on the device through ``ops.eval``; on a CUDA
+  device the f32 path goes through the hand-written kernel in
+  ``ops.fused_eval`` wherever ``supports_fused`` covers the grid.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import time
+import warnings
+from typing import List
+
+import numpy as np
+import torch
+
+from pychebyshev_tpu_torch.config import DEFAULT_DTYPE, NODE_COINCIDENCE_TOL
+from pychebyshev_tpu_torch.ops import eval as eval_ops
+from pychebyshev_tpu_torch.ops import fused_eval
+from pychebyshev_tpu_torch.ops.chebyshev import (
+    barycentric_weights_np,
+    differentiation_matrix_np,
+    nodes_for_dim_np,
+)
+from pychebyshev_tpu_torch.ops.dct import _coeff_matrix_np
+
+__all__ = ["ChebyshevApproximation"]
+
+
+def _private_f64(values, device) -> torch.Tensor:
+    """A float64 tensor on ``device`` that shares NO memory with the
+    caller (``torch.as_tensor`` of a NumPy array is zero-copy on the CPU,
+    so a caller mutating its array would mutate the interpolant)."""
+    if isinstance(values, torch.Tensor):
+        return values.detach().to(device=device, dtype=DEFAULT_DTYPE,
+                                  copy=True)
+    return torch.tensor(np.asarray(values, dtype=np.float64),
+                        dtype=DEFAULT_DTYPE, device=device)
+
+
+def _unwrap_typed(domain, n_nodes):
+    """Unwrap the Domain / Ns typed helpers."""
+    from pychebyshev_tpu_torch import Domain, Ns
+    if isinstance(domain, Domain):
+        domain = list(domain.bounds)
+    if isinstance(n_nodes, Ns):
+        n_nodes = list(n_nodes.counts)
+    return domain, n_nodes
+
+
+def _with_padded_rows(grid: dict) -> dict:
+    """Augment a host-grid dict with padded (d, n_max) node/weight
+    mirrors for the vectorized single-point row build.
+
+    Pad lanes carry node +inf and weight 0 (exactly 0.0 contribution to
+    numerator and denominator), so one set of array ops covers ragged
+    dims.  Idempotent; mutates and returns *grid*.
+    """
+    if "nodes_pad" not in grid:
+        ns = [len(n) for n in grid["nodes"]]
+        n_max = max(ns)
+        nodes_pad = np.full((len(ns), n_max), np.inf)
+        weights_pad = np.zeros((len(ns), n_max))
+        for d, (nd, wd) in enumerate(zip(grid["nodes"], grid["weights"])):
+            nodes_pad[d, :ns[d]] = nd
+            weights_pad[d, :ns[d]] = wd
+        grid["nodes_pad"] = nodes_pad
+        grid["weights_pad"] = weights_pad
+        grid["n_per_dim"] = ns
+    return grid
+
+
+def _same_tensors(keyed, current) -> bool:
+    """Cache check for mutable tensors: same objects, same versions."""
+    tensors, versions = keyed
+    return (len(tensors) == len(current)
+            and all(a is b for a, b in zip(tensors, current))
+            and versions == tuple(t._version for t in current))
+
+
+def _cache_key(tensors):
+    return tuple(tensors), tuple(t._version for t in tensors)
+
+
+class ChebyshevApproximation:
+    """Full-tensor Chebyshev interpolant on a Type-I node grid.
+
+    Parameters mirror the JAX package's constructor; ``device`` (required,
+    keyword-only) places the grid and value tensors.  ``vectorized=True``
+    marks ``function`` as batch-capable
+    (``f(points_array (N, d), data) -> (N,) values``).  Piecewise grids
+    (``special_points`` with knots) are not ported yet.
+    """
+
+    def __init__(self, function, num_dimensions, domain, n_nodes=None,
+                 max_derivative_order=2, error_threshold=None, max_n=64,
+                 special_points=None, additional_data=None, *,
+                 device, defer_build=False, n_workers=None,
+                 vectorized=False):
+        from pychebyshev_tpu_torch.utils.parallel_build import (
+            normalize_n_workers,
+        )
+
+        domain, n_nodes = _unwrap_typed(domain, n_nodes)
+        if special_points is not None and any(
+                len(sp) > 0 for sp in special_points):
+            raise NotImplementedError(
+                "special_points with knots build a ChebyshevSpline, which "
+                "pychebyshev_tpu_torch does not port yet")
+
+        self.device = torch.device(device)
+        self.function = function
+        self.num_dimensions = num_dimensions
+        self.domain = [list(b) for b in domain]
+        self.error_threshold = error_threshold
+        if max_n < 3:
+            raise ValueError(
+                f"max_n must be at least 3 (the initial N of the doubling "
+                f"loop), got max_n={max_n}. For a grid smaller than 3 per "
+                f"dimension, pass n_nodes explicitly instead of using "
+                f"error-threshold auto-calibration."
+            )
+        self.max_n = max_n
+        self.max_derivative_order = max_derivative_order
+        self.special_points = special_points
+        self.descriptor: str = ""
+        self.additional_data = additional_data
+        self.n_workers = normalize_n_workers(n_workers)
+        self.vectorized = bool(vectorized)
+        self._derivative_id_registry: dict = {}
+        self._derivative_id_to_orders: list = []
+
+        # Normalize n_nodes — None entries mean "auto this dim".
+        if n_nodes is None:
+            if error_threshold is None and not defer_build:
+                raise ValueError(
+                    "Must provide either n_nodes (explicit) or "
+                    "error_threshold (auto-N). Got neither."
+                )
+            n_nodes = [None] * num_dimensions
+        else:
+            n_nodes = list(n_nodes)
+            if any(n is None for n in n_nodes) and error_threshold is None:
+                raise ValueError(
+                    "None entries in n_nodes require error_threshold to be "
+                    "set (auto-N mode)."
+                )
+        self.n_nodes = n_nodes
+        # The user's original intent (None sentinels intact), so a
+        # rebuild re-runs the doubling loop.
+        self._original_n_nodes = list(self.n_nodes)
+
+        self.tensor_values = None
+        self.weights = None
+        self.diff_matrices = None
+        self.build_time: float = 0.0
+        self.n_evaluations: int = 0
+        self._cached_error_estimate = None
+
+        if defer_build:
+            if function is not None:
+                raise ValueError(
+                    "defer_build=True requires function=None (the "
+                    "deferred-construction workflow expects values to be "
+                    "supplied via set_original_function_values() later)"
+                )
+            if any(not isinstance(n, (int, np.integer)) or n <= 0
+                   for n in self.n_nodes):
+                raise ValueError(
+                    "defer_build=True requires explicit positive int "
+                    "n_nodes; auto-N (error_threshold) is not supported in "
+                    "deferred mode"
+                )
+            self._generate_nodes()
+            self._compute_grid_data()
+            return
+
+        self.nodes: List[torch.Tensor] = []
+        if all(n is not None for n in self.n_nodes):
+            self._generate_nodes()
+
+    # ------------------------------------------------------------------
+    # Grid construction
+    # ------------------------------------------------------------------
+
+    def _generate_nodes(self) -> None:
+        """Populate ``self.nodes`` (ascending Chebyshev grid per dim),
+        computed on the host and copied to the device."""
+        host = [
+            nodes_for_dim_np(self.domain[d][0], self.domain[d][1],
+                             int(self.n_nodes[d]))
+            for d in range(self.num_dimensions)
+        ]
+        self.nodes = [_private_f64(h, self.device) for h in host]
+        self._host_nodes_cache = (_cache_key(self.nodes), host)
+
+    def _nodes_np(self) -> list[np.ndarray]:
+        """Host NumPy copies of ``self.nodes``, cached by identity and
+        version."""
+        cache = getattr(self, "_host_nodes_cache", None)
+        if cache is None or not _same_tensors(cache[0], self.nodes):
+            cache = (_cache_key(self.nodes),
+                     [a.detach().cpu().numpy().copy() for a in self.nodes])
+            self._host_nodes_cache = cache
+        return cache[1]
+
+    def _compute_grid_data(self) -> None:
+        """Barycentric weights and differentiation matrices, computed on
+        the host (kept in ``_host_grid`` for single-point eval) and
+        copied to the device."""
+        host_nodes = self._nodes_np()
+        host_weights = [barycentric_weights_np(nd) for nd in host_nodes]
+        host_diffs = [differentiation_matrix_np(host_nodes[d],
+                                                host_weights[d])
+                      for d in range(self.num_dimensions)]
+        self.weights = [_private_f64(w, self.device) for w in host_weights]
+        self.diff_matrices = [_private_f64(m, self.device)
+                              for m in host_diffs]
+        self._host_grid = _with_padded_rows({
+            "nodes": host_nodes,
+            "weights": host_weights,
+            "diffs_t": [np.ascontiguousarray(m.T) for m in host_diffs],
+        })
+
+    def _grid_tuples(self):
+        """(nodes, weights, diffs) as tuples for the batched kernels."""
+        return (tuple(self.nodes), tuple(self.weights),
+                tuple(self.diff_matrices))
+
+    def set_original_function_values(self, values) -> None:
+        """Fill a ``defer_build=True`` object's tensor with explicit values."""
+        if self.tensor_values is not None:
+            raise RuntimeError(
+                "interpolant is already constructed; "
+                "set_original_function_values() is for defer_build=True "
+                "objects"
+            )
+        arr = np.asarray(values, dtype=np.float64)
+        expected_shape = tuple(self.n_nodes)
+        if arr.shape != expected_shape:
+            raise ValueError(
+                f"values shape {arr.shape} does not match expected "
+                f"{expected_shape}"
+            )
+        if not np.isfinite(arr).all():
+            raise ValueError("values contains NaN or Inf (must be finite)")
+        self.tensor_values = _private_f64(arr, self.device)
+        self._offer_host_tensor(arr)
+        self.function = None
+
+    # ------------------------------------------------------------------
+    # Build
+    # ------------------------------------------------------------------
+
+    def build(self, verbose: bool | int = True) -> None:
+        """Evaluate the function on the grid (doubling loop if auto-N)."""
+        if self.function is None:
+            raise RuntimeError(
+                "Cannot build: no function assigned. "
+                "This object was created via from_values() or load()."
+            )
+        if any(n is None for n in self._original_n_nodes):
+            self._build_with_threshold(verbose=verbose)
+        else:
+            self._build_fixed_grid(verbose=verbose)
+
+    def _build_with_threshold(self, verbose: bool | int = True) -> None:
+        """Double the worst auto dim until error <= threshold or max_n.
+        ``n_evaluations`` and ``build_time`` accumulate across rounds."""
+        if self.error_threshold is None:
+            raise RuntimeError("auto-N needs error_threshold")
+        current = [n if n is not None else 3 for n in self._original_n_nodes]
+        auto_dims = [i for i, n in enumerate(self._original_n_nodes)
+                     if n is None]
+
+        total_evals = 0
+        total_time = 0.0
+        while True:
+            self.n_nodes = list(current)
+            self._cached_error_estimate = None
+            self._generate_nodes()
+            self._build_fixed_grid(verbose=verbose)
+            total_evals += self.n_evaluations
+            total_time += self.build_time
+
+            per_dim = self._error_estimate_per_dim()
+            err = float(sum(per_dim))
+            self._cached_error_estimate = err
+            if verbose:
+                print(f"[auto-N] n_nodes={current}, error={err:.3e}")
+            if err <= self.error_threshold:
+                break
+
+            candidates = [(per_dim[i], i) for i in auto_dims
+                          if current[i] < self.max_n]
+            if not candidates:
+                warnings.warn(
+                    f"max_n={self.max_n} reached on all auto dims before "
+                    f"error_threshold={self.error_threshold:.2e} satisfied "
+                    f"(last error={err:.3e}). Increase max_n or relax "
+                    f"error_threshold.",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
+                break
+            candidates.sort(key=lambda t: (-t[0], t[1]))
+            worst = candidates[0][1]
+            current[worst] = min(2 * current[worst], self.max_n)
+
+        self.n_evaluations = total_evals
+        self.build_time = total_time
+
+    def _evaluate_on_grid(self, verbose: bool | int):
+        """Evaluate ``self.function`` at every grid point: one batched
+        call for vectorized functions, else a host loop or process pool."""
+        shape = tuple(int(n) for n in self.n_nodes)
+        if self.vectorized:
+            grid = self.get_evaluation_points()
+            vals = self.function(grid, self.additional_data)
+            if isinstance(vals, torch.Tensor):
+                return vals.detach().to(DEFAULT_DTYPE).reshape(shape)
+            return np.asarray(vals, dtype=np.float64).reshape(shape)
+
+        host_nodes = self._nodes_np()
+        if self.n_workers is None or self.n_workers == 1:
+            out = np.zeros(shape)
+            for idx in np.ndindex(*shape):
+                point = [float(host_nodes[d][idx[d]])
+                         for d in range(self.num_dimensions)]
+                out[idx] = float(self.function(point, self.additional_data))
+            return out
+        from pychebyshev_tpu_torch.utils.parallel_build import (
+            evaluate_in_parallel,
+        )
+        points = [
+            [float(host_nodes[d][idx[d]]) for d in range(self.num_dimensions)]
+            for idx in np.ndindex(*shape)
+        ]
+        flat = evaluate_in_parallel(self.function, points,
+                                    self.additional_data, self.n_workers)
+        return flat.reshape(shape)
+
+    def _build_fixed_grid(self, verbose: bool | int = True) -> None:
+        total = int(np.prod(self.n_nodes))
+        if verbose:
+            print(f"Building {self.num_dimensions}D Chebyshev approximation "
+                  f"({total:,} evaluations)...")
+
+        start = time.time()
+        self._cached_error_estimate = None
+
+        values = self._evaluate_on_grid(verbose)
+        self.n_evaluations = total
+
+        if isinstance(values, np.ndarray):
+            finite = np.isfinite(values)
+        else:
+            finite = torch.isfinite(values).cpu().numpy()
+        if not finite.all():
+            raise ValueError(
+                f"function returned non-finite values at "
+                f"{int((~finite).sum())} grid point(s); build cannot "
+                f"proceed with NaN/Inf in tensor_values"
+            )
+        self.tensor_values = _private_f64(values, self.device)
+
+        self._compute_grid_data()
+        if isinstance(values, np.ndarray):
+            self._offer_host_tensor(values)
+        self.build_time = time.time() - start
+
+        if verbose:
+            total_weights = sum(int(w.shape[0]) for w in self.weights)
+            print(f"  Built in {self.build_time:.3f}s "
+                  f"({total_weights} weights, {total_weights * 8} bytes)")
+
+    # ------------------------------------------------------------------
+    # Host single-point evaluation
+    # ------------------------------------------------------------------
+
+    def _offer_host_tensor(self, host_values: np.ndarray) -> None:
+        """Seed the host eval cache from values already on the host (a
+        private copy: the source may be caller-owned memory)."""
+        grid = getattr(self, "_host_grid", None)
+        if grid is None:
+            return
+        self._host_cache = (_cache_key([self.tensor_values]), {
+            "tensor": np.array(host_values, dtype=np.float64, order="C"),
+            **_with_padded_rows(grid),
+        })
+
+    def _host_arrays(self):
+        """Cached NumPy copies of the tensor and grid data for the
+        single-point paths, keyed on the tensor's identity and version
+        (a tensor mutated in place is read back afresh)."""
+        cache = getattr(self, "_host_cache", None)
+        if cache is None or not _same_tensors(cache[0],
+                                              [self.tensor_values]):
+            grid = getattr(self, "_host_grid", None) or {
+                "nodes": [a.detach().cpu().numpy() for a in self.nodes],
+                "weights": [a.detach().cpu().numpy() for a in self.weights],
+                "diffs_t": [np.ascontiguousarray(
+                    a.detach().cpu().numpy().T)
+                    for a in self.diff_matrices],
+            }
+            grid = _with_padded_rows(grid)
+            cache = (_cache_key([self.tensor_values]), {
+                "tensor": np.array(self.tensor_values.detach().cpu().numpy(),
+                                   dtype=np.float64, order="C"),
+                **grid})
+            self._host_cache = cache
+        return cache[1]
+
+    @staticmethod
+    def _host_point(point, ns):
+        """Normalize a query point to a 1-D length-d float64 array."""
+        pt = np.asarray(point, dtype=np.float64)
+        if pt.ndim != 1 or pt.shape[0] != len(ns):
+            pt = np.array([float(np.ravel(pt[d])[0])
+                           for d in range(len(ns))])
+        return pt
+
+    def _host_coeff_rows(self, point):
+        """Per-dim normalized barycentric rows for one point on the host
+        (one-hot at a node within 1e-14)."""
+        h = self._host_arrays()
+        ns = h["n_per_dim"]
+        pt = self._host_point(point, ns)
+        gaps = pt[:, None] - h["nodes_pad"]
+        # An exact-node coincidence makes one lane inf/nan here; that dim
+        # is replaced by its one-hot row below.
+        with np.errstate(divide="ignore", invalid="ignore"):
+            raw = h["weights_pad"] / gaps
+            scaled = raw / raw.sum(axis=1)[:, None]
+        absg = np.abs(gaps)
+        nearest = absg.argmin(axis=1)
+        exact = absg[np.arange(len(ns)), nearest] < NODE_COINCIDENCE_TOL
+        rows = []
+        for d in range(self.num_dimensions):
+            if exact[d]:
+                row = np.zeros(ns[d])
+                row[nearest[d]] = 1.0
+            else:
+                row = scaled[d, :ns[d]]
+            rows.append(row)
+        return rows
+
+    def _host_single_eval(self, point, derivative_order) -> float:
+        """One point on the host: derivatives fold into the rows
+        (``r . (D^k t) == ((D^T)^k r) . t``), then the tensor contracts
+        one GEMV per dim, highest dim first."""
+        h = self._host_arrays()
+        rows = self._host_coeff_rows(point)
+        for d, k in enumerate(derivative_order):
+            for _ in range(int(k)):
+                rows[d] = h["diffs_t"][d] @ rows[d]
+        current = h["tensor"]
+        for row in reversed(rows):
+            n = current.shape[-1]
+            current = (current.reshape(-1, n) @ row).reshape(
+                current.shape[:-1])
+        return float(current)
+
+    def eval(self, point, derivative_order=None, *, derivative_id=None):
+        """Single-point evaluation on the host."""
+        derivative_order = self._resolve_derivative_args(
+            derivative_order, derivative_id)
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        return self._host_single_eval(point, derivative_order)
+
+    vectorized_eval = eval
+
+    # ------------------------------------------------------------------
+    # Batched device evaluation
+    # ------------------------------------------------------------------
+
+    def _points(self, points, dtype) -> torch.Tensor:
+        pts = torch.as_tensor(points, dtype=dtype, device=self.device)
+        if pts.dim() != 2 or pts.shape[1] != self.num_dimensions:
+            raise ValueError(
+                f"points must have shape (N, {self.num_dimensions}), "
+                f"got {tuple(pts.shape)}")
+        return pts
+
+    def _orders(self, derivative_order):
+        if derivative_order is None:
+            return (0,) * self.num_dimensions
+        orders = tuple(int(o) for o in derivative_order)
+        if len(orders) != self.num_dimensions:
+            raise ValueError(
+                f"derivative_order length {len(orders)} does not "
+                f"match num_dimensions {self.num_dimensions}")
+        return orders
+
+    def vectorized_eval_batch(self, points, derivative_order=None, *,
+                              derivative_id=None) -> np.ndarray:
+        """Batched f64 evaluation: (N, d) points -> (N,) NumPy values."""
+        derivative_order = self._resolve_derivative_args(
+            derivative_order, derivative_id)
+        return self.eval_batch_device(
+            points, derivative_order).cpu().numpy()
+
+    eval_batch = vectorized_eval_batch
+
+    def eval_batch_device(self, points, derivative_order=None
+                          ) -> torch.Tensor:
+        """Batched f64 evaluation, result left on the device."""
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        nodes, weights, diffs = self._grid_tuples()
+        return eval_ops.eval_batch(
+            self.tensor_values, nodes, weights, diffs,
+            self._points(points, DEFAULT_DTYPE),
+            self._orders(derivative_order))
+
+    def eval_batch_f32(self, points, derivative_order=None, *,
+                       use_fused: bool = None) -> torch.Tensor:
+        """Throughput-mode batched evaluation in float32, on the device.
+
+        ``use_fused=None`` routes a CUDA interpolant through the fused
+        kernel (``ops.fused_eval``) wherever ``supports_fused`` covers
+        the grid, and everything else through the plain f32 path of
+        ``ops.eval``.  ``True`` forces the fused route (a CPU tensor then
+        runs the kernel's plain version), ``False`` the plain path.
+        Derivative passes run in f64 before the cast on both routes.
+        """
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        orders = self._orders(derivative_order)
+        nodes, weights, diffs = self._grid_tuples()
+        shape = tuple(self.tensor_values.shape)
+        if use_fused is None:
+            use_fused = (self.device.type == "cuda"
+                         and fused_eval.supports_fused(shape, torch.float32))
+        pts = self._points(points, torch.float32)
+        if use_fused:
+            return fused_eval.fused_eval_batch(
+                self.tensor_values, nodes, weights, diffs, pts, orders)
+        tensor32 = eval_ops.apply_derivative_passes(
+            self.tensor_values, diffs, orders).to(torch.float32)
+        return eval_ops.eval_batch(
+            tensor32, tuple(a.to(torch.float32) for a in nodes),
+            tuple(a.to(torch.float32) for a in weights), (), pts,
+            (0,) * self.num_dimensions)
+
+    def vectorized_eval_batch_multi(self, points, derivative_orders
+                                    ) -> np.ndarray:
+        """Batch x multi-spec f64 evaluation -> (N, len(derivative_orders))
+        NumPy array; the rows are shared across specs."""
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        orders_list = tuple(self._orders(o) for o in derivative_orders)
+        pts = self._points(points, DEFAULT_DTYPE)
+        if not orders_list:
+            return np.zeros((pts.shape[0], 0))
+        nodes, weights, diffs = self._grid_tuples()
+        out = eval_ops.eval_batch_multi(
+            self.tensor_values, nodes, weights, diffs, pts, orders_list)
+        return out.cpu().numpy().T
+
+    eval_batch_multi = vectorized_eval_batch_multi
+
+    # ------------------------------------------------------------------
+    # Derivative ids
+    # ------------------------------------------------------------------
+
+    def get_derivative_id(self, derivative_order) -> int:
+        """Stable session-local id for a derivative-orders tuple."""
+        from pychebyshev_tpu_torch.utils.derivative_ids import (
+            register_derivative_id,
+        )
+        return register_derivative_id(self, derivative_order)
+
+    def _resolve_derivative_args(self, derivative_order, derivative_id):
+        """Resolve orders xor id; raises on both/neither/unknown."""
+        from pychebyshev_tpu_torch.utils.derivative_ids import (
+            resolve_derivative_args,
+        )
+        return resolve_derivative_args(self, derivative_order,
+                                       derivative_id)
+
+    # ------------------------------------------------------------------
+    # Error estimation and grid points
+    # ------------------------------------------------------------------
+
+    def _error_estimate_per_dim(self, tail: int = 1) -> List[float]:
+        """Per-dim max |coefficient| over the last ``tail`` rows of all
+        1-D slices (one cosine-matrix contraction per axis)."""
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        per_dim = []
+        for d in range(self.num_dimensions):
+            n = self.tensor_values.shape[d]
+            mat = torch.tensor(_coeff_matrix_np(n), dtype=DEFAULT_DTYPE,
+                               device=self.device)
+            coeffs = torch.tensordot(self.tensor_values, mat,
+                                     dims=([d], [1]))   # coeff axis last
+            take = min(max(1, int(tail)), n)
+            per_dim.append(float(coeffs[..., n - take:].abs().max()))
+        return per_dim
+
+    def error_estimate(self, tail: int = 1) -> float:
+        """Sup-norm error estimate: sum over dims of max |c_{n-1}|
+        (``tail=2`` reads the last two coefficient rows per dim)."""
+        if tail == 1 and self._cached_error_estimate is not None:
+            return self._cached_error_estimate
+        total = float(sum(self._error_estimate_per_dim(tail)))
+        if tail == 1:
+            self._cached_error_estimate = total
+        return total
+
+    def get_num_evaluation_points(self) -> int:
+        """prod(n_nodes) — where f was (or will be) evaluated."""
+        return int(np.prod(self.n_nodes))
+
+    def get_evaluation_points(self) -> np.ndarray:
+        """(N, d) grid of evaluation points in C-order."""
+        grids = np.meshgrid(*self._nodes_np(), indexing="ij")
+        return np.stack([g.ravel() for g in grids], axis=-1).astype(np.float64)
+
+    # ------------------------------------------------------------------
+    # Serialization
+    # ------------------------------------------------------------------
+
+    def __getstate__(self) -> dict:
+        """Picklable state: arrays as NumPy, device as a string, no
+        function, version-stamped."""
+        from pychebyshev_tpu_torch._version import __version__
+
+        state = self.__dict__.copy()
+        state["function"] = None
+        # host-side caches are recomputable, not state
+        for key in ("_host_cache", "_host_grid", "_host_nodes_cache"):
+            state.pop(key, None)
+        for key in ("nodes", "weights", "diff_matrices"):
+            if state.get(key) is not None:
+                state[key] = [a.detach().cpu().numpy() for a in state[key]]
+        if state.get("tensor_values") is not None:
+            state["tensor_values"] = (
+                state["tensor_values"].detach().cpu().numpy())
+        state["device"] = str(self.device)
+        state["_pychebyshev_version"] = __version__
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        """Restore onto the device the object was saved from."""
+        from pychebyshev_tpu_torch._version import __version__
+
+        saved = state.pop("_pychebyshev_version", None)
+        if saved is not None and saved != __version__:
+            warnings.warn(
+                f"This object was saved with pychebyshev-tpu {saved}, but "
+                f"you are loading it with {__version__}. Evaluation results "
+                f"may differ if internal data layout changed.",
+                UserWarning,
+                stacklevel=2,
+            )
+        self.__dict__.update(state)
+        self.function = None
+        self.device = torch.device(state["device"])
+        for key in ("nodes", "weights", "diff_matrices"):
+            if getattr(self, key, None) is not None:
+                setattr(self, key, [_private_f64(a, self.device)
+                                    for a in getattr(self, key)])
+        if self.tensor_values is not None:
+            self.tensor_values = _private_f64(self.tensor_values,
+                                              self.device)
+
+    def save(self, path: str | os.PathLike, format: str = "pickle") -> None:
+        """Save to pickle (default) or the portable ``.pcb`` binary."""
+        if self.tensor_values is None:
+            raise RuntimeError(
+                "Cannot save an unbuilt ChebyshevApproximation. Call "
+                "build() first."
+            )
+        if format == "pickle":
+            with open(path, "wb") as f:
+                pickle.dump(self, f, protocol=pickle.HIGHEST_PROTOCOL)
+        elif format == "binary":
+            from pychebyshev_tpu_torch.utils import binary
+            with open(path, "wb") as f:
+                binary.write_approx(f, self)
+        else:
+            raise ValueError(
+                f"format must be 'pickle' or 'binary'; got {format!r}")
+
+    @classmethod
+    def load(cls, path: str | os.PathLike, *,
+             device) -> "ChebyshevApproximation":
+        """Load from pickle or ``.pcb`` (magic-sniffed) onto ``device``.
+
+        A pickle is first restored onto the device it was saved from,
+        then moved; only unpickle files this program wrote.
+        """
+        from pychebyshev_tpu_torch.utils import binary
+        if binary.detect_format(path) == "binary":
+            with open(path, "rb") as f:
+                return binary.read_approx(f, device=device)
+        with open(path, "rb") as f:
+            obj = pickle.load(f)  # noqa: S301
+        if not isinstance(obj, cls):
+            raise TypeError(
+                f"Expected a {cls.__name__} instance, got "
+                f"{type(obj).__name__}"
+            )
+        device = torch.device(device)
+        if obj.device != device:
+            obj.device = device
+            obj.nodes = [a.to(device) for a in obj.nodes]
+            obj.weights = [a.to(device) for a in obj.weights]
+            obj.diff_matrices = [a.to(device) for a in obj.diff_matrices]
+            obj.tensor_values = obj.tensor_values.to(device)
+        return obj
+
+    @classmethod
+    def from_values(cls, tensor_values, num_dimensions, domain, n_nodes,
+                    max_derivative_order: int = 2, *,
+                    device) -> "ChebyshevApproximation":
+        """Fully-built interpolant from pre-computed grid values."""
+        if isinstance(tensor_values, torch.Tensor):
+            tensor_values = tensor_values.detach().cpu().numpy()
+        tensor_values = np.asarray(tensor_values, dtype=float)
+
+        if len(domain) != num_dimensions or len(n_nodes) != num_dimensions:
+            raise ValueError(
+                f"len(domain)={len(domain)} and len(n_nodes)={len(n_nodes)} "
+                f"must both equal num_dimensions={num_dimensions}"
+            )
+        expected_shape = tuple(n_nodes)
+        if tensor_values.shape != expected_shape:
+            raise ValueError(
+                f"tensor_values.shape={tensor_values.shape} does not match "
+                f"n_nodes={expected_shape}"
+            )
+        if not np.isfinite(tensor_values).all():
+            raise ValueError("tensor_values contains NaN or Inf")
+        for d in range(num_dimensions):
+            lo, hi = domain[d]
+            if lo >= hi:
+                raise ValueError(
+                    f"domain[{d}]: lo={lo} must be strictly less than "
+                    f"hi={hi}"
+                )
+
+        obj = object.__new__(cls)
+        obj.device = torch.device(device)
+        obj.function = None
+        obj.num_dimensions = num_dimensions
+        obj.domain = [list(bounds) for bounds in domain]
+        obj.n_nodes = list(n_nodes)
+        obj._original_n_nodes = list(n_nodes)
+        obj.max_derivative_order = max_derivative_order
+        obj.error_threshold = None
+        obj.max_n = 64
+        obj._generate_nodes()
+        obj.tensor_values = _private_f64(tensor_values, obj.device)
+        obj._compute_grid_data()
+        obj._offer_host_tensor(tensor_values)
+        obj.build_time = 0.0
+        obj.n_evaluations = 0
+        obj._cached_error_estimate = None
+        obj.special_points = None
+        obj.descriptor = ""
+        obj.additional_data = None
+        obj.n_workers = None
+        obj.vectorized = False
+        obj._derivative_id_registry = {}
+        obj._derivative_id_to_orders = []
+        return obj
+
+    def __repr__(self) -> str:
+        built = self.tensor_values is not None
+        return (f"ChebyshevApproximation(dims={self.num_dimensions}, "
+                f"n_nodes={self.n_nodes}, built={built}, "
+                f"device={self.device})")

@@ -1,0 +1,32 @@
+"""Values-to-coefficients cosine matrix (the error estimate's transform).
+
+One constant matrix per n bakes in the reference convention (reverse to
+descending node order, DCT-II, divide by n, halve c_0), so no other
+module reimplements it.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+__all__ = ["_coeff_matrix_np"]
+
+
+@functools.lru_cache(maxsize=None)
+def _coeff_matrix_np(n: int) -> np.ndarray:
+    """Values-at-ascending-Type-I-nodes -> Chebyshev coefficients c_0..c_{n-1}.
+
+    Row k, applied to ascending values v_i:
+
+        c_k = (2 - delta_{k0}) / n * sum_i v_i * cos(pi k (2(n-1-i)+1) / (2n))
+    """
+    k = np.arange(n, dtype=np.float64)[:, None]
+    j = np.arange(n, dtype=np.float64)[None, :]  # descending-order index
+    base = np.cos(np.pi * k * (2.0 * j + 1.0) / (2.0 * n))
+    scale = np.full((n, 1), 2.0 / n)
+    scale[0, 0] = 1.0 / n
+    mat = scale * base
+    # map from descending index j to ascending index i = n-1-j
+    return np.ascontiguousarray(mat[:, ::-1])

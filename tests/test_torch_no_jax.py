@@ -1,0 +1,41 @@
+"""The PyTorch port imports without JAX: its machine has none."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pychebyshev_tpu_torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        pychebyshev_tpu_torch.__path__, "pychebyshev_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {['pychebyshev_tpu_torch'] + _modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
+        "                                            'pychebyshev_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_package_covers_the_slice():
+    names = set(_modules())
+    for want in ("config", "ops.chebyshev", "ops.dct", "ops.eval",
+                 "ops.fused_eval", "ops._build", "utils.binary",
+                 "utils.convert", "utils.derivative_ids",
+                 "utils.parallel_build", "models.approximation", "serving"):
+        assert f"pychebyshev_tpu_torch.{want}" in names
+    assert (REPO / "pychebyshev_tpu_torch" / "csrc" / "fused_eval.cu").is_file()
