@@ -2,8 +2,10 @@
 
 The dense slice of the library on PyTorch: full-tensor barycentric
 interpolation with analytical derivatives, the portable ``.pcb`` format,
-and the batched serving engines.  On a CUDA device the f32 batched path
-runs through a hand-written CUDA evaluator (``ops.fused_eval``).
+and the batched serving engines at f32, f64 and the near-f64 "dd" tier.
+On a CUDA device the f32 batched path runs through a hand-written CUDA
+evaluator (``ops.fused_eval``), and the dd tier through its f64
+instance (``ops.fused_dd``).
 
 Every constructor and engine takes an explicit ``device=``; nothing here
 probes for a device or falls back to another one.

@@ -3,15 +3,17 @@ interpolation with analytical derivatives, on PyTorch.
 
 The port of ``pychebyshev_tpu.models.approximation`` (main-path surface):
 construction with a fixed grid or auto-N, single-point host evaluation,
-batched f64 and f32 device evaluation, multi-spec batches, the error
-estimate, ``from_values``, and pickle / ``.pcb`` serialization.
+batched f64, f32 and near-f64 device evaluation, multi-spec batches, the
+error estimate, ``from_values``, and pickle / ``.pcb`` serialization.
 
 - Grid data (nodes, barycentric weights, differentiation matrices) and
   the value tensor live on ``device`` as float64 tensors.
 - Single-point queries run on the host in NumPy against cached copies.
 - Batched queries run on the device through ``ops.eval``; on a CUDA
   device the f32 path goes through the hand-written kernel in
-  ``ops.fused_eval`` wherever ``supports_fused`` covers the grid.
+  ``ops.fused_eval`` wherever ``supports_fused`` covers the grid, and
+  the near-f64 ``eval_batch_dd`` through its f64 instance
+  (``ops.fused_dd``) wherever ``supports_fused_dd`` does.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from pychebyshev_tpu_torch.config import DEFAULT_DTYPE, NODE_COINCIDENCE_TOL
 from pychebyshev_tpu_torch.ops import eval as eval_ops
-from pychebyshev_tpu_torch.ops import fused_eval
+from pychebyshev_tpu_torch.ops import eval_dd, fused_eval
 from pychebyshev_tpu_torch.ops.chebyshev import (
     barycentric_weights_np,
     differentiation_matrix_np,
@@ -554,6 +556,42 @@ class ChebyshevApproximation:
             tensor32, tuple(a.to(torch.float32) for a in nodes),
             tuple(a.to(torch.float32) for a in weights), (), pts,
             (0,) * self.num_dimensions)
+
+    def eval_batch_dd(self, points, derivative_order=None,
+                      mode: str = "accurate") -> torch.Tensor:
+        """Near-f64 batched evaluation, result left on the device.
+
+        The reference's dd tier (``ops.eval_dd``), served in native f64:
+        on a CUDA device through the f64 kernel (``ops.fused_dd``)
+        wherever ``supports_fused_dd`` covers the grid.  Results deviate
+        from ``eval_batch_device`` by f64 summation order only, well
+        inside the tier's 1e-10 contract.
+
+        ``mode``: ``"accurate"`` (default) or ``"fast"``; the reference
+        trades accuracy for speed there, while f64 already meets both
+        modes' accuracy, so the result is the same.  An out-of-domain
+        batch, or a grid outside ``supports_dd``, takes the f64 path, as
+        in the reference.
+        """
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        if mode not in ("accurate", "fast"):
+            raise ValueError(
+                f"mode must be 'accurate' or 'fast', got {mode!r}")
+        cutoff = eval_dd.FAST_PAIR_CUTOFF if mode == "fast" else None
+        orders = self._orders(derivative_order)
+        nodes, weights, diffs = self._grid_tuples()
+        pts = self._points(points, DEFAULT_DTYPE)
+        dom = torch.tensor(self.domain, dtype=DEFAULT_DTYPE,
+                           device=self.device)
+        out_of_domain = bool(((pts < dom[:, 0]) | (pts > dom[:, 1]))
+                             .any().item())
+        if not out_of_domain and eval_dd.supports_dd(
+                self.tensor_values.shape):
+            return eval_dd.eval_batch_dd(self.tensor_values, nodes, weights,
+                                         diffs, pts, orders, cutoff=cutoff)
+        return eval_ops.eval_batch(self.tensor_values, nodes, weights, diffs,
+                                   pts, orders)
 
     def vectorized_eval_batch_multi(self, points, derivative_orders
                                     ) -> np.ndarray:

@@ -1,11 +1,18 @@
-"""Fused f32 batched dense evaluation: the CUDA port of the Pallas K1.
+"""Fused f32 batched dense evaluation: the CUDA port of the Pallas K1
+and K2.
 
 Counterpart of ``pychebyshev_tpu/ops/pallas_eval.py``.  The kernel
 (``csrc/fused_eval.cu``) keeps the whole per-point pipeline — row build,
 Khatri-Rao factors, tensor contraction — on chip, so device memory sees
 the points in and one float out per point.  It works in IEEE f32 with
 f32 accumulation (no TF32); the Mosaic-specific bf16 splits, selection
-dots and VMEM plans of the TPU kernel have no counterpart here.
+dots and VMEM plans of the TPU kernel have no counterpart here.  The
+same kernel covers the grids the TPU served with its stream kernel K2
+(15^5 to 19^5, 9^6): it walks the contraction depth in shared-memory
+stages, so only the rows and the right-prime factor must fit.
+
+The packing, operand cache and plain contraction here are generic over
+the dtype: ``ops.fused_dd`` runs the f64 instance of the same kernel.
 
 - ``fused_eval_batch`` launches the kernel for CUDA tensors (or raises),
   and runs the plain PyTorch version of the same arithmetic for CPU
@@ -47,7 +54,8 @@ __all__ = ["fused_eval_batch", "fused_eval_batch_reference",
 launches = 0
 
 # Kernel geometry; keep in step with the constants in csrc/fused_eval.cu.
-_POINTS_PER_BLOCK = 64
+_POINTS_PER_BLOCK = {torch.float32: 64, torch.float64: 32}
+_ENTRY = {torch.float32: "fused_eval_f32", torch.float64: "fused_eval_f64"}
 _COL_TILE = 128
 _DEPTH = 16
 _MAX_DIMS = 16
@@ -60,49 +68,58 @@ def _geometry(shape: Tuple[int, ...]):
     return s, math.prod(shape[:s]), shape[s], math.prod(shape[s + 1:])
 
 
-def _smem_bytes(shape: Tuple[int, ...]) -> int:
+def _smem_bytes(shape: Tuple[int, ...], dtype=torch.float32) -> int:
     """Shared memory one block needs: rows, right-prime factor, and the
-    two contraction stages."""
+    two contraction stages, at ``dtype``'s tile (64 f32 or 32 f64 points
+    per block)."""
     _, _, _, n_rp = _geometry(shape)
-    return 4 * (_POINTS_PER_BLOCK * (sum(shape) + n_rp)
-                + _DEPTH * (_POINTS_PER_BLOCK + _COL_TILE))
+    ppb = _POINTS_PER_BLOCK[dtype]
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return itemsize * (ppb * (sum(shape) + n_rp)
+                       + _DEPTH * (ppb + _COL_TILE))
+
+
+def _fits(shape: Tuple[int, ...], dtype) -> bool:
+    """Whether the kernel's ``dtype`` instance takes this grid."""
+    return (3 <= len(shape) <= _MAX_DIMS
+            and _smem_bytes(shape, dtype) <= _MAX_SMEM_BYTES)
 
 
 def supports_fused(shape: Sequence[int], dtype) -> bool:
     """Whether the fused kernel covers this configuration."""
     shape = tuple(int(n) for n in shape)
-    if dtype != torch.float32 or not 3 <= len(shape) <= _MAX_DIMS:
-        return False
-    return _smem_bytes(shape) <= _MAX_SMEM_BYTES
+    return dtype == torch.float32 and _fits(shape, dtype)
 
 
-def _pack(tensor, nodes, weights, diff_matrices, orders, shape):
-    """(t3, nodes_cat, weights_cat) on the tensor's device.
+def _pack(tensor, nodes, weights, diff_matrices, orders, shape, dtype):
+    """(t3, nodes_cat, weights_cat) at ``dtype`` on the tensor's device.
 
-    ``t3`` is the derivative-applied tensor as f32 (n_mid*n_rp, n_left):
-    row ``j*n_rp + r`` holds ``T[:, j, r]`` over the flattened left
-    index, the layout the kernel streams.
+    ``t3`` is the derivative-applied tensor (n_mid*n_rp, n_left): row
+    ``j*n_rp + r`` holds ``T[:, j, r]`` over the flattened left index,
+    the layout the kernel streams.  Derivatives are applied in f64
+    before the cast.
     """
     t = tensor.to(torch.float64)
     if any(orders):
         t = apply_derivative_passes(
             t, [m.to(torch.float64) for m in diff_matrices], orders)
     _, n_left, n_mid, n_rp = _geometry(shape)
-    t3 = t.reshape(n_left, n_mid * n_rp).T.to(torch.float32).contiguous()
+    t3 = t.reshape(n_left, n_mid * n_rp).T.to(dtype).contiguous()
     nodes_cat = torch.cat([a.reshape(-1) for a in nodes]).to(
-        device=tensor.device, dtype=torch.float32).contiguous()
+        device=tensor.device, dtype=dtype).contiguous()
     weights_cat = torch.cat([a.reshape(-1) for a in weights]).to(
-        device=tensor.device, dtype=torch.float32).contiguous()
+        device=tensor.device, dtype=dtype).contiguous()
     return t3, nodes_cat, weights_cat
 
 
-# Small strong-reference LRU of packed operands.  Torch tensors mutate in
-# place without changing identity, so an entry matches only when every
-# keyed tensor is the same object AND has the same ``_version`` (the
-# counter torch bumps on each in-place write).  Strong references rule
-# out id reuse; the slot bound caps the pinned device memory.  The lock
-# keeps the move-to-front and eviction whole when engines share it
-# across threads.
+# Small strong-reference LRU of packed f32 operands (``ops.fused_dd``
+# keeps its own list for f64).  Torch tensors mutate in place without
+# changing identity, so an entry matches only when every keyed tensor is
+# the same object AND has the same ``_version`` (the counter torch bumps
+# on each in-place write).  Strong references rule out id reuse; the
+# slot bound caps the pinned device memory.  The lock keeps the
+# move-to-front and eviction whole when engines share a cache across
+# threads.
 _CACHE_SLOTS = 16
 _operand_cache: list = []
 _cache_lock = threading.Lock()
@@ -114,33 +131,35 @@ def clear_fused_cache() -> None:
         _operand_cache.clear()
 
 
-def _packed_operands(tensor, nodes, weights, diff_matrices, orders, shape):
+def _packed_operands(cache, tensor, nodes, weights, diff_matrices, orders,
+                     shape, dtype):
+    """``_pack``'s operands through the LRU list ``cache``."""
     keyed = (tensor, *nodes, *weights,
              *(diff_matrices if any(orders) else ()))
     versions = tuple(t._version for t in keyed)
     with _cache_lock:
-        for i, (e_keyed, e_versions, e_orders, packed) in enumerate(
-                _operand_cache):
+        for i, (e_keyed, e_versions, e_orders, packed) in enumerate(cache):
             if (e_orders == orders and e_versions == versions
                     and len(e_keyed) == len(keyed)
                     and all(a is b for a, b in zip(e_keyed, keyed))):
-                _operand_cache.insert(0, _operand_cache.pop(i))
+                cache.insert(0, cache.pop(i))
                 return packed
-    packed = _pack(tensor, nodes, weights, diff_matrices, orders, shape)
+    packed = _pack(tensor, nodes, weights, diff_matrices, orders, shape,
+                   dtype)
     with _cache_lock:
-        _operand_cache.insert(0, (keyed, versions, orders, packed))
-        del _operand_cache[_CACHE_SLOTS:]
+        cache.insert(0, (keyed, versions, orders, packed))
+        del cache[_CACHE_SLOTS:]
     return packed
 
 
 def _contract_packed(t3, nodes_cat, weights_cat, shape, points):
     """The kernel's arithmetic in plain PyTorch, on the kernel's operands
-    (same rows, same Khatri-Rao order, same f32), in bounded slices."""
+    (same rows, same Khatri-Rao order, same dtype), in bounded slices."""
     s, _, _, _ = _geometry(shape)
     offsets = [0]
     for n in shape:
         offsets.append(offsets[-1] + n)
-    out = torch.empty(points.shape[0], dtype=torch.float32,
+    out = torch.empty(points.shape[0], dtype=t3.dtype,
                       device=points.device)
     chunk = _chunk_size(shape)
     for start in range(0, points.shape[0], chunk):
@@ -158,9 +177,10 @@ def _contract_packed(t3, nodes_cat, weights_cat, shape, points):
     return out
 
 
-def _prepare(tensor, nodes, weights, diff_matrices, points, orders):
-    """Validated (shape, orders, points) with points as contiguous f32 on
-    the tensor's device."""
+def _prepare(tensor, nodes, weights, diff_matrices, points, orders,
+             dtype=torch.float32):
+    """Validated (shape, orders, points) with points as contiguous
+    ``dtype`` on the tensor's device."""
     shape = tuple(int(n) for n in tensor.shape)
     d = len(shape)
     orders = (0,) * d if orders is None else tuple(int(o) for o in orders)
@@ -175,56 +195,66 @@ def _prepare(tensor, nodes, weights, diff_matrices, points, orders):
     if any(a.device != tensor.device for a in grid):
         raise ValueError(f"nodes, weights and differentiation matrices "
                          f"must be on the tensor's device {tensor.device}")
-    if not supports_fused(shape, torch.float32):
+    if not _fits(shape, dtype):
         raise ValueError(
             f"grid shape {shape} is outside the fused kernel's envelope "
             f"(3 to {_MAX_DIMS} dims, {_MAX_SMEM_BYTES} bytes of shared "
-            f"memory per block); use ops.eval.eval_batch")
+            f"memory per block at {dtype}); use ops.eval.eval_batch")
     if not isinstance(points, torch.Tensor):
-        points = torch.as_tensor(points, device=tensor.device)
+        # dtype= here: a list of Python floats would otherwise become f32.
+        points = torch.as_tensor(points, dtype=dtype, device=tensor.device)
     if points.device != tensor.device:
         raise ValueError(f"points on {points.device}, tensor on "
                          f"{tensor.device}")
     if points.dim() != 2 or points.shape[1] != d:
         raise ValueError(f"points must have shape (N, {d}), got "
                          f"{tuple(points.shape)}")
-    return shape, orders, points.to(torch.float32).contiguous()
+    return shape, orders, points.to(dtype).contiguous()
+
+
+def _check_device(tensor, name):
+    if tensor.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{tensor.device}")
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("fused_eval")
-    lib.fused_eval_f32.argtypes = (
-        [ctypes.c_void_p] * 5
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-           ctypes.c_void_p])
-    lib.fused_eval_f32.restype = ctypes.c_int
+    for entry in _ENTRY.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+               ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.fused_eval_error_string.argtypes = [ctypes.c_int]
     lib.fused_eval_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _launch(t3, nodes_cat, weights_cat, shape, points):
-    global launches
+    """Launch the kernel's ``t3.dtype`` instance on the current stream.
+    Raises on a refused launch; counting it is the caller's job."""
+    entry = _ENTRY[t3.dtype]
     n = points.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"{n} points exceed the kernel's int32 count")
-    out = torch.empty(n, dtype=torch.float32, device=points.device)
+    out = torch.empty(n, dtype=t3.dtype, device=points.device)
     if n == 0:
         return out
     lib = _library()
     dims = (ctypes.c_int * len(shape))(*shape)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = lib.fused_eval_f32(
+        err = getattr(lib, entry)(
             points.data_ptr(), nodes_cat.data_ptr(), weights_cat.data_ptr(),
             t3.data_ptr(), out.data_ptr(), n, len(shape),
             ctypes.cast(dims, ctypes.c_void_p), _split_index(shape), stream)
     if err != 0:
         msg = lib.fused_eval_error_string(err).decode()
-        raise RuntimeError(f"fused_eval_f32 launch failed: {msg} "
+        raise RuntimeError(f"{entry} launch failed: {msg} "
                            f"(cudaError {err})")
-    launches += 1
     return out
 
 
@@ -237,17 +267,17 @@ def fused_eval_batch(tensor, nodes, weights, diff_matrices, points,
     arithmetic; any other device raises.  Packed operands are cached
     (see ``_operand_cache``).
     """
+    global launches
     shape, orders, points = _prepare(tensor, nodes, weights, diff_matrices,
                                      points, orders)
-    kind = tensor.device.type
-    if kind not in ("cuda", "cpu"):
-        raise ValueError(f"fused_eval_batch runs on cuda or cpu tensors, "
-                         f"got {tensor.device}")
-    t3, nodes_cat, weights_cat = _packed_operands(
-        tensor, nodes, weights, diff_matrices, orders, shape)
-    if kind == "cuda":
-        return _launch(t3, nodes_cat, weights_cat, shape, points)
-    return _contract_packed(t3, nodes_cat, weights_cat, shape, points)
+    _check_device(tensor, "fused_eval_batch")
+    packed = _packed_operands(_operand_cache, tensor, nodes, weights,
+                              diff_matrices, orders, shape, torch.float32)
+    if tensor.device.type == "cuda":
+        out = _launch(*packed, shape, points)
+        launches += points.shape[0] > 0   # an empty batch launches nothing
+        return out
+    return _contract_packed(*packed, shape, points)
 
 
 def fused_eval_batch_reference(tensor, nodes, weights, diff_matrices,
@@ -257,6 +287,6 @@ def fused_eval_batch_reference(tensor, nodes, weights, diff_matrices,
     with no operand cache and no kernel."""
     shape, orders, points = _prepare(tensor, nodes, weights, diff_matrices,
                                      points, orders)
-    t3, nodes_cat, weights_cat = _pack(tensor, nodes, weights,
-                                       diff_matrices, orders, shape)
-    return _contract_packed(t3, nodes_cat, weights_cat, shape, points)
+    packed = _pack(tensor, nodes, weights, diff_matrices, orders, shape,
+                   torch.float32)
+    return _contract_packed(*packed, shape, points)

@@ -258,3 +258,44 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library("fused_eval")
     assert not (tmp_path / "build").exists()
+
+
+class TestStreamGrids:
+    """Port of the JAX package's ``TestStreamKernel``: grids whose
+    one-tile VMEM working set does not fit, which the TPU serves with its
+    stream kernel K2.  The port serves them with the same kernel as K1
+    (its contraction-depth loop walks the middle dim), so its plain
+    version is held to JAX's stream kernel in interpret mode."""
+
+    def test_k2_grids_are_in_the_envelope(self):
+        from pychebyshev_tpu.ops.pallas_eval import _pick_plan
+        for shape in [(15,) * 5, (17,) * 5, (19,) * 5, (9,) * 6]:
+            assert _pick_plan(shape)[1], shape          # K2 on the TPU
+            assert fused_eval.supports_fused(shape, torch.float32), shape
+        assert fused_eval._smem_bytes((9,) * 6) == 46848
+        assert fused_eval._smem_bytes((17,) * 5) == 108032
+        assert fused_eval._smem_bytes((19,) * 5) == 129024
+
+    @pytest.mark.parametrize("orders,n,seed", [((0,) * 6, 150, 3),
+                                               ((1, 0, 0, 0, 1, 0), 64, 4)])
+    def test_9pow6_matches_stream_kernel(self, orders, n, seed):
+        from pychebyshev_tpu.ops.pallas_eval import _pick_plan
+        assert _pick_plan((9,) * 6)[1]       # stream mode engaged
+        rng = np.random.default_rng(seed)
+        domain = [(-1.0, 1.0)] * 6
+        nodes, weights, diffs = _grid(domain, (9,) * 6)
+        tensor = rng.standard_normal((9,) * 6)
+        pts = rng.uniform(-1, 1, (n, 6))
+        pts[0] = [nodes[k][2] for k in range(6)]   # exact-node row
+        ref64 = np.asarray(jax_eval.eval_batch(
+            jnp.asarray(tensor), tuple(map(jnp.asarray, nodes)),
+            tuple(map(jnp.asarray, weights)), tuple(map(jnp.asarray, diffs)),
+            jnp.asarray(pts), orders))
+        stream = np.asarray(pallas_eval.fused_eval_batch(
+            tensor, nodes, weights, diffs, pts, orders, interpret=True))
+        out = fused_eval.fused_eval_batch(
+            torch.tensor(tensor), _t(nodes), _t(weights), _t(diffs),
+            torch.tensor(pts), orders)
+        assert out.dtype == torch.float32 and out.shape == (n,)
+        assert _dev(out.numpy(), stream) <= F32_TOL
+        assert _dev(out.numpy(), ref64) <= F32_TOL

@@ -34,7 +34,8 @@ def test_every_module_imports_without_jax():
 def test_package_covers_the_slice():
     names = set(_modules())
     for want in ("config", "ops.chebyshev", "ops.dct", "ops.eval",
-                 "ops.fused_eval", "ops._build", "utils.binary",
+                 "ops.fused_eval", "ops.eval_dd", "ops.fused_dd",
+                 "ops._build", "utils.binary",
                  "utils.convert", "utils.derivative_ids",
                  "utils.parallel_build", "models.approximation", "serving"):
         assert f"pychebyshev_tpu_torch.{want}" in names

@@ -114,8 +114,33 @@ def test_unported_families_and_tiers_raise(pair):
         BatchedEvaluator(object(), device="cpu")
     with pytest.raises(TypeError, match="not ported yet"):
         MultiSpecEvaluator(object(), SPECS, device="cpu")
-    with pytest.raises(ValueError, match="'dd'"):
-        BatchedEvaluator(port, dtype="dd", device="cpu")
+    # "dd" is a tier of the port now; any other string still raises.
+    with pytest.raises(ValueError, match="'qd' is not a tier"):
+        BatchedEvaluator(port, dtype="qd", device="cpu")
+    with pytest.raises(ValueError, match="'qd' is not a tier"):
+        MultiSpecEvaluator(port, SPECS, dtype="qd", device="cpu")
     with pytest.raises(ValueError, match="float32"):
         BatchedEvaluator(port, dtype=torch.float64, use_fused=True,
                          device="cpu")
+
+
+def test_f64_engines_keep_host_lists_in_f64(pair, pts):
+    """Regression: the engines' intake once turned a Python list of
+    floats into float32 before the cast to f64 (2e-8 to 5e-8 off the
+    host path, against the 1e-12 ceiling).  A list and a numpy array of
+    the same request now give bitwise-equal results."""
+    ref, port = pair
+    req = pts[:257]
+    want = jax_serving.BatchedEvaluator(
+        ref, dtype=jnp.float64, bucket_sizes=BUCKETS)(req)
+    want_m = jax_serving.MultiSpecEvaluator(
+        ref, SPECS, dtype=jnp.float64, bucket_sizes=BUCKETS)(req)
+    single = BatchedEvaluator(port, dtype=torch.float64,
+                              bucket_sizes=BUCKETS, device="cpu")
+    multi = MultiSpecEvaluator(port, SPECS, dtype=torch.float64,
+                               bucket_sizes=BUCKETS, device="cpu")
+    for engine, jax_out in ((single, want), (multi, want_m)):
+        from_list = engine(req.tolist())
+        from_array = engine(req)
+        assert torch.equal(from_list, from_array)
+        assert _dev(from_list.numpy(), jax_out) <= F64_TOL
