@@ -11,11 +11,12 @@ batches of 2^20 points
   through the same evaluator's f64 instance (K3);
 
 and a 19^5 interpolant (2,476,099 nodes), a grid the TPU served with
-its stream kernel K2, through the f32 evaluator.  It builds the kernels
-from this checkout's sources, holds each to its plain PyTorch version,
-checks every path against the repository's accuracy ceilings, and
-times the paths, the plain versions and a cuBLAS GEMM yardstick with
-CUDA events.
+its stream kernel K2, through the f32 evaluator (and the f64 one).  It
+builds the kernels from this checkout's sources, reports each
+instance's registers, spills and tensor-core instructions, holds each
+to its plain PyTorch version, checks every path against the
+repository's accuracy ceilings, and times the paths, the plain versions
+and a cuBLAS GEMM yardstick with CUDA events.
 
 Run from the repository root, with one CUDA card:
 
@@ -29,6 +30,8 @@ without the package beside this file) it exits non-zero.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -64,11 +67,13 @@ F32_CEILING = 2e-4
 F64_CEILING = 1e-12
 K3_VS_PLAIN = 1e-12   # both f64: summation order only
 DD_CEILING = 1e-10
-# Published H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the
-# tensor cores, f64 on the tensor cores (34 TFLOP/s on the SIMT pipes),
-# and device memory.
-F32_PEAK = 67e12
-F64_PEAK = 67e12
+# Published H100 SXM peaks (NVIDIA data sheet, 700 W, dense): the pipes
+# each instance runs on (TF32 tensor cores, three passes for f32; f64
+# tensor cores), the SIMT pipes printed beside them, and device memory.
+TF32_PEAK = 495e12
+F64_TC_PEAK = 67e12
+F32_SIMT_PEAK = 67e12
+F64_SIMT_PEAK = 34e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -137,16 +142,70 @@ def random_operands(shape, rng):
             on_card(grid), on_card(wts), on_card(dmats)), grid
 
 
-def bound(shape, n, itemsize, peak):
+def bound(shape, n, itemsize, peak, passes=1):
     """(ms, what bounds it): the contraction's 2*prod(shape) FLOP per
-    point over ``peak``, or the bytes moved (points in, values out, the
-    tensor once) over the memory rate, whichever is larger."""
+    point, ``passes`` times, over ``peak``, or the bytes moved (points
+    in, values out, the tensor once) over the memory rate, whichever is
+    larger."""
     nodes = int(np.prod(shape))
-    flop_ms = 2.0 * nodes * n / peak * 1e3
+    flop_ms = passes * 2.0 * nodes * n / peak * 1e3
     byte_ms = itemsize * (n * (len(shape) + 1) + nodes) \
         / HBM_BYTES_PER_S * 1e3
     return max(flop_ms, byte_ms), ("operations" if flop_ms >= byte_ms
                                    else "bytes")
+
+
+def build_report(lib) -> str:
+    """Registers and spills of each kernel instance from the build's
+    ``ptxas -v`` report, and the tensor-core instructions in its SASS
+    where ``cuobjdump`` exists.  Fails on a spill or a missing MMA."""
+    instances = {"fused_eval_kernelIfE": ("f32", "HMMA"),
+                 "fused_eval_kernelIdE": ("f64", "DMMA")}
+    regs, spills, func = {}, {}, None
+    for line in _build.build_log(lib._name).read_text().splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\S+?)'?"
+                      r"(?: for|$)", line)
+        if m:
+            func = next((v[0] for k, v in instances.items()
+                         if k in m.group(1)), None)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and func:
+            spills[func] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and func:
+            regs[func] = int(m.group(1))
+    parts = []
+    for name, mma in instances.values():
+        check(name in regs and name in spills,
+              f"no ptxas report of the {name} instance")
+        check(spills[name] == 0, f"{name} instance spills "
+                                 f"{spills[name]} bytes")
+        dtype = torch.float32 if name == "f32" else torch.float64
+        parts.append(f"{name}: {regs[name]} registers, 0 spills, "
+                     f"{fused_eval._smem_bytes((11,) * 5, dtype):,} / "
+                     f"{fused_eval._smem_bytes((19,) * 5, dtype):,} bytes "
+                     f"of dynamic shared memory at 11^5 / 19^5")
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(_build.find_nvcc()).parent / "cuobjdump")
+    if not Path(cuobjdump).is_file():
+        return "; ".join(parts) + "; cuobjdump not found, SASS not read"
+    sass = subprocess.run([cuobjdump, "-sass", lib._name],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = next((v for k, v in instances.items()
+                         if k in m.group(1)), None)
+        elif func and re.search(rf"\b{func[1]}\.", line):
+            counts[func] = counts.get(func, 0) + 1
+    for name, mma in instances.values():
+        n = counts.get((name, mma), 0)
+        check(n > 0, f"no {mma} instruction in the {name} instance's SASS")
+        parts.append(f"{mma} in {name}: {n}")
+    return "; ".join(parts)
 
 
 def cuda_ms(fn, reps=15, warmup=3) -> float:
@@ -193,7 +252,7 @@ def main() -> None:
     lib = _build.load_library("fused_eval")
     print(f"[2 kernel build] {time.perf_counter() - t0:.3f} s -> "
           f"{Path(lib._name).relative_to(ROOT)} (fused_eval_f32, "
-          f"fused_eval_f64)", flush=True)
+          f"fused_eval_f64); {build_report(lib)}", flush=True)
 
     # 3. Build the interpolant.
     t0 = time.perf_counter()
@@ -239,10 +298,28 @@ def main() -> None:
                                 f"{K1_VS_PLAIN:g}")
         worst = max(worst, d)
         max_abs = max(max_abs, float((out - plain).abs().max()))
+    # The kernel's three TF32 passes, and one pass alone, emulated in
+    # plain PyTorch on the card against the plain f32 version and f64.
+    sub = cases[0][2][:65_536]
+    packed = fused_eval._pack(cheb.tensor_values, nodes, weights, diffs,
+                              (0,) * 5, (11,) * 5, torch.float32)
+    ref64 = cheb.eval_batch_device(sub.double())
+    emulated = {
+        "3xTF32": fused_eval._matmul_3xtf32,
+        "one-pass TF32": lambda a, b: (fused_eval._tf32_round(a)
+                                       @ fused_eval._tf32_round(b))}
+    emulation = "; ".join(
+        f"{label} emulation vs plain {dev(got, plain):.3e}, vs f64 "
+        f"{dev(got, ref64):.3e}"
+        for label, matmul in emulated.items()
+        for got, plain in [(fused_eval._contract_packed(
+            *packed, (11,) * 5, sub, matmul=matmul),
+            fused_eval._contract_packed(*packed, (11,) * 5, sub))])
     print(f"[4 K1 vs plain] {len(cases)} cases (11^5 at N=2^20 and "
           f"1,000,003 with node hits, orders value/d0/d4; (8,9,7), (3,5,7)): "
           f"max deviation {worst:.3e} <= {K1_VS_PLAIN:g}, max abs "
-          f"{max_abs:.3e}", flush=True)
+          f"{max_abs:.3e}; on 65,536 of those points: {emulation}",
+          flush=True)
 
     # 5. f32 (K1 route) against f64, on the card.
     pts64 = torch.tensor(sample_points(N, SEED + 5), device=DEVICE)
@@ -329,6 +406,15 @@ def main() -> None:
         print(f"[9 timing] {name}: {ms[name]:.4f} ms per 2^20 points = "
               f"{N / ms[name] * 1e3:,.0f} /s | {card}", flush=True)
 
+    # The 19^5 interpolant, for K3 (phase 10) and K2 (phase 13).
+    t0 = time.perf_counter()
+    cheb19 = ChebyshevApproximation(bs_price_np, 5, DOMAIN, [19] * 5,
+                                    vectorized=True, device=DEVICE)
+    cheb19.build(verbose=False)
+    torch.cuda.synchronize()
+    build19 = time.perf_counter() - t0
+    nodes19, weights19, diffs19 = cheb19._grid_tuples()
+
     # 10. K3 against its plain version, on the card.
     k3_cases = []
     for n, seed in ((N, SEED + 1), (1_000_003, SEED + 2)):
@@ -349,6 +435,12 @@ def main() -> None:
             device=DEVICE)
         k3_cases.append((f"{shape} N={n} orders={orders}", operands, pts,
                          orders))
+    k3_cases.append(("19^5 N=65536 orders=(0, 0, 0, 0, 0)",
+                     (cheb19.tensor_values, nodes19, weights19, diffs19),
+                     torch.tensor(with_node_hits(sample_points(65_536,
+                                                               SEED + 22),
+                                                 cheb19._nodes_np()),
+                                  device=DEVICE), (0,) * 5))
     k3_worst = k3_abs = 0.0
     for name, operands, pts, orders in k3_cases:
         before = fused_dd.launches
@@ -366,7 +458,8 @@ def main() -> None:
         k3_abs = max(k3_abs, float((out - plain).abs().max()))
     print(f"[10 K3 vs plain] {len(k3_cases)} cases (11^5 at N=2^20 and "
           f"1,000,003 with node hits, orders value/d0/d4; (8,9,7), (3,5,7) "
-          f"at 100,003; 17^5 at 65,537): max deviation {k3_worst:.3e} <= "
+          f"at 100,003; 17^5 at 65,537; 19^5 at 65,536 with node hits): "
+          f"max deviation {k3_worst:.3e} <= "
           f"{K3_VS_PLAIN:g}, max abs {k3_abs:.3e} | {card}", flush=True)
 
     # 11. The dd tier against f64, on the card.
@@ -424,19 +517,12 @@ def main() -> None:
           f"{k3_launches} | {card}", flush=True)
 
     # 13. K2's grids through the f32 evaluator.
-    t0 = time.perf_counter()
-    cheb19 = ChebyshevApproximation(bs_price_np, 5, DOMAIN, [19] * 5,
-                                    vectorized=True, device=DEVICE)
-    cheb19.build(verbose=False)
-    torch.cuda.synchronize()
-    build19 = time.perf_counter() - t0
     fused_eval.launches = 0
     f32_19 = checked(cheb19.eval_batch_f32(pts64), (N,), "19^5 eval_batch_f32")
     torch.cuda.synchronize()
     k2_launches = fused_eval.launches
     check(k2_launches > 0, "19^5 eval_batch_f32 did not launch the kernel")
     sub19 = pts64[:65_536]
-    nodes19, weights19, diffs19 = cheb19._grid_tuples()
     plain19 = fused_eval.fused_eval_batch_reference(
         cheb19.tensor_values, nodes19, weights19, diffs19, sub19.float())
     k2_worst = dev(f32_19[:65_536], plain19)
@@ -495,6 +581,9 @@ def main() -> None:
         "K1 f32 at 19^5 (fused_eval_batch)":
             lambda: fused_eval.fused_eval_batch(
                 cheb19.tensor_values, nodes19, weights19, diffs19, pts19_32),
+        "K3 f64 at 19^5 (fused_eval_batch_dd)":
+            lambda: fused_dd.fused_eval_batch_dd(
+                cheb19.tensor_values, nodes19, weights19, diffs19, pts64),
         "plain f32 at 19^5 (fused_eval_batch_reference)":
             lambda: fused_eval.fused_eval_batch_reference(
                 cheb19.tensor_values, nodes19, weights19, diffs19, pts19_32),
@@ -514,21 +603,27 @@ def main() -> None:
               f"{2 * N * k * m / ms[name] / 1e9:.2f} TFLOP/s | {card}",
               flush=True)
 
+    # Bounds on the pipes each instance runs on: f32 on the TF32 tensor
+    # cores in three passes, f64 on the f64 tensor cores; the SIMT pipes'
+    # bound beside each.
     rows = [
         ("K1 fused f32 dense evaluator", "pychebyshev_tpu/ops/pallas_eval.py:173",
          main_launches, max_abs, "K1 f32 (fused_eval_batch)",
          "plain f32 (fused_eval_batch_reference)", "GEMM f32 11^5",
-         bound((11,) * 5, N, 4, F32_PEAK)),
+         bound((11,) * 5, N, 4, TF32_PEAK, passes=3),
+         bound((11,) * 5, N, 4, F32_SIMT_PEAK)[0]),
         ("K2 stream f32 dense evaluator (K1's kernel at 19^5)",
          "pychebyshev_tpu/ops/pallas_eval.py:319", k2_launches, k2_abs,
          "K1 f32 at 19^5 (fused_eval_batch)",
          "plain f32 at 19^5 (fused_eval_batch_reference)", "GEMM f32 19^5",
-         bound((19,) * 5, N, 4, F32_PEAK)),
+         bound((19,) * 5, N, 4, TF32_PEAK, passes=3),
+         bound((19,) * 5, N, 4, F32_SIMT_PEAK)[0]),
         ("K3 fused dd dense evaluator (f64)",
          "pychebyshev_tpu/ops/pallas_dd.py:155", k3_launches, k3_abs,
          "K3 f64 (fused_eval_batch_dd)",
          "plain f64 (fused_eval_batch_dd_reference)", "GEMM f64 11^5",
-         bound((11,) * 5, N, 8, F64_PEAK)),
+         bound((11,) * 5, N, 8, F64_TC_PEAK),
+         bound((11,) * 5, N, 8, F64_SIMT_PEAK)[0]),
     ]
     print(json.dumps({"kernels": [{
         "name": name,
@@ -541,9 +636,10 @@ def main() -> None:
         "plain_ms": ms[plain],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_simt_ms": bound_simt_ms,
         "library_ms": ms[library],
     } for name, replaces, launches, err, kernel, plain, library,
-        (bound_ms, bound_by) in rows]}), flush=True)
+        (bound_ms, bound_by), bound_simt_ms in rows]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

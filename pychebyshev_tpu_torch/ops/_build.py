@@ -5,8 +5,10 @@ into a shared library with a plain C interface, and loaded with
 ``ctypes``.  The build happens at first use, into
 ``pychebyshev_tpu_torch/_build/`` (git-ignored), under a name that
 carries the hash of the source, so an edited source is rebuilt.  Only
-the sources in this package are built.  A missing ``nvcc`` or a failed
-compile raises with the compiler's output; there is no fallback.
+the sources in this package are built.  ``ptxas``'s report of each
+kernel's registers, spills and static shared memory is kept beside the
+library (``build_log``).  A missing ``nvcc`` or a failed compile raises
+with the compiler's output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "find_nvcc", "NVCC_FLAGS"]
+__all__ = ["load_library", "build_log", "find_nvcc", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -27,7 +29,7 @@ _BUILD_DIR = _PKG / "_build"
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -61,7 +63,17 @@ def _compile(src: Path, out: Path) -> None:
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}) building {src.name}:\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    log = build_log(out)
+    log_tmp = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    log_tmp.write_text(proc.stdout + proc.stderr)
+    os.replace(log_tmp, log)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+
+
+def build_log(lib_path) -> Path:
+    """Where the compiler's report of the library at ``lib_path`` is
+    kept (``ptxas -v``: registers, spills, static shared memory)."""
+    return Path(lib_path).with_suffix(".ptxas.txt")
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,14 +2,15 @@
 
 Counterpart of ``pychebyshev_tpu/ops/pallas_dd.py``.  The TPU kernel
 reaches near-f64 accuracy through bf16 digit planes with exact f32
-accumulation, because TPU v5e has no f64.  Hopper has IEEE f64 FMA, so
-this module runs the f64 instance of the fused evaluator
-(``csrc/fused_eval.cu``, entry ``fused_eval_f64``): the same function,
-within the dd contract's 1e-10 of true f64 (in fact to f64 rounding),
-with the whole per-point pipeline on chip.
+accumulation, because TPU v5e has no f64.  Hopper's tensor cores
+multiply and accumulate in f64 (DMMA), so this module runs the f64
+instance of the fused evaluator (``csrc/fused_eval.cu``, entry
+``fused_eval_f64``): the same function, within the dd contract's 1e-10
+of true f64 (in fact to f64 rounding), with the whole per-point
+pipeline on chip.
 
 - ``fused_eval_batch_dd`` launches the kernel for CUDA tensors (or
-  raises), and runs the plain PyTorch version of the same arithmetic for
+  raises), and runs the plain PyTorch version of the same function for
   CPU tensors.  Nothing falls back from one to the other.
 - ``fused_eval_batch_dd_reference`` is that plain version, on any device.
 - Derivative orders are applied to the tensor once, in f64, before
@@ -21,8 +22,9 @@ The packing, operand cache and plain contraction are ``ops.fused_eval``'s,
 at f64.  The TPU knobs ``block`` and ``interpret`` have no counterpart.
 
 Scope (``supports_fused_dd``): tensors with 3 to 16 dims that the dd
-tier accepts (``ops.eval_dd.supports_dd``) and whose f64 tile (32
-points per block) fits Hopper's 227 KB of shared memory per block.
+tier accepts (``ops.eval_dd.supports_dd``), whose f64 tile (128 points
+per block) fits Hopper's 227 KB of shared memory per block, and whose
+padded pack has under 2^31 elements.
 """
 
 from __future__ import annotations
@@ -83,7 +85,8 @@ def _prepare(tensor, nodes, weights, diff_matrices, points, orders):
             f"grid shape {shape} outside the fused dd envelope (3 to "
             f"{fused_eval._MAX_DIMS} dims inside the dd plan, "
             f"{fused_eval._MAX_SMEM_BYTES} bytes of shared memory per "
-            f"block at f64); use ops.eval_dd.eval_batch_dd")
+            f"block at f64, a pack under 2^31 elements); use "
+            f"ops.eval_dd.eval_batch_dd")
     return fused_eval._prepare(tensor, nodes, weights, diff_matrices,
                                points, orders, torch.float64)
 
@@ -94,7 +97,7 @@ def fused_eval_batch_dd(tensor, nodes, weights, diff_matrices, points,
 
     Same contract as ``ops.eval_dd.eval_batch_dd``.  A CUDA tensor
     launches the kernel; a CPU tensor runs the plain version of the same
-    arithmetic; any other device raises.  Packed operands are cached.
+    function; any other device raises.  Packed operands are cached.
     """
     shape, orders, points = _prepare(tensor, nodes, weights, diff_matrices,
                                      points, orders)

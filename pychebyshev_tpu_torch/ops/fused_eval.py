@@ -4,28 +4,34 @@ and K2.
 Counterpart of ``pychebyshev_tpu/ops/pallas_eval.py``.  The kernel
 (``csrc/fused_eval.cu``) keeps the whole per-point pipeline — row build,
 Khatri-Rao factors, tensor contraction — on chip, so device memory sees
-the points in and one float out per point.  It works in IEEE f32 with
-f32 accumulation (no TF32); the Mosaic-specific bf16 splits, selection
-dots and VMEM plans of the TPU kernel have no counterpart here.  The
-same kernel covers the grids the TPU served with its stream kernel K2
-(15^5 to 19^5, 9^6): it walks the contraction depth in shared-memory
-stages, so only the rows and the right-prime factor must fit.
+the points in and one float out per point.  Its contraction runs on the
+TF32 tensor cores in three passes (3xTF32: each operand splits into a
+TF32 big part and a TF32 small part, and small*big + big*small +
+big*big accumulates in f32), which keeps f32 accuracy; one TF32 pass
+would not.  The Mosaic-specific bf16 splits, selection dots and VMEM
+plans of the TPU kernel have no counterpart here.  The same kernel
+covers the grids the TPU served with its stream kernel K2 (15^5 to
+19^5, 9^6): it walks the contraction depth in shared-memory stages, so
+only the rows of a block's points must fit.
 
 The packing, operand cache and plain contraction here are generic over
 the dtype: ``ops.fused_dd`` runs the f64 instance of the same kernel.
 
 - ``fused_eval_batch`` launches the kernel for CUDA tensors (or raises),
-  and runs the plain PyTorch version of the same arithmetic for CPU
+  and runs the plain PyTorch version of the same function for CPU
   tensors.  Nothing falls back from one to the other.
-- ``fused_eval_batch_reference`` is that plain version, on any device:
-  the CPU tests use it, and the chip check compares the kernel with it.
+- ``fused_eval_batch_reference`` is that plain version (IEEE f32), on
+  any device: the CPU tests use it, and the chip check compares the
+  kernel with it.  ``_matmul_3xtf32`` emulates the kernel's 3xTF32
+  product in plain PyTorch, for the tests.
 - Derivative orders are applied to the tensor once, in f64 on its
   device, before the cast to f32.
 - ``launches`` counts kernel launches (a plain integer; reset it by
   assignment).
 
 Scope (``supports_fused``): f32 evaluation of tensors with 3 to 16 dims
-whose per-block shared-memory footprint fits Hopper's 227 KB.
+whose per-block shared-memory footprint fits Hopper's 227 KB and whose
+padded pack has under 2^31 elements.
 """
 
 from __future__ import annotations
@@ -54,10 +60,14 @@ __all__ = ["fused_eval_batch", "fused_eval_batch_reference",
 launches = 0
 
 # Kernel geometry; keep in step with the constants in csrc/fused_eval.cu.
-_POINTS_PER_BLOCK = {torch.float32: 64, torch.float64: 32}
 _ENTRY = {torch.float32: "fused_eval_f32", torch.float64: "fused_eval_f64"}
-_COL_TILE = 128
-_DEPTH = 16
+_BLOCK_POINTS = 128   # points per block
+_COL_TILE = 128       # left-index columns per tile; t3's rows pad to it
+_DEPTH = 16           # contraction steps per stage; t3's depth pads to it
+_STAGES = 3           # ring of T stages
+_WARPS_N = 4          # column warps, each with a row of partial sums
+_PAD = {torch.float32: 8, torch.float64: 4}      # stage row pad, values
+_A_PLANES = {torch.float32: 2, torch.float64: 1}  # tf32 big + small, f64
 _MAX_DIMS = 16
 _MAX_SMEM_BYTES = 232448   # 227 KB: a Hopper block's shared-memory cap
 
@@ -68,21 +78,35 @@ def _geometry(shape: Tuple[int, ...]):
     return s, math.prod(shape[:s]), shape[s], math.prod(shape[s + 1:])
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def _smem_bytes(shape: Tuple[int, ...], dtype=torch.float32) -> int:
-    """Shared memory one block needs: rows, right-prime factor, and the
-    two contraction stages, at ``dtype``'s tile (64 f32 or 32 f64 points
-    per block)."""
-    _, _, _, n_rp = _geometry(shape)
-    ppb = _POINTS_PER_BLOCK[dtype]
+    """Shared memory one block needs: the ring of T stages, two A stages
+    (two planes each in f32), the column warps' partial sums, the rows of
+    the block's points, and the table of 16-bit row lanes of the
+    right-prime dims for each of the n_rp right-prime indices."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return itemsize * (ppb * (sum(shape) + n_rp)
-                       + _DEPTH * (ppb + _COL_TILE))
+    s, _, _, n_rp = _geometry(shape)
+    stages = (_STAGES + 2 * _A_PLANES[dtype]) * _DEPTH * (_COL_TILE
+                                                          + _PAD[dtype])
+    lanes = 2 * n_rp * (len(shape) - s - 1)
+    return (itemsize * (stages + _WARPS_N * _BLOCK_POINTS
+                        + _BLOCK_POINTS * sum(shape)) + lanes)
 
 
 def _fits(shape: Tuple[int, ...], dtype) -> bool:
-    """Whether the kernel's ``dtype`` instance takes this grid."""
-    return (3 <= len(shape) <= _MAX_DIMS
-            and _smem_bytes(shape, dtype) <= _MAX_SMEM_BYTES)
+    """Whether the kernel's ``dtype`` instance takes this grid: its
+    shared memory fits a block, and its padded pack has under 2^31
+    elements (the kernel's offsets into it are 32-bit)."""
+    if not 3 <= len(shape) <= _MAX_DIMS:
+        return False
+    _, n_left, n_mid, n_rp = _geometry(shape)
+    elements = (_round_up(n_mid * n_rp, _DEPTH)
+                * _round_up(n_left, _COL_TILE))
+    return (_smem_bytes(shape, dtype) <= _MAX_SMEM_BYTES
+            and elements < 2 ** 31)
 
 
 def supports_fused(shape: Sequence[int], dtype) -> bool:
@@ -94,17 +118,21 @@ def supports_fused(shape: Sequence[int], dtype) -> bool:
 def _pack(tensor, nodes, weights, diff_matrices, orders, shape, dtype):
     """(t3, nodes_cat, weights_cat) at ``dtype`` on the tensor's device.
 
-    ``t3`` is the derivative-applied tensor (n_mid*n_rp, n_left): row
+    ``t3`` is the derivative-applied tensor, (n_mid*n_rp, n_left) zero-
+    padded to (k_pad, ld), multiples of ``_DEPTH`` and ``_COL_TILE``: row
     ``j*n_rp + r`` holds ``T[:, j, r]`` over the flattened left index,
-    the layout the kernel streams.  Derivatives are applied in f64
-    before the cast.
+    the layout the kernel streams in whole 16-byte-aligned tiles.
+    Derivatives are applied in f64 before the cast.
     """
     t = tensor.to(torch.float64)
     if any(orders):
         t = apply_derivative_passes(
             t, [m.to(torch.float64) for m in diff_matrices], orders)
     _, n_left, n_mid, n_rp = _geometry(shape)
-    t3 = t.reshape(n_left, n_mid * n_rp).T.to(dtype).contiguous()
+    k = n_mid * n_rp
+    t3 = torch.zeros((_round_up(k, _DEPTH), _round_up(n_left, _COL_TILE)),
+                     dtype=dtype, device=tensor.device)
+    t3[:k, :n_left] = t.reshape(n_left, k).T
     nodes_cat = torch.cat([a.reshape(-1) for a in nodes]).to(
         device=tensor.device, dtype=dtype).contiguous()
     weights_cat = torch.cat([a.reshape(-1) for a in weights]).to(
@@ -152,10 +180,33 @@ def _packed_operands(cache, tensor, nodes, weights, diff_matrices, orders,
     return packed
 
 
-def _contract_packed(t3, nodes_cat, weights_cat, shape, points):
-    """The kernel's arithmetic in plain PyTorch, on the kernel's operands
-    (same rows, same Khatri-Rao order, same dtype), in bounded slices."""
-    s, _, _, _ = _geometry(shape)
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32``
+    rounds it: to nearest, ties away from zero, by bit operations on the
+    magnitude (a carry into the exponent gives the next power of two)."""
+    bits = x.contiguous().view(torch.int32)
+    sign = bits & -0x80000000
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
+    return (sign | mag).view(torch.float32)
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's f32 product in plain PyTorch: each operand split into
+    TF32 big and small parts, small*big + big*small + big*big summed in
+    f32 (each TF32 x TF32 product is exact in f32)."""
+    a_big, b_big = _tf32_round(a), _tf32_round(b)
+    a_small, b_small = _tf32_round(a - a_big), _tf32_round(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _contract_packed(t3, nodes_cat, weights_cat, shape, points,
+                     matmul=torch.matmul):
+    """The kernel's function in plain PyTorch, on the kernel's padded
+    operands (same rows, same Khatri-Rao order, same dtype), in bounded
+    slices.  ``matmul`` forms the contraction; the tests pass
+    ``_matmul_3xtf32`` to emulate the f32 kernel's tensor-core passes."""
+    s, n_left, n_mid, n_rp = _geometry(shape)
+    t3 = t3[:n_mid * n_rp, :n_left]   # the padding contributes nothing
     offsets = [0]
     for n in shape:
         offsets.append(offsets[-1] + n)
@@ -173,7 +224,7 @@ def _contract_packed(t3, nodes_cat, weights_cat, shape, points):
         if s + 1 < len(shape):
             w_rp = _khatri_rao(rows[s + 1:])
             a = (a[:, :, None] * w_rp[:, None, :]).reshape(pts.shape[0], -1)
-        out[start:start + chunk] = (w_left * (a @ t3)).sum(dim=1)
+        out[start:start + chunk] = (w_left * matmul(a, t3)).sum(dim=1)
     return out
 
 
@@ -199,7 +250,8 @@ def _prepare(tensor, nodes, weights, diff_matrices, points, orders,
         raise ValueError(
             f"grid shape {shape} is outside the fused kernel's envelope "
             f"(3 to {_MAX_DIMS} dims, {_MAX_SMEM_BYTES} bytes of shared "
-            f"memory per block at {dtype}); use ops.eval.eval_batch")
+            f"memory per block at {dtype}, a pack under 2^31 elements); "
+            f"use ops.eval.eval_batch")
     if not isinstance(points, torch.Tensor):
         # dtype= here: a list of Python floats would otherwise become f32.
         points = torch.as_tensor(points, dtype=dtype, device=tensor.device)
@@ -220,7 +272,11 @@ def _check_device(tensor, name):
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library("fused_eval")
+    return _bind(_build.load_library("fused_eval"))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' signatures on a loaded library."""
     for entry in _ENTRY.values():
         fn = getattr(lib, entry)
         fn.argtypes = (
@@ -264,7 +320,7 @@ def fused_eval_batch(tensor, nodes, weights, diff_matrices, points,
 
     Drop-in for ``ops.eval.eval_batch`` at f32.  A CUDA tensor launches
     the kernel; a CPU tensor runs the plain version of the same
-    arithmetic; any other device raises.  Packed operands are cached
+    function; any other device raises.  Packed operands are cached
     (see ``_operand_cache``).
     """
     global launches

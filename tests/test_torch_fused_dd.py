@@ -96,7 +96,7 @@ def _jax_f64(tensor, nodes, weights, diffs, pts, orders):
         jnp.asarray(pts), orders))
 
 
-# A ragged N of 700 (not a multiple of the kernel's 32-point blocks, nor
+# A ragged N of 700 (not a multiple of the kernel's 128-point blocks, nor
 # of the Pallas kernel's 512) on the 5-D grid; 301 on the 3-D ones.
 # The last field names the JAX dd function the port is held to.
 @pytest.mark.parametrize("name,n,jax_dd", [
@@ -237,8 +237,9 @@ def test_supports_fused_dd():
         assert pallas_dd.supports_fused_dd(shape), shape
     assert not fused_dd.supports_fused_dd((5, 5))       # < 3 dims
     assert not fused_dd.supports_fused_dd((11,) * 7)    # outside the dd plan
-    # The f64 tile holds 32 points: 65,536 bytes at 11^5, 137,216 at
-    # 19^5 (64 points would need 258,048, over the 232,448-byte cap).
-    assert fused_eval._smem_bytes((11,) * 5, torch.float64) == 65536
-    assert fused_eval._smem_bytes((19,) * 5, torch.float64) == 137216
-    assert fused_eval._smem_bytes((11,) * 5) == 57344   # K1 unchanged
+    # The f64 tile holds 128 points: 145,380 bytes at 11^5 and 187,300
+    # at 19^5, under the 232,448-byte cap (rows 97,280 and the lane table
+    # 1,444 of them at 19^5).
+    assert fused_eval._smem_bytes((11,) * 5, torch.float64) == 145380
+    assert fused_eval._smem_bytes((19,) * 5, torch.float64) == 187300
+    assert fused_eval._smem_bytes((11,) * 5) == 91620   # the f32 tile

@@ -245,8 +245,14 @@ def test_supports_fused():
     # The right-prime-free split of (2, 2, 4096) packs 4,100 row lanes
     # per point: past the 227 KB of shared memory a block may use.
     assert not fused_eval.supports_fused((2, 2, 4096), torch.float32)
-    # 11^5 needs 57,344 bytes per block.
-    assert fused_eval._smem_bytes((11,) * 5) == 57344
+    # 36^6 fits a block's shared memory, but its padded pack has 2.2e9
+    # elements, past the kernel's 32-bit offsets.
+    assert fused_eval._smem_bytes((36,) * 6) <= fused_eval._MAX_SMEM_BYTES
+    assert not fused_eval.supports_fused((36,) * 6, torch.float32)
+    # 11^5 needs 91,620 bytes per block: the T ring 26,112, two A stages
+    # of two TF32 planes 34,816, partial sums 2,048, rows 28,160 and the
+    # right-prime lane table 484.
+    assert fused_eval._smem_bytes((11,) * 5) == 91620
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -272,9 +278,13 @@ class TestStreamGrids:
         for shape in [(15,) * 5, (17,) * 5, (19,) * 5, (9,) * 6]:
             assert _pick_plan(shape)[1], shape          # K2 on the TPU
             assert fused_eval.supports_fused(shape, torch.float32), shape
-        assert fused_eval._smem_bytes((9,) * 6) == 46848
-        assert fused_eval._smem_bytes((17,) * 5) == 108032
-        assert fused_eval._smem_bytes((19,) * 5) == 129024
+        assert fused_eval._smem_bytes((9,) * 6) == 90948
+        assert fused_eval._smem_bytes((17,) * 5) == 107652
+        assert fused_eval._smem_bytes((19,) * 5) == 113060
+        # Two f32 blocks share an SM's 228 KB (1 KB reserved per block),
+        # as the kernel's register plan for the f32 instance assumes.
+        for shape in [(11,) * 5, (15,) * 5, (17,) * 5, (19,) * 5, (9,) * 6]:
+            assert 2 * (fused_eval._smem_bytes(shape) + 1024) <= 233472
 
     @pytest.mark.parametrize("orders,n,seed", [((0,) * 6, 150, 3),
                                                ((1, 0, 0, 0, 1, 0), 64, 4)])
@@ -299,3 +309,95 @@ class TestStreamGrids:
         assert out.dtype == torch.float32 and out.shape == (n,)
         assert _dev(out.numpy(), stream) <= F32_TOL
         assert _dev(out.numpy(), ref64) <= F32_TOL
+
+
+def _bs11_problem():
+    shape = (11,) * 5
+    nodes, weights, diffs = _grid(BS_DOMAIN_5D, shape)
+    grids = np.meshgrid(*nodes, indexing="ij")
+    pts = np.stack([g.ravel() for g in grids], axis=-1)
+    tensor = bs_price_vectorized(pts).reshape(shape)
+    return tensor, nodes, weights, diffs, BS_DOMAIN_5D
+
+
+@pytest.mark.parametrize("shape", [(11,) * 5, (9,) * 6, (3, 5, 7)])
+def test_padded_pack_contracts_like_the_unpadded_one(shape):
+    """The kernel's pack pads t3 with zeros to whole (16-deep, 128-wide)
+    tiles; the plain contraction on it equals the one on the unpadded
+    (n_mid*n_rp, n_left) layout."""
+    tensor, nodes, weights, diffs, domain = _random_problem(shape, 11)
+    orders = (1,) + (0,) * (len(shape) - 1)
+    t3, nodes_cat, weights_cat = fused_eval._pack(
+        torch.tensor(tensor), _t(nodes), _t(weights), _t(diffs), orders,
+        shape, torch.float64)
+    _, n_left, n_mid, n_rp = fused_eval._geometry(shape)
+    k = n_mid * n_rp
+    assert t3.dtype == torch.float64 and t3.is_contiguous()
+    assert t3.shape == (-(-k // 16) * 16, -(-n_left // 128) * 128)
+    assert not t3[k:].any() and not t3[:, n_left:].any()
+    from pychebyshev_tpu_torch.ops.eval import apply_derivative_passes
+    unpadded = apply_derivative_passes(
+        torch.tensor(tensor), _t(diffs), orders).reshape(n_left, k).T
+    unpadded = unpadded.contiguous()
+    assert torch.equal(t3[:k, :n_left], unpadded)
+    pts = torch.tensor(_points(domain, nodes, 257, 12))
+    padded_out = fused_eval._contract_packed(t3, nodes_cat, weights_cat,
+                                             shape, pts)
+    unpadded_out = fused_eval._contract_packed(unpadded, nodes_cat,
+                                               weights_cat, shape, pts)
+    assert _dev(padded_out.numpy(), unpadded_out.numpy()) <= 1e-15
+
+
+def test_tf32_round_matches_cvt_rna_on_chosen_bits():
+    """``_tf32_round`` keeps 10 mantissa bits, rounding to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` does."""
+    cases = [
+        (0x3F800000, 0x3F800000),   # 1.0 is already TF32
+        (0x3F801000, 0x3F802000),   # 1 + 2^-11, a tie: away from zero
+        (0xBF801000, 0xBF802000),   # -(1 + 2^-11): away from zero too
+        (0x3F800FFF, 0x3F800000),   # just under the tie: down
+        (0x3F803000, 0x3F804000),   # 1 + 3*2^-11, a tie: away from zero
+        (0x3FFFF000, 0x40000000),   # 2 - 2^-12: carries into 2.0
+        (0x3FFFFFFF, 0x40000000),   # just under 2: 2.0
+        (0x00000FFF, 0x00000000),   # subnormal, under the tie: 0
+        (0x80000000, 0x80000000),   # -0.0 keeps its sign
+    ]
+    x = torch.tensor([b for b, _ in cases], dtype=torch.int64).to(
+        torch.int32).view(torch.float32)
+    got = fused_eval._tf32_round(x).view(torch.int32).to(torch.int64)
+    assert [v & 0xFFFFFFFF for v in got.tolist()] == [r for _, r in cases]
+
+
+@pytest.mark.parametrize("name", ["bs-11^5", "9^6"])
+def test_3xtf32_emulation_holds_the_f32_ceilings(name):
+    """The kernel's three TF32 passes, emulated in plain PyTorch, stay
+    within 5e-5 of the plain f32 version and 2e-4 of the JAX f64
+    ``eval_batch``, node hits included; one TF32 pass alone misses the
+    2e-4 ceiling, which is why the kernel takes three."""
+    if name == "bs-11^5":
+        tensor, nodes, weights, diffs, domain = _bs11_problem()
+    else:
+        tensor, nodes, weights, diffs, domain = _random_problem((9,) * 6, 3)
+    d = tensor.ndim
+    shape = tensor.shape
+    pts = _points(domain, nodes, 300, 5)
+    one_pass = 0.0
+    for orders in [(0,) * d, (1,) + (0,) * (d - 1)]:
+        ref64 = np.asarray(jax_eval.eval_batch(
+            jnp.asarray(tensor), tuple(map(jnp.asarray, nodes)),
+            tuple(map(jnp.asarray, weights)), tuple(map(jnp.asarray, diffs)),
+            jnp.asarray(pts), orders))
+        packed = fused_eval._pack(torch.tensor(tensor), _t(nodes),
+                                  _t(weights), _t(diffs), orders, shape,
+                                  torch.float32)
+        p32 = torch.tensor(pts, dtype=torch.float32)
+        plain = fused_eval._contract_packed(*packed, shape, p32)
+        emulated = fused_eval._contract_packed(
+            *packed, shape, p32, matmul=fused_eval._matmul_3xtf32)
+        assert _dev(emulated.numpy(), plain.numpy()) <= 5e-5
+        assert _dev(emulated.numpy(), ref64) <= F32_TOL
+        single = fused_eval._contract_packed(
+            *packed, shape, p32, matmul=lambda a, b: (
+                fused_eval._tf32_round(a) @ fused_eval._tf32_round(b)))
+        one_pass = max(one_pass, _dev(single.numpy(), ref64))
+    assert one_pass > F32_TOL
