@@ -18,6 +18,16 @@ to its plain PyTorch version, checks every path against the
 repository's accuracy ceilings, and times the paths, the plain versions
 and a cuBLAS GEMM yardstick with CUDA events.
 
+Then the tensor-train family (plain PyTorch chains, no kernel of their
+own): a rank-15 TT-Cross build of the 5-D Black-Scholes price with
+dividend yield on 11 nodes per dim; the C single-point host path
+(``cpp/hosteval.c``, built here with the host compiler) under the dense
+and TT classes; the f32, f64 and grouped chains against the host chain;
+exact-compression serving (``to_tt(1e-13)`` of the 11^5 interpolant
+through ``eval_batch_dd``); the TT engines, a six-model book of price
+plus ``differentiate()``d Greeks, and the finite-difference report; and
+their times at 2^20 points.
+
 Run from the repository root, with one CUDA card:
 
     python3 chip_smoke.py
@@ -44,14 +54,23 @@ from scipy.stats import norm
 from pychebyshev_tpu_torch import (
     BatchedEvaluator,
     ChebyshevApproximation,
+    ChebyshevTT,
+    MultiModelEvaluator,
     MultiSpecEvaluator,
 )
-from pychebyshev_tpu_torch.ops import _build, fused_dd, fused_eval
+from pychebyshev_tpu_torch.ops import (
+    _build,
+    fused_dd,
+    fused_eval,
+    tt_eval,
+    tt_eval_dd,
+)
 from pychebyshev_tpu_torch.ops.chebyshev import (
     barycentric_weights_np,
     differentiation_matrix_np,
     nodes_for_dim_np,
 )
+from pychebyshev_tpu_torch.utils import ceval
 
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
@@ -61,12 +80,23 @@ DOMAIN = [[80.0, 120.0], [90.0, 110.0], [0.25, 2.0], [0.1, 0.5],
           [0.01, 0.05]]
 GREEKS = [(0, 0, 0, 0, 0), (1, 0, 0, 0, 0), (2, 0, 0, 0, 0),
           (0, 0, 1, 0, 0), (0, 0, 0, 1, 0), (0, 0, 0, 0, 1)]
+# The TT build's configuration: a narrower domain and a 2 % dividend
+# yield, 11 nodes per dim, rank 15, tolerance 1e-6, 10 sweeps, seed 42.
+TT_DOMAIN = [[80.0, 120.0], [90.0, 110.0], [0.25, 1.0], [0.15, 0.35],
+             [0.01, 0.08]]
+TT_Q = 0.02
 # Scale-normalized max deviations: max|a - ref| / max|ref|.
 K1_VS_PLAIN = 5e-5
 F32_CEILING = 2e-4
 F64_CEILING = 1e-12
 K3_VS_PLAIN = 1e-12   # both f64: summation order only
 DD_CEILING = 1e-10
+HOST_C_VS_NUMPY = 1e-14         # C host path vs NumPy path, values
+HOST_C_VS_NUMPY_DERIV = 1e-10   # ... derivative specs (D^k folds amplify)
+TT_PRICE_ERR_MAX_PCT = 0.1      # rank-15 cross, 50 test points
+TT_CROSS_VALUE = 1e-3           # rank-15 cross vs the dense interpolant
+TT_CROSS_DELTA = 1e-2
+FD_REPORT = 1e-6                # batched FD stencil vs the per-point one
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W, dense): the pipes
 # each instance runs on (TF32 tensor cores, three passes for f32; f64
 # tensor cores), the SIMT pipes printed beside them, and device memory.
@@ -85,6 +115,18 @@ def bs_price_np(points, _data=None):
     d1 = (np.log(s / k) + (r + 0.5 * sigma ** 2) * t) / (sigma * sqrt_t)
     d2 = d1 - sigma * sqrt_t
     return s * norm.cdf(d1) - k * np.exp(-r * t) * norm.cdf(d2)
+
+
+def bs_div_np(points, _data=None):
+    """Black-Scholes call price with dividend yield TT_Q (host, f64)."""
+    points = np.asarray(points, dtype=np.float64)
+    s, k, t, sigma, r = (points[:, i] for i in range(5))
+    sqrt_t = np.sqrt(t)
+    d1 = (np.log(s / k) + (r - TT_Q + 0.5 * sigma ** 2) * t) \
+        / (sigma * sqrt_t)
+    d2 = d1 - sigma * sqrt_t
+    return (s * np.exp(-TT_Q * t) * norm.cdf(d1)
+            - k * np.exp(-r * t) * norm.cdf(d2))
 
 
 def sample_points(n, seed, domain=DOMAIN):
@@ -223,6 +265,28 @@ def cuda_ms(fn, reps=15, warmup=3) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return float(np.median(times))
+
+
+def host_us(fn, calls=300) -> float:
+    """Microseconds per call of a host function (after 10 warm calls)."""
+    for _ in range(10):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def device_busy_ms(fn) -> float:
+    """Milliseconds the card's kernels ran during one call of ``fn``
+    (the sum of the kernel durations ``torch.profiler`` records)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / 1e3
 
 
 def main() -> None:
@@ -602,6 +666,308 @@ def main() -> None:
               f"{' x 4' if scale > 1 else ''}): {ms[name]:.4f} ms = "
               f"{2 * N * k * m / ms[name] / 1e9:.2f} TFLOP/s | {card}",
               flush=True)
+
+    # 15. TT build: rank-15 TT-Cross of the dividend-yield price.
+    t0 = time.perf_counter()
+    tt = ChebyshevTT(bs_div_np, 5, TT_DOMAIN, [11] * 5, max_rank=15,
+                     tolerance=1e-6, max_sweeps=10, vectorized=True,
+                     device=DEVICE)
+    tt.build(verbose=False, seed=42)
+    tt_build = time.perf_counter() - t0
+    rng_tt = np.random.default_rng(42)
+    tt_pts = np.stack([rng_tt.uniform(lo, hi, 50) for lo, hi in TT_DOMAIN],
+                      axis=1)
+    tt_exact = bs_div_np(tt_pts)
+    keep = np.abs(tt_exact) >= 0.50
+    tt_vals = checked(tt.eval_batch(tt_pts), (50,), "tt.eval_batch")
+    tt_err = (np.abs((_host_f64(tt_vals) - tt_exact) / tt_exact)[keep]
+              * 100.0)
+    check(tt_err.max() <= TT_PRICE_ERR_MAX_PCT,
+          f"TT price error {tt_err.max():.4f}% > {TT_PRICE_ERR_MAX_PCT}%")
+    print(f"[15 TT build] 5-D price with q={TT_Q}, 11 nodes per dim, "
+          f"max_rank=15, tolerance=1e-6, seed=42: ranks {tt.tt_ranks}, "
+          f"{tt.total_build_evals:,} unique evaluations, {tt_build:.3f} s; "
+          f"price error over {int(keep.sum())} of 50 seed-42 points "
+          f"(|price| >= 0.50): mean {tt_err.mean():.4f}% max "
+          f"{tt_err.max():.4f}% <= {TT_PRICE_ERR_MAX_PCT}%", flush=True)
+
+    # 16. The C host path under both classes, against the NumPy paths.
+    check(ceval.available(), "the C host library (cpp/hosteval.c) did not "
+                             "build or load")
+    host_pts = sample_points(64, SEED + 40)
+    batch_pts = sample_points(1024, SEED + 41)
+    harr = cheb._host_arrays()
+    check(cheb._host_cpack(harr) is not None, "the dense class has no C "
+                                              "pack")
+
+    def dense_host():
+        return (np.array([cheb.vectorized_eval(p, [0] * 5)
+                          for p in host_pts]),
+                np.array([cheb.vectorized_eval_multi(p, GREEKS)
+                          for p in host_pts]),
+                cheb.eval_batch_host(batch_pts, [0] * 5),
+                cheb.eval_batch_host(batch_pts, [1, 0, 0, 0, 0]))
+
+    c_single, c_multi, c_batch, c_batch_d = dense_host()
+    us = {
+        "dense eval (C)": host_us(
+            lambda: cheb.vectorized_eval(host_pts[0], [0] * 5)),
+        "dense eval_multi, 6 specs (C)": host_us(
+            lambda: cheb.vectorized_eval_multi(host_pts[0], GREEKS)),
+        "dense eval_batch_host per point (C)": host_us(
+            lambda: cheb.eval_batch_host(batch_pts, [0] * 5),
+            calls=5) / len(batch_pts),
+        "TT eval (C)": host_us(lambda: tt.eval(tt_pts[0]), calls=2000),
+    }
+    pack = harr["cpack"]
+    harr["cpack"] = None                    # the NumPy paths
+    n_single, n_multi, n_batch, n_batch_d = dense_host()
+    us["dense eval (NumPy)"] = host_us(
+        lambda: cheb.vectorized_eval(host_pts[0], [0] * 5), calls=100)
+    harr["cpack"] = pack
+    value_cols = [k for k, spec in enumerate(GREEKS) if not any(spec)]
+    deriv_cols = [k for k, spec in enumerate(GREEKS) if any(spec)]
+    host_val = max(dev(c_single, n_single), dev(c_batch, n_batch),
+                   dev(c_multi[:, value_cols], n_multi[:, value_cols]))
+    host_der = max([dev(c_batch_d, n_batch_d)]
+                   + [dev(c_multi[:, k], n_multi[:, k]) for k in deriv_cols])
+    check(host_val <= HOST_C_VS_NUMPY,
+          f"dense C path vs NumPy {host_val:.3e}")
+    check(host_der <= HOST_C_VS_NUMPY_DERIV,
+          f"dense C path vs NumPy, derivative specs {host_der:.3e}")
+    check(tt._host_cpack() is not None, "the TT class has no C pack")
+    tt_c = np.array([tt.eval(p) for p in tt_pts])
+    tt_pack = tt.__dict__["_host_cpack_cache"]
+    tt.__dict__["_host_cpack_cache"] = (tt_pack[0], None)   # NumPy chain
+    tt_np = np.array([tt.eval(p) for p in tt_pts])
+    us["TT eval (NumPy)"] = host_us(lambda: tt.eval(tt_pts[0]), calls=300)
+    tt.__dict__["_host_cpack_cache"] = tt_pack
+    host_tt = dev(tt_c, tt_np)
+    check(host_tt <= HOST_C_VS_NUMPY, f"TT C path vs NumPy {host_tt:.3e}")
+    print(f"[16 C host path] ceval.available(); 11^5 interpolant, 64 "
+          f"points: eval, eval_multi (values) and eval_batch_host (1,024 "
+          f"points) vs the NumPy path {host_val:.3e} <= "
+          f"{HOST_C_VS_NUMPY:g}; derivative specs {host_der:.3e} <= "
+          f"{HOST_C_VS_NUMPY_DERIV:g}; TT eval vs the NumPy chain "
+          f"{host_tt:.3e} <= {HOST_C_VS_NUMPY:g}; microseconds per call: "
+          + "; ".join(f"{k} {v:.1f}" for k, v in us.items()), flush=True)
+
+    # 17. The TT chains on the card against the host chain.
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "allow_tf32 is on: the f32 chain's matmuls must be IEEE f32")
+    tt_dom = np.asarray(tt.domain, dtype=np.float64)
+    cores64 = tt._cores_on_device(torch.float64)
+    cores32 = tt._cores_on_device(torch.float32)
+    check(all(c.is_cuda for c in cores64 + cores32), "TT cores not on the "
+                                                     "card")
+    sub_tt = sample_points(4096, SEED + 42, TT_DOMAIN)
+    host_chain = np.array([tt.eval(p) for p in sub_tt])
+    d_f64 = dev(checked(tt.eval_batch(sub_tt), (4096,), "TT f64 chain"),
+                host_chain)
+    check(d_f64 <= F64_CEILING, f"TT f64 chain vs host {d_f64:.3e}")
+    tt_pts64 = torch.tensor(sample_points(N, SEED + 43, TT_DOMAIN),
+                            device=DEVICE)
+    tt_pts32 = tt_pts64.float()
+    chain64 = checked(tt_eval.tt_eval_batch(cores64, tt_dom, tt_pts64), (N,),
+                      "TT f64 chain at 2^20")
+    chain32 = checked(tt_eval.tt_eval_batch(cores32, tt_dom, tt_pts32), (N,),
+                      "TT f32 chain at 2^20")
+    check(chain32.dtype == torch.float32 and chain64.dtype == torch.float64,
+          "TT chain dtypes")
+    d_f32 = dev(chain32, chain64)
+    check(d_f32 <= F32_CEILING, f"TT f32 chain vs f64 {d_f32:.3e}")
+    mixed = tt_eval.tt_eval_batch(cores64, tt_dom, tt_pts32)
+    check(mixed.dtype == torch.float64, "f32 points with f64 cores did not "
+                                        "compute in f64")
+    d_mixed = dev(mixed, tt_eval.tt_eval_batch(cores64, tt_dom,
+                                               tt_pts32.double()))
+    check(d_mixed <= F64_CEILING, f"f32 points, f64 cores {d_mixed:.3e}")
+    d_grouped = max(
+        dev(tt_eval.tt_eval_batch(cores64, tt_dom, tt_pts64, groups=g),
+            chain64) for g in ((2, 2, 1), (1, 1, 1, 2), (5,)))
+    check(d_grouped <= F64_CEILING, f"grouped vs per-dim {d_grouped:.3e}")
+    lo_tt, hi_tt = tt_dom[:, 0], tt_dom[:, 1]
+    ood_tt = lo_tt + (hi_tt - lo_tt) * np.random.default_rng(
+        SEED + 44).uniform(-0.05, 1.05, size=(4096, 5))
+    d_ood = dev(tt.eval_batch(ood_tt), [tt.eval(p) for p in ood_tt])
+    check(d_ood <= F64_CEILING, f"out-of-domain chain vs host {d_ood:.3e}")
+    print(f"[17 TT chains] rank-15 TT on the card: f64 eval_batch vs the "
+          f"host chain on 4,096 points {d_f64:.3e} <= {F64_CEILING:g}; "
+          f"f32 cores and points vs f64 at N=2^20 {d_f32:.3e} <= "
+          f"{F32_CEILING:g} (allow_tf32 False); f32 points with f64 cores "
+          f"compute in f64, {d_mixed:.3e}; grouped (2,2,1), (1,1,1,2), (5) "
+          f"vs per-dim {d_grouped:.3e}; 4,096 points up to 5% outside the "
+          f"domain vs the host chain {d_ood:.3e}; all <= {F64_CEILING:g} "
+          f"| {card}", flush=True)
+
+    # 18. Exact-compression serving: to_tt(1e-13) of the 11^5 interpolant.
+    t0 = time.perf_counter()
+    comp = cheb.to_tt(tolerance=1e-13)
+    to_tt_s = time.perf_counter() - t0
+    comp_shapes = tt_eval.core_shapes(comp._coeff_cores)
+    auto_groups = tt_eval_dd.tt_dd_auto_groups(comp_shapes)
+    comp_routes = {"auto": "auto", "per-dim": None, "(1,1,1,2)": (1, 1, 1, 2),
+                   "(2,2,1)": (2, 2, 1)}
+    d_comp = {}
+    for label, groups in comp_routes.items():
+        out = checked(comp.eval_batch_dd(pts64, groups=groups), (N,),
+                      f"to_tt eval_batch_dd {label}")
+        d_comp[label] = dev(out, f64)
+        check(d_comp[label] <= F64_CEILING,
+              f"to_tt chain {label} vs dense f64 {d_comp[label]:.3e}")
+    got = checked(comp.eval_batch_dd(ood), (4096,), "to_tt out-of-domain")
+    check(torch.equal(got, comp.eval_batch(ood)),
+          "an out-of-domain to_tt dd batch left the f64 chain")
+    d_comp_ood = dev(got, cheb.eval_batch_device(ood))
+    print(f"[18 exact compression] to_tt(tolerance=1e-13) of the 11^5 "
+          f"interpolant in {to_tt_s:.3f} s: ranks {comp.tt_ranks}; "
+          f"eval_batch_dd at N=2^20 vs the dense f64 path: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d_comp.items())
+          + f"; all <= {F64_CEILING:g}; auto resolves to {auto_groups}; "
+          f"out-of-domain batch on the f64 chain, {d_comp_ood:.3e} from "
+          f"the dense f64 path | {card}", flush=True)
+
+    # 19. TT serving: engines, the six-model book, the FD report.
+    delta = [1, 0, 0, 0, 0]
+    cheb_div = ChebyshevApproximation(bs_div_np, 5, TT_DOMAIN, [11] * 5,
+                                      vectorized=True, device=DEVICE)
+    cheb_div.build(verbose=False)
+    tt_delta_host = tt.differentiate(delta)
+    engines = {}
+    worst_tt = {"f32 vs f64": 0.0, "f64 vs host": 0.0, "dd vs f64": 0.0,
+                "delta vs differentiate on the host": 0.0}
+    for spec_name, orders in (("value", None), ("delta", delta)):
+        for tier, dtype in (("f32", torch.float32), ("f64", torch.float64),
+                            ("dd", "dd")):
+            engines[spec_name, tier] = BatchedEvaluator(
+                tt, dtype=dtype, derivative_order=orders, device=DEVICE)
+            engines[spec_name, tier].warmup()
+        host_model = tt if orders is None else tt_delta_host
+        for i, n in enumerate(sizes):
+            req = sample_points(n, SEED + 50 + i, TT_DOMAIN)
+            v = {tier: checked(engines[spec_name, tier](req), (n,),
+                               f"TT {tier} engine {spec_name} N={n}")
+                 for tier in ("f32", "f64", "dd")}
+            host = [host_model.eval(p) for p in req[:16]]
+            key = ("f64 vs host" if orders is None
+                   else "delta vs differentiate on the host")
+            worst_tt[key] = max(worst_tt[key], dev(v["f64"][:16], host))
+            worst_tt["dd vs f64"] = max(worst_tt["dd vs f64"],
+                                        dev(v["dd"], v["f64"]))
+            if n >= 1000:
+                worst_tt["f32 vs f64"] = max(worst_tt["f32 vs f64"],
+                                             dev(v["f32"], v["f64"]))
+    check(worst_tt["f32 vs f64"] <= F32_CEILING,
+          f"TT f32 engine {worst_tt['f32 vs f64']:.3e}")
+    for key in ("f64 vs host", "dd vs f64",
+                "delta vs differentiate on the host"):
+        check(worst_tt[key] <= F64_CEILING, f"TT engines, {key}: "
+                                            f"{worst_tt[key]:.3e}")
+    cross_value = dev(engines["value", "f64"](tt_pts64),
+                      cheb_div.eval_batch_device(tt_pts64))
+    cross_delta = dev(engines["delta", "f64"](tt_pts64),
+                      cheb_div.eval_batch_device(tt_pts64, delta))
+    check(cross_value <= TT_CROSS_VALUE, f"TT vs dense {cross_value:.3e}")
+    check(cross_delta <= TT_CROSS_DELTA,
+          f"TT delta vs the dense analytic delta {cross_delta:.3e}")
+    ood_engine = engines["value", "dd"](ood_tt)
+    check(torch.equal(ood_engine, engines["value", "f64"](ood_tt)),
+          "an out-of-domain TT dd request left the f64 sibling")
+    greek_models = [tt] + [tt.differentiate(list(s)) for s in GREEKS[1:]]
+    books = {tier: MultiModelEvaluator(greek_models, dtype=dtype,
+                                       device=DEVICE)
+             for tier, dtype in (("f32", torch.float32),
+                                 ("f64", torch.float64), ("dd", "dd"))}
+    worst_book = {}
+    for tier, book in books.items():
+        book.warmup()
+        out = checked(book(tt_pts64), (len(GREEKS), N), f"TT {tier} book")
+        worst = 0.0
+        for k, model in enumerate(greek_models):
+            single = BatchedEvaluator(
+                model, dtype=torch.float64, device=DEVICE)(tt_pts64)
+            worst = max(worst, dev(out[k], single))
+        worst_book[tier] = worst
+        check(worst <= (F32_CEILING if tier == "f32" else F64_CEILING),
+              f"TT {tier} book vs single engines {worst:.3e}")
+    fd_pts = tt_pts64[:1 << 16]
+    fd = checked(tt._eval_batch_multi_device(fd_pts, GREEKS),
+                 (1 << 16, len(GREEKS)), "TT FD report")
+    check(fd.is_cuda, "the FD report left the card")
+    per_point = np.array([tt.eval_multi(p, GREEKS)
+                          for p in fd_pts[:64].cpu().numpy()])
+    d_fd = max(dev(fd[:64, k], per_point[:, k]) for k in range(len(GREEKS)))
+    check(d_fd <= FD_REPORT, f"FD report vs eval_multi {d_fd:.3e}")
+    print(f"[19 TT serving] BatchedEvaluator(tt) for value and delta, "
+          f"requests of {sizes}: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in worst_tt.items())
+          + f" (f32 <= {F32_CEILING:g}, the others <= {F64_CEILING:g}); "
+          f"vs the dense 11^5 interpolant of the same function at N=2^20: "
+          f"value {cross_value:.3e} <= {TT_CROSS_VALUE:g}, delta vs its "
+          f"analytic delta {cross_delta:.3e} <= {TT_CROSS_DELTA:g} (the "
+          f"cross build's accuracy); out-of-domain dd request on the f64 "
+          f"sibling; book of price + 5 differentiate()d Greeks vs single "
+          f"f64 engines: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst_book.items())
+          + f"; FD report (vectorized_eval_batch_multi, 2^16 points, built "
+          f"on the card) vs per-point eval_multi on 64 points {d_fd:.3e} "
+          f"<= {FD_REPORT:g} | {card}", flush=True)
+
+    # 20. Timing of the plain TT paths at N = 2^20 (CUDA events, median
+    # of 15 after 3 warm-up), and the share of each chain's time that
+    # the card's kernels were running.
+    comp_cores = comp._cores_on_device(torch.float64)
+    comp_dom = np.asarray(comp.domain, dtype=np.float64)
+    tt_runs = {
+        "TT rank-15 chain f32 (tt_eval_batch)":
+            lambda: tt_eval.tt_eval_batch(cores32, tt_dom, tt_pts32),
+        "TT rank-15 chain f64 (tt_eval_batch)":
+            lambda: tt_eval.tt_eval_batch(cores64, tt_dom, tt_pts64),
+        "TT rank-15 engine f32 (BatchedEvaluator)":
+            lambda: engines["value", "f32"](tt_pts32),
+        "TT rank-15 engine dd (BatchedEvaluator)":
+            lambda: engines["value", "dd"](tt_pts64),
+        "TT 6-model book f32 (MultiModelEvaluator)":
+            lambda: books["f32"](tt_pts32),
+        "TT 6-model book f64 (MultiModelEvaluator)":
+            lambda: books["f64"](tt_pts64),
+        "TT 6-model book dd (MultiModelEvaluator)":
+            lambda: books["dd"](tt_pts64),
+        "TT FD report, 6 specs, 2^16 points (vectorized_eval_batch_multi)":
+            lambda: tt._eval_batch_multi_device(fd_pts, GREEKS),
+        "to_tt chain per-dim (eval_batch_dd, groups=None)":
+            lambda: comp.eval_batch_dd(pts64, groups=None),
+        "to_tt chain auto (eval_batch_dd)":
+            lambda: comp.eval_batch_dd(pts64),
+    }
+    route_groups = {"to_tt chain per-dim (eval_batch_dd, groups=None)":
+                    (1,) * 5}
+    for g in ((1, 1, 1, 2), (1, 1, 2, 1), (2, 1, 1, 1), (2, 2, 1),
+              (1, 2, 2)):
+        name = f"to_tt chain grouped {g} (tt_eval_batch_dd)"
+        route_groups[name] = g
+        tt_runs[name] = (
+            lambda g=g: tt_eval_dd.tt_eval_batch_dd(comp_cores, comp_dom,
+                                                    pts64, groups=g))
+    for name, fn in tt_runs.items():
+        ms[name] = cuda_ms(fn)
+        n_pts = (1 << 16) if "2^16" in name else N
+        extra = ""
+        if "chain" in name:
+            busy = device_busy_ms(fn)
+            extra = (f"; kernels busy {busy:.4f} ms = "
+                     f"{100.0 * busy / ms[name]:.1f}% of it")
+        if name in route_groups:
+            moved = tt_eval_dd._elements_moved(comp_shapes,
+                                               route_groups[name])
+            extra += f"; {moved:,} intermediate elements per point"
+        print(f"[20 timing] {name}: {ms[name]:.4f} ms = "
+              f"{n_pts / ms[name] * 1e3:,.0f} /s{extra} | {card}",
+              flush=True)
+    fastest = min((v, k) for k, v in ms.items() if k.startswith("to_tt"))[1]
+    print(f"[20 timing] fastest to_tt route: {fastest}; the auto rule "
+          f"(fewest intermediate elements per point) picks {auto_groups}",
+          flush=True)
 
     # Bounds on the pipes each instance runs on: f32 on the TF32 tensor
     # cores in three passes, f64 on the f64 tensor cores; the SIMT pipes'

@@ -1,11 +1,20 @@
 """pychebyshev_tpu_torch: the PyTorch / CUDA port of pychebyshev-tpu.
 
-The dense slice of the library on PyTorch: full-tensor barycentric
-interpolation with analytical derivatives, the portable ``.pcb`` format,
-and the batched serving engines at f32, f64 and the near-f64 "dd" tier.
-On a CUDA device the f32 batched path runs through a hand-written CUDA
-evaluator (``ops.fused_eval``), and the dd tier through its f64
-instance (``ops.fused_dd``).
+The dense and tensor-train slices of the library on PyTorch:
+
+- ``ChebyshevApproximation``: full-tensor barycentric interpolation with
+  analytical derivatives and the portable ``.pcb`` format.  On a CUDA
+  device the f32 batched path runs through a hand-written CUDA evaluator
+  (``ops.fused_eval``), and the dd tier through its f64 instance
+  (``ops.fused_dd``).
+- ``ChebyshevTT``: tensor-train interpolation (TT-Cross, TT-SVD, ALS
+  builds on the host; batched chains on the device), and
+  ``ChebyshevApproximation.to_tt`` for exact-compression serving.
+- The serving engines at f32, f64 and the near-f64 "dd" tier:
+  ``BatchedEvaluator``, ``MultiSpecEvaluator`` (dense) and
+  ``MultiModelEvaluator`` (books of dense or TT models).
+- Single points are answered on the host, through the C kernels of
+  ``cpp/hosteval.c`` where a C compiler is present (``utils.ceval``).
 
 Every constructor and engine takes an explicit ``device=``; nothing here
 probes for a device or falls back to another one.
@@ -47,15 +56,21 @@ class Ns:
 from pychebyshev_tpu_torch.models.approximation import (  # noqa: E402
     ChebyshevApproximation,
 )
+from pychebyshev_tpu_torch.models.tensor_train import (  # noqa: E402
+    ChebyshevTT,
+)
 from pychebyshev_tpu_torch.serving import (  # noqa: E402
     BatchedEvaluator,
+    MultiModelEvaluator,
     MultiSpecEvaluator,
 )
 
 __all__ = [
     "BatchedEvaluator",
     "ChebyshevApproximation",
+    "ChebyshevTT",
     "Domain",
+    "MultiModelEvaluator",
     "MultiSpecEvaluator",
     "Ns",
     "__version__",

@@ -4,11 +4,14 @@ interpolation with analytical derivatives, on PyTorch.
 The port of ``pychebyshev_tpu.models.approximation`` (main-path surface):
 construction with a fixed grid or auto-N, single-point host evaluation,
 batched f64, f32 and near-f64 device evaluation, multi-spec batches, the
-error estimate, ``from_values``, and pickle / ``.pcb`` serialization.
+error estimate, ``from_values``, ``to_tt``, and pickle / ``.pcb``
+serialization.
 
 - Grid data (nodes, barycentric weights, differentiation matrices) and
   the value tensor live on ``device`` as float64 tensors.
-- Single-point queries run on the host in NumPy against cached copies.
+- Single-point queries run on the host against cached copies: through
+  the C kernels of ``cpp/hosteval.c`` (``utils.ceval``) where the library
+  builds, else in NumPy.
 - Batched queries run on the device through ``ops.eval``; on a CUDA
   device the f32 path goes through the hand-written kernel in
   ``ops.fused_eval`` wherever ``supports_fused`` covers the grid, and
@@ -36,6 +39,7 @@ from pychebyshev_tpu_torch.ops.chebyshev import (
     nodes_for_dim_np,
 )
 from pychebyshev_tpu_torch.ops.dct import _coeff_matrix_np
+from pychebyshev_tpu_torch.utils import ceval
 
 __all__ = ["ChebyshevApproximation"]
 
@@ -458,21 +462,46 @@ class ChebyshevApproximation:
             rows.append(row)
         return rows
 
-    def _host_single_eval(self, point, derivative_order) -> float:
-        """One point on the host: derivatives fold into the rows
-        (``r . (D^k t) == ((D^T)^k r) . t``), then the tensor contracts
-        one GEMV per dim, highest dim first."""
-        h = self._host_arrays()
-        rows = self._host_coeff_rows(point)
-        for d, k in enumerate(derivative_order):
-            for _ in range(int(k)):
-                rows[d] = h["diffs_t"][d] @ rows[d]
-        current = h["tensor"]
+    def _host_cpack(self, h):
+        """The C kernels' pack for the host arrays ``h``, or None.  It
+        lives in the ``_host_arrays`` dict, so a tensor edited in place
+        (a new ``_version``) gets a new pack with the new values."""
+        if "cpack" not in h:
+            h["cpack"] = ceval.make_pack(h)
+        return h["cpack"]
+
+    def _host_contract(self, rows) -> float:
+        """Contract the cached host tensor with one coefficient row per
+        dim, highest dim first (each step is a single flattened GEMV)."""
+        current = self._host_arrays()["tensor"]
         for row in reversed(rows):
             n = current.shape[-1]
             current = (current.reshape(-1, n) @ row).reshape(
                 current.shape[:-1])
         return float(current)
+
+    def _host_single_eval(self, point, derivative_order) -> float:
+        """One point on the host: derivatives fold into the rows
+        (``r . (D^k t) == ((D^T)^k r) . t``), then the tensor contracts
+        one GEMV per dim, highest dim first.
+
+        The fused C kernel does all of it in one call where the library
+        is available; when it declines (a semantic decision), or there
+        is no library, the NumPy path below decides.
+        """
+        h = self._host_arrays()
+        pack = self._host_cpack(h)
+        if pack is not None:
+            pt = np.ascontiguousarray(
+                self._host_point(point, h["n_per_dim"]))
+            val = ceval.eval_single(pack, pt, derivative_order)
+            if val is not None:
+                return val
+        rows = self._host_coeff_rows(point)
+        for d, k in enumerate(derivative_order):
+            for _ in range(int(k)):
+                rows[d] = h["diffs_t"][d] @ rows[d]
+        return self._host_contract(rows)
 
     def eval(self, point, derivative_order=None, *, derivative_id=None):
         """Single-point evaluation on the host."""
@@ -483,6 +512,90 @@ class ChebyshevApproximation:
         return self._host_single_eval(point, derivative_order)
 
     vectorized_eval = eval
+
+    def eval_batch_host(self, points, derivative_order=None, *,
+                        derivative_id=None) -> np.ndarray:
+        """Batched evaluation computed on the host: (N, d) -> (N,).
+
+        The latency-oriented counterpart of
+        :meth:`vectorized_eval_batch`: no device dispatch; each point
+        pays one memory-bound C pass over the cached host tensor, so a
+        small batch answers with no warm-up.  Without the C library it
+        is the per-point NumPy path.
+        """
+        derivative_order = self._resolve_derivative_args(
+            derivative_order, derivative_id)
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        if isinstance(points, torch.Tensor):
+            points = points.detach().cpu().numpy()
+        points = np.asarray(points, dtype=np.float64)
+        if points.ndim != 2 or points.shape[1] != self.num_dimensions:
+            raise ValueError(
+                f"points must have shape (N, {self.num_dimensions}), "
+                f"got {points.shape}")
+        pack = self._host_cpack(self._host_arrays())
+        if pack is not None and len(points):
+            out = ceval.eval_batch_host(pack, points, derivative_order)
+            if out is not None:
+                return out
+        return np.array([self._host_single_eval(p, derivative_order)
+                         for p in points])
+
+    def vectorized_eval_multi(self, point, derivative_orders):
+        """Multiple derivative specs at one point -> list of floats.
+
+        The normalized barycentric rows are built once and each spec's
+        rows derived from them by folding ``(D^T)^k`` into the row,
+        memoized on (dim, order); specs sharing a trailing (dim, order)
+        pattern share the partial contraction over those dims.  The C
+        multi-spec kernel does the same in one call; it declines
+        odd-shaped inputs, which the NumPy path below accepts.
+        """
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        h = self._host_arrays()
+        pack = self._host_cpack(h)
+        if pack is not None:
+            pt = np.ascontiguousarray(
+                self._host_point(point, h["n_per_dim"]))
+            vals = ceval.eval_multi(pack, pt, derivative_orders)
+            if vals is not None:
+                return vals
+        base = self._host_coeff_rows(point)
+        ndim = self.num_dimensions
+
+        row_for = {}  # (dim, order) -> derivative-folded row
+
+        def derived_row(d, k):
+            k = int(k)
+            if k == 0:
+                return base[d]
+            if (d, k) not in row_for:
+                row_for[(d, k)] = h["diffs_t"][d] @ derived_row(d, k - 1)
+            return row_for[(d, k)]
+
+        suffix_cache = {}
+
+        def contract_from(spec, d):
+            """Tensor with dims d..ndim-1 contracted away."""
+            if d == ndim:
+                return h["tensor"]
+            key = tuple(int(o) for o in spec[d:])
+            hit = suffix_cache.get(key)
+            if hit is None:
+                inner = contract_from(spec, d + 1)
+                row = derived_row(d, spec[d])
+                n = inner.shape[-1]
+                hit = (inner.reshape(-1, n) @ row).reshape(
+                    inner.shape[:-1])
+                suffix_cache[key] = hit
+            return hit
+
+        return [float(contract_from(spec, 0))
+                for spec in derivative_orders]
+
+    eval_multi = vectorized_eval_multi
 
     # ------------------------------------------------------------------
     # Batched device evaluation
@@ -816,6 +929,112 @@ class ChebyshevApproximation:
         obj.vectorized = False
         obj._derivative_id_registry = {}
         obj._derivative_id_to_orders = []
+        return obj
+
+    def to_tt(self, max_rank=None, tolerance: float = 1e-12, *,
+              order=None, sup_target: float = None):
+        """Compress this dense interpolant into a :class:`ChebyshevTT`.
+
+        The inverse of ``ChebyshevTT.to_dense``: TT-SVD of the value
+        tensor (host NumPy) at the given relative singular-value
+        ``tolerance``.  Returns an independent object on this
+        interpolant's device; grid metadata, ``max_derivative_order``,
+        ``additional_data`` and the descriptor carry over.
+
+        ``order``: ``None`` keeps the canonical dim order; ``"auto"``
+        searches dim permutations (exhaustive for d <= 6, greedy
+        adjacent-swap descent beyond) for the cheapest serving rank
+        chain — the result stores it as its ``dim_order`` frame, so
+        queries stay user-frame; an explicit permutation pins one.
+
+        ``sup_target``: per-bond error budgeting — instead of the
+        uniform relative singular-value ``tolerance``, greedily trim
+        bond ranks while the reconstruction's MEASURED grid sup
+        deviation stays within ``sup_target * max|values|``
+        (``models.tt_algorithms.tt_trim_cores``).  The result carries
+        ``compression_diagnostics`` (order, bond ranks, measured grid
+        sup deviation, chain flops).
+        """
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        from pychebyshev_tpu_torch.models.tensor_train import ChebyshevTT
+        from pychebyshev_tpu_torch.models import tt_algorithms as tta
+        d = self.num_dimensions
+        sizes = [int(n) for n in self.n_nodes]
+        if max_rank is None:
+            # Uncapped: tight tolerances legitimately need bond ranks
+            # past max(n_nodes), which is from_values' None default.
+            max_rank = max(
+                min(int(np.prod(sizes[:k + 1])),
+                    int(np.prod(sizes[k + 1:])))
+                for k in range(len(sizes) - 1)) if d > 1 else 1
+        arr = self._host_arrays()["tensor"]
+        # sup_target drives ranks via measured trimming; the SVD then
+        # runs tight so trimming owns the whole error budget.
+        svd_tol = (tolerance if sup_target is None
+                   else min(tolerance, float(sup_target) * 1e-3))
+
+        def _ranks_cost(perm):
+            cores = tta.tt_svd_from_tensor(
+                arr.transpose(perm), max_rank=max_rank, tol=svd_tol)
+            return cores, sum(c.shape[0] * c.shape[1] * c.shape[2]
+                              for c in cores)
+
+        if order is None:
+            perm = tuple(range(d))
+            value_cores, _ = _ranks_cost(perm)
+        elif order == "auto":
+            if d <= 6:
+                import itertools
+                perm, (value_cores, best) = None, (None, None)
+                for p in itertools.permutations(range(d)):
+                    cores, cost = _ranks_cost(p)
+                    if best is None or cost < best:
+                        perm, value_cores, best = p, cores, cost
+            else:
+                perm = list(range(d))
+                value_cores, best = _ranks_cost(tuple(perm))
+                improved = True
+                while improved:
+                    improved = False
+                    for k in range(d - 1):
+                        cand = list(perm)
+                        cand[k], cand[k + 1] = cand[k + 1], cand[k]
+                        cores, cost = _ranks_cost(tuple(cand))
+                        if cost < best:
+                            perm, value_cores, best = cand, cores, cost
+                            improved = True
+                perm = tuple(perm)
+        else:
+            perm = tuple(int(p) for p in order)
+            if sorted(perm) != list(range(d)):
+                raise ValueError(
+                    f"order must be a permutation of range({d}); "
+                    f"got {order!r}")
+            value_cores, _ = _ranks_cost(perm)
+
+        diagnostics = None
+        if sup_target is not None:
+            value_cores, diagnostics = tta.tt_trim_cores(
+                value_cores, arr.transpose(perm), float(sup_target))
+            diagnostics["order"] = list(perm)
+
+        # Every branch builds from the ALREADY-COMPUTED cores (the
+        # canonical path used to round-trip through from_values and
+        # re-run the identical TT-SVD — 2x the compression cost).
+        coeff_cores = [tta.value_core_to_coeff_core(c)
+                       for c in value_cores]
+        obj = ChebyshevTT._from_coeff_cores(
+            coeff_cores,
+            [list(self.domain[p]) for p in perm],
+            [sizes[p] for p in perm],
+            dim_order=list(perm), max_rank=max_rank,
+            tolerance=tolerance,
+            max_derivative_order=self.max_derivative_order,
+            additional_data=self.additional_data,
+            descriptor=self.descriptor, method="svd", device=self.device)
+        if diagnostics is not None:
+            obj.compression_diagnostics = diagnostics
         return obj
 
     def __repr__(self) -> str:

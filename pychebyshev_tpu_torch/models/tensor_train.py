@@ -1,0 +1,1308 @@
+"""ChebyshevTT: Chebyshev interpolation in Tensor Train format, on
+PyTorch.
+
+The port of ``pychebyshev_tpu.models.tensor_train`` (serving surface).
+Builds from O(d n r^2) function evaluations via TT-Cross (maxvol
+pivoting), TT-SVD, or rank-adaptive ALS, on the host in NumPy
+(``models.tt_algorithms``); stores Chebyshev *coefficient* cores as host
+float64 arrays; evaluates batches on ``device`` through the contraction
+chain in ``ops.tt_eval`` (one GEMM + batched reduction per dimension),
+and single points on the host through the C kernel of
+``cpp/hosteval.c`` (``utils.ceval``) with a NumPy chain behind it.
+
+Frame discipline: the storage order of cores may be a permutation
+``_dim_order`` of the user's dims (set by ``with_auto_order``/
+``reorder``/``to_tt(order=...)``).  All public methods accept user-frame
+indices/coordinates and permute exactly once into storage frame; no
+method mutates ``_dim_order`` temporarily, so concurrent evaluation is
+race-free by construction.
+
+Batched results: ``eval_batch`` and ``eval_batch_dd`` return tensors on
+the device; the ``vectorized_*`` spellings return NumPy arrays.
+
+Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
+integration, root finding and optimisation, ``to_slider``,
+``extrude``/``slice``, ``run_completion``, ``fit``, the Sobol family,
+``hadamard``, ``compose``, the plots, and ``save(format="npz")``.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import time
+import warnings
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from pychebyshev_tpu_torch.models import tt_algorithms as tta
+from pychebyshev_tpu_torch.ops import tt_eval_dd
+from pychebyshev_tpu_torch.ops.chebyshev import (
+    barycentric_weights_np,
+    differentiation_matrix_np,
+    nodes_for_dim_np,
+)
+from pychebyshev_tpu_torch.ops.tt_eval import tt_eval_batch
+from pychebyshev_tpu_torch.utils import ceval
+
+__all__ = ["ChebyshevTT"]
+
+
+def _is_scalar(value) -> bool:
+    """True if *value* is a plain numeric scalar."""
+    return isinstance(value, (int, float, np.integer, np.floating))
+
+
+def _unwrap_typed(domain, n_nodes):
+    """Unwrap the Domain / Ns typed helpers."""
+    from pychebyshev_tpu_torch import Domain, Ns
+    if isinstance(domain, Domain):
+        domain = list(domain.bounds)
+    if isinstance(n_nodes, Ns):
+        n_nodes = list(n_nodes.counts)
+    return domain, n_nodes
+
+
+def _same_arrays(keyed, current) -> bool:
+    return (len(keyed) == len(current)
+            and all(a is b for a, b in zip(keyed, current)))
+
+
+class ChebyshevTT:
+    """Chebyshev interpolant in TT format for high-dimensional functions.
+
+    Parameters mirror the JAX package's constructor; ``device``
+    (required, keyword-only) is where batched evaluation runs.
+    ``vectorized=True`` marks ``function`` as batch-capable
+    (``f(points (N, d), data) -> (N,)``, host NumPy) so the build oracle
+    issues one batched call per cross block.
+    """
+
+    def __init__(self, function: Callable, num_dimensions: int,
+                 domain, n_nodes, max_rank: int = 10,
+                 tolerance: float = 1e-6, max_sweeps: int = 10,
+                 additional_data=None, *, device,
+                 max_derivative_order: int = 2,
+                 vectorized: bool = False):
+        domain, n_nodes = _unwrap_typed(domain, n_nodes)
+        if len(domain) != num_dimensions:
+            raise ValueError(
+                f"domain has {len(domain)} entries but "
+                f"num_dimensions={num_dimensions}"
+            )
+        if len(n_nodes) != num_dimensions:
+            raise ValueError(
+                f"n_nodes has {len(n_nodes)} entries but "
+                f"num_dimensions={num_dimensions}"
+            )
+
+        self.device = torch.device(device)
+        self.function = function
+        self.num_dimensions = num_dimensions
+        self.domain = [list(b) for b in domain]
+        self.n_nodes = [int(n) for n in n_nodes]
+        self.max_rank = max_rank
+        self.tolerance = tolerance
+        self.max_sweeps = max_sweeps
+        self.max_derivative_order = max_derivative_order
+        self.vectorized = bool(vectorized)
+
+        self._coeff_cores: Optional[List[np.ndarray]] = None
+        self._built = False
+        self.descriptor: str = ""
+        self.additional_data = additional_data
+        self._tt_ranks: Optional[List[int]] = None
+        self._build_time: float = 0.0
+        self._total_build_evals: int = 0
+        self._cached_error_estimate: Optional[float] = None
+        self.method: Optional[str] = None
+        # _dim_order[k] = original (user-frame) dim stored at TT position k.
+        self._dim_order: List[int] = list(range(num_dimensions))
+
+    # ------------------------------------------------------------------
+    # Build
+    # ------------------------------------------------------------------
+
+    def _storage_grids(self) -> List[np.ndarray]:
+        """Per-storage-position Chebyshev node arrays (ascending)."""
+        return [
+            nodes_for_dim_np(self.domain[d][0], self.domain[d][1],
+                             self.n_nodes[d])
+            for d in range(self.num_dimensions)
+        ]
+
+    def build(self, verbose: bool | int = True, seed: Optional[int] = None,
+              method: str = "cross", init_rank: Optional[int] = None,
+              kick: int = 2, refine_sweeps: int = 0,
+              refine_samples: int = 0) -> None:
+        """Build value cores (cross / svd / als) on the host, convert to
+        coefficient cores via the DCT-II cosine matrix.
+
+        ``init_rank``/``kick`` (cross only): warm-start the cross with
+        small random index sets and enrich them by ``kick`` random rows
+        per stalled sweep.  Lets bond ranks grow past the per-dim node
+        counts (up to ``max_rank``) for higher accuracy, where the
+        default full-size start cannot.
+
+        ``refine_sweeps``/``refine_samples`` (cross only): after the
+        cross, run ``refine_sweeps`` masked-ALS completion sweeps over
+        the entries the cross already evaluated (free) plus
+        ``refine_samples`` extra random grid samples.  Defaults off, so
+        that a seeded build is the plain cross.
+        """
+        if method not in ("cross", "svd", "als"):
+            raise ValueError(
+                f"method must be 'cross', 'svd', or 'als', got {method!r}"
+            )
+        if self.function is None:
+            raise RuntimeError(
+                "Cannot build: no function assigned. "
+                "This object was created via from_values() or load()."
+            )
+        self.method = method
+        start = time.time()
+        self._cached_error_estimate = None
+
+        full_tensor_size = int(np.prod(self.n_nodes))
+        if verbose:
+            print(f"Building {self.num_dimensions}D ChebyshevTT "
+                  f"(max_rank={self.max_rank}, method={method!r})...")
+            print(f"  Full tensor would need {full_tensor_size:,} "
+                  f"evaluations")
+
+        grids = self._storage_grids()
+        oracle = tta.GridOracle(self.function, grids,
+                                additional_data=self.additional_data,
+                                vectorized=self.vectorized)
+
+        if method == "cross":
+            if verbose:
+                print("  Running TT-Cross...")
+            value_cores = tta.tt_cross(
+                oracle, list(self.n_nodes), max_rank=self.max_rank,
+                tol=self.tolerance, max_sweeps=self.max_sweeps,
+                verbose=verbose, seed=seed, init_rank=init_rank,
+                kick=kick)
+            if refine_sweeps > 0:
+                if refine_samples > 0:
+                    rng = np.random.default_rng(seed)
+                    extra = np.column_stack([
+                        rng.integers(0, nn, size=refine_samples)
+                        for nn in self.n_nodes])
+                    oracle.eval_many(np.unique(extra, axis=0))
+                obs_idx, obs_vals = oracle.observations()
+                value_cores = tta.masked_als_refine(
+                    value_cores, obs_idx, obs_vals,
+                    n_sweeps=refine_sweeps)
+                if verbose:
+                    print(f"  Masked-ALS refinement: {refine_sweeps} "
+                          f"sweeps over {len(obs_vals):,} observed "
+                          f"entries (total evals {oracle.n_evals:,})")
+        elif method == "svd":
+            if verbose:
+                print(f"  Building full tensor "
+                      f"({full_tensor_size:,} evaluations)...")
+            target = oracle.full_tensor(list(self.n_nodes))
+            value_cores = tta.tt_svd_from_tensor(
+                target, max_rank=self.max_rank, tol=self.tolerance)
+            if verbose:
+                ranks = [1] + [c.shape[2] for c in value_cores]
+                print(f"  TT-SVD ranks: {ranks}")
+        else:  # als
+            if verbose:
+                print("  Running TT-ALS...")
+            target = oracle.full_tensor(list(self.n_nodes))
+            value_cores = tta.tt_als(
+                target, max_rank=self.max_rank, tol=self.tolerance,
+                random_state=seed, verbose=bool(verbose))
+
+        self._total_build_evals = oracle.n_evals
+        self._coeff_cores = [tta.value_core_to_coeff_core(c)
+                             for c in value_cores]
+        self._tt_ranks = [1] + [c.shape[2] for c in self._coeff_cores]
+        self._build_time = time.time() - start
+        self._built = True
+
+        if verbose:
+            tt_storage = sum(c.size for c in self._coeff_cores)
+            print(f"  Built in {self._build_time:.3f}s "
+                  f"({self._total_build_evals:,} function evaluations)")
+            print(f"  TT ranks: {self._tt_ranks}")
+            print(f"  Compression: {full_tensor_size:,} -> {tt_storage:,} "
+                  f"elements ({full_tensor_size / tt_storage:.1f}x)")
+
+    def _check_built(self) -> None:
+        if not self._built:
+            raise RuntimeError("Call build() before using this method.")
+
+    # ------------------------------------------------------------------
+    # Orthogonalization + completion
+    # ------------------------------------------------------------------
+
+    def orth_left(self, position: int) -> None:
+        """Left-orthogonalize cores [0..position-1] in place (tensor
+        unchanged; R factors absorbed rightward)."""
+        self._check_built()
+        d = self.num_dimensions
+        if not (1 <= position < d):
+            raise ValueError(
+                f"position must be in [1, {d - 1}] for orth_left, "
+                f"got {position}"
+            )
+        for k in range(position):
+            self._coeff_cores[k], self._coeff_cores[k + 1] = (
+                tta.orth_left_core(self._coeff_cores[k],
+                                   self._coeff_cores[k + 1]))
+
+    def orth_right(self, position: int) -> None:
+        """Right-orthogonalize cores [position+1..d-1] in place."""
+        self._check_built()
+        d = self.num_dimensions
+        if not (0 <= position < d - 1):
+            raise ValueError(
+                f"position must be in [0, {d - 2}] for orth_right, "
+                f"got {position}"
+            )
+        for k in range(d - 1, position, -1):
+            self._coeff_cores[k - 1], self._coeff_cores[k] = (
+                tta.orth_right_core(self._coeff_cores[k - 1],
+                                    self._coeff_cores[k]))
+
+    # ------------------------------------------------------------------
+    # Inner product / integration / calculus
+    # ------------------------------------------------------------------
+
+    def inner_product(self, other: "ChebyshevTT") -> float:
+        """Frobenius inner product of the two coefficient tensors via
+        core-chain contraction, O(d n r_s^2 r_o^2)."""
+        self._check_built()
+        if not isinstance(other, ChebyshevTT):
+            raise ValueError(
+                f"other must be a ChebyshevTT, got {type(other).__name__}"
+            )
+        other._check_built()
+        if not np.allclose(np.asarray(self.domain, dtype=float),
+                           np.asarray(other.domain, dtype=float)):
+            raise ValueError(
+                "inner_product requires matching domains; "
+                f"got {self.domain} vs {other.domain}"
+            )
+        if list(self.n_nodes) != list(other.n_nodes):
+            raise ValueError(
+                "inner_product requires matching n_nodes; "
+                f"got {self.n_nodes} vs {other.n_nodes}"
+            )
+        if list(self._dim_order) != list(other._dim_order):
+            raise ValueError(
+                f"inner_product requires matching _dim_order: "
+                f"{self._dim_order} vs {other._dim_order}. "
+                f"Call other = other.reorder(self._dim_order) to align "
+                f"before computing inner_product."
+            )
+        m = np.array([[1.0]])
+        for k in range(self.num_dimensions):
+            m = np.einsum("ij,ipa,jpb->ab", m, self._coeff_cores[k],
+                          other._coeff_cores[k])
+        return float(m[0, 0])
+
+    def _user_frame_domain(self) -> list:
+        """Domain list indexed by user-frame dims."""
+        return [self.domain[self._dim_order.index(u)]
+                for u in range(self.num_dimensions)]
+
+    def to_dense(self) -> np.ndarray:
+        """Materialize the full value tensor (axes in user-frame order)."""
+        self._check_built()
+        value_cores = [tta.coeff_core_to_value_core(c)
+                       for c in self._coeff_cores]
+        result = tta.tt_reconstruct(value_cores).reshape(
+            tuple(self.n_nodes))
+        canonical = list(range(self.num_dimensions))
+        if self._dim_order != canonical:
+            inv = [0] * self.num_dimensions
+            for storage_pos, orig_dim in enumerate(self._dim_order):
+                inv[orig_dim] = storage_pos
+            result = np.transpose(result, axes=inv)
+        return result
+
+    def _assemble(self, cores, domain, n_nodes, dim_order,
+                  max_rank=None) -> "ChebyshevTT":
+        """Internal factory for derived TTs (algebra/reorder/
+        differentiate results), on this object's device."""
+        obj = self.__class__.__new__(self.__class__)
+        obj.device = self.device
+        obj.function = None
+        obj.num_dimensions = len(n_nodes)
+        obj.domain = [list(b) for b in domain]
+        obj.n_nodes = [int(n) for n in n_nodes]
+        obj.max_rank = self.max_rank if max_rank is None else max_rank
+        obj.tolerance = self.tolerance
+        obj.max_sweeps = self.max_sweeps
+        obj.max_derivative_order = self.max_derivative_order
+        obj.additional_data = self.additional_data
+        obj.descriptor = self.descriptor
+        obj.method = self.method
+        obj.vectorized = False
+        obj._coeff_cores = cores
+        obj._tt_ranks = [c.shape[0] for c in cores] + [cores[-1].shape[2]]
+        obj._built = True
+        obj._build_time = 0.0
+        obj._total_build_evals = 0
+        obj._cached_error_estimate = None
+        obj._dim_order = list(dim_order)
+        return obj
+
+    # ------------------------------------------------------------------
+    # Evaluation
+    # ------------------------------------------------------------------
+
+    def _storage_point(self, point):
+        canonical = list(range(self.num_dimensions))
+        if self._dim_order != canonical:
+            return [point[self._dim_order[k]]
+                    for k in range(self.num_dimensions)]
+        return list(point)
+
+    def eval(self, point) -> float:
+        """Evaluate at a single point via the TT contraction chain."""
+        self._check_built()
+        point_storage = self._storage_point(point)
+        return self._eval_storage_frame(point_storage,
+                                        [0] * self.num_dimensions)
+
+    def _eval_storage_frame(self, point_storage, derivative_order_storage
+                            ) -> float:
+        """Evaluate at a storage-frame point (value or FD derivative).
+
+        Single points run the contraction chain on the host: through
+        the C kernel where the library is available (it declines nothing
+        a well-formed chain can hold), else in NumPy.  The device path
+        would pay a dispatch per call; batches belong in
+        :meth:`eval_batch`.
+        """
+        if all(o == 0 for o in derivative_order_storage):
+            pack = self._host_cpack()
+            if pack is not None:
+                pt = np.ascontiguousarray(point_storage,
+                                          dtype=np.float64)
+                if pt.ndim == 1 and pt.shape[0] == self.num_dimensions:
+                    val = ceval.tt_eval_single(pack, pt)
+                    if val is not None:
+                        return val
+            row = np.ones((1, 1))
+            for d, core in enumerate(self._coeff_cores):
+                a, b = self.domain[d]
+                scaled = 2.0 * (point_storage[d] - a) / (b - a) - 1.0
+                n = core.shape[1]
+                q = np.empty(n)
+                q[0] = 1.0
+                if n > 1:
+                    q[1] = scaled
+                for k in range(2, n):
+                    q[k] = 2.0 * scaled * q[k - 1] - q[k - 2]
+                row = row @ np.einsum("j,ijk->ik", q, core)
+            return float(row[0, 0])
+        return self._fd_derivative(point_storage, derivative_order_storage)
+
+    def _host_cpack(self):
+        """ctypes pack for the C single-point kernel, cached with the
+        same identity-keyed discipline as :meth:`_cores_on_device`
+        (mutation paths replace core ndarrays; the keyed tuple is
+        retained so ids cannot be recycled)."""
+        cores = tuple(self._coeff_cores)
+        hit = self.__dict__.get("_host_cpack_cache")
+        if hit is not None and _same_arrays(hit[0], cores):
+            return hit[1]
+        pack = ceval.make_tt_pack(cores, np.asarray(self.domain,
+                                                    dtype=np.float64))
+        self.__dict__["_host_cpack_cache"] = (cores, pack)
+        return pack
+
+    def _cores_on_device(self, dtype) -> tuple:
+        """Device copies of the coefficient cores, cached per dtype and
+        device.
+
+        Keyed on the host core arrays' identities, with the keyed
+        ndarrays RETAINED in the cache entry: every mutation path in
+        this class REPLACES core ndarrays (orth / rounding / algebra
+        assemble fresh arrays), so changed cores miss, and pinning the
+        old arrays keeps their ids from being recycled by the allocator,
+        which would otherwise let a twice-replaced core list collide
+        with a stale entry.  The device tensors themselves are private
+        to this cache, so nothing edits them in place.  Avoids
+        re-uploading the cores on every batched eval.
+        """
+        cache = self.__dict__.setdefault("_dev_cores", {})
+        dkey = (dtype, str(self.device))
+        cores = tuple(self._coeff_cores)
+        hit = cache.get(dkey)
+        if hit is not None and _same_arrays(hit[0], cores):
+            return hit[1]
+        dev = tuple(torch.tensor(c, dtype=dtype, device=self.device)
+                    for c in cores)
+        cache[dkey] = (cores, dev)
+        return dev
+
+    def _storage_points(self, points, dtype=torch.float64) -> torch.Tensor:
+        """(N, d) user-frame points as a tensor on the device at
+        ``dtype``, columns permuted into the storage frame."""
+        pts = torch.as_tensor(points, dtype=dtype, device=self.device)
+        if pts.dim() != 2 or pts.shape[1] != self.num_dimensions:
+            raise ValueError(
+                f"points must have shape (N, {self.num_dimensions}), "
+                f"got {tuple(pts.shape)}")
+        if self._dim_order != list(range(self.num_dimensions)):
+            pts = pts[:, self._dim_order]
+        return pts
+
+    def eval_batch(self, points) -> torch.Tensor:
+        """Evaluate at (N, d) points in f64 -> (N,) tensor on the
+        device."""
+        self._check_built()
+        return tt_eval_batch(self._cores_on_device(torch.float64),
+                             np.asarray(self.domain, dtype=np.float64),
+                             self._storage_points(points))
+
+    def eval_batch_dd(self, points, mode: str = "accurate",
+                      groups="auto") -> torch.Tensor:
+        """Near-f64 batched evaluation -> (N,) f64 tensor on the device.
+
+        The reference's dd tier (``ops.tt_eval_dd``), served in native
+        f64: the same chain as :meth:`eval_batch`, per-dim or grouped.
+        Core shapes outside the reference's digit-plan budget, and
+        out-of-domain batches, take the per-dim f64 chain, as in the
+        reference.
+
+        ``mode``: ``"accurate"`` (default) or ``"fast"``; the reference
+        trades accuracy for speed there, while f64 already meets both
+        modes' accuracy, so the result is the same.
+
+        ``groups``: ``"auto"`` (default) serves the grouping
+        ``tt_dd_auto_groups`` picks; ``None`` forces the per-dim chain;
+        a tuple of contiguous group sizes pins an explicit grouping.
+        """
+        self._check_built()
+        if mode not in ("accurate", "fast"):
+            raise ValueError(
+                f"mode must be 'accurate' or 'fast', got {mode!r}")
+        pts = self._storage_points(points)
+        cores = self._cores_on_device(torch.float64)
+        domain = np.asarray(self.domain, dtype=np.float64)
+        dom = torch.tensor(domain, device=self.device)
+        # One device-to-host read decides the route for the whole batch.
+        out_of_domain = bool(((pts < dom[:, 0]) | (pts > dom[:, 1]))
+                             .any().item())
+        if not out_of_domain and tt_eval_dd.tt_supports_dd(
+                [c.shape for c in cores]):
+            cutoff = (tt_eval_dd.FAST_PAIR_CUTOFF if mode == "fast"
+                      else None)
+            return tt_eval_dd.tt_eval_batch_dd(cores, domain, pts,
+                                               cutoff=cutoff,
+                                               groups=groups)
+        return tt_eval_batch(cores, domain, pts)
+
+    def eval_multi(self, point, derivative_orders) -> List[float]:
+        """Value + finite-difference derivatives at one point.
+
+        Coordinates and orders are permuted once into storage frame, then
+        each spec evaluates through the storage-frame helper (no
+        ``_dim_order`` mutation: the race-free discipline).
+        """
+        self._check_built()
+        canonical = list(range(self.num_dimensions))
+        if self._dim_order != canonical:
+            point_storage = [point[self._dim_order[k]]
+                             for k in range(self.num_dimensions)]
+            derivs_storage = [
+                [do[self._dim_order[k]] for k in range(self.num_dimensions)]
+                for do in derivative_orders
+            ]
+        else:
+            point_storage = list(point)
+            derivs_storage = [list(do) for do in derivative_orders]
+        return [self._eval_storage_frame(point_storage, ds)
+                for ds in derivs_storage]
+
+    # Cross-family naming symmetry with the dense class.
+    vectorized_eval = eval
+    vectorized_eval_multi = eval_multi
+
+    def _eval_batch_multi_device(self, points, derivative_orders
+                                 ) -> torch.Tensor:
+        """:meth:`vectorized_eval_batch_multi` with the result left on
+        the device.  The shifted batches are built there too: the clip
+        (``a + 1.5h``, ``b - 1.5h``), steps and coefficients are the
+        per-point path's, in the same order."""
+        self._check_built()
+        # Validate spec lengths BEFORE the dim-order remap: indexing a
+        # too-short spec through a permuted _dim_order would raise a
+        # confusing IndexError instead of this ValueError.
+        for do in derivative_orders:
+            if len(do) != self.num_dimensions:
+                raise ValueError(
+                    f"derivative_order length {len(do)} does not "
+                    f"match num_dimensions {self.num_dimensions}"
+                )
+        pts = self._storage_points(points)
+        derivs = [[do[self._dim_order[k]]
+                   for k in range(self.num_dimensions)]
+                  for do in derivative_orders]
+
+        n = pts.shape[0]
+        if not derivs:
+            return pts.new_zeros((n, 0))
+        stacks = []       # shifted point batches, one (N, d) per term
+        combine = []      # per spec: list of (stack offset, coeff)
+        for do in derivs:
+            active = [(d, int(o)) for d, o in enumerate(do) if o > 0]
+            if any(o not in (1, 2) for _, o in active):
+                bad = next(o for _, o in active if o not in (1, 2))
+                raise ValueError(
+                    f"Derivative order {bad} not supported (use 1 or 2)")
+            base = pts.clone()
+            steps = {}
+            for d, _ in active:
+                h = self._fd_step(d)
+                a, b = self.domain[d]
+                base[:, d].clamp_(a + 1.5 * h, b - 1.5 * h)
+                steps[d] = h
+            # Tensor-product stencil across the active dims.
+            terms = [({}, 1.0)]
+            for d, order in active:
+                h = steps[d]
+                if order == 1:
+                    stencil = [(h, 0.5 / h), (-h, -0.5 / h)]
+                else:
+                    inv_h2 = 1.0 / (h * h)
+                    stencil = [(h, inv_h2), (0.0, -2.0 * inv_h2),
+                               (-h, inv_h2)]
+                terms = [({**shifts, d: delta}, c * w)
+                         for shifts, c in terms
+                         for delta, w in stencil]
+            spec_terms = []
+            for shifts, coeff in terms:
+                shifted = base.clone()
+                for d, delta in shifts.items():
+                    shifted[:, d] += delta
+                spec_terms.append((len(stacks), coeff))
+                stacks.append(shifted)
+            combine.append(spec_terms)
+
+        all_vals = tt_eval_batch(
+            self._cores_on_device(torch.float64),
+            np.asarray(self.domain, dtype=np.float64),
+            torch.cat(stacks, dim=0))
+        out = pts.new_zeros((n, len(derivs)))
+        for j, spec_terms in enumerate(combine):
+            for offset, coeff in spec_terms:
+                out[:, j] += coeff * all_vals[offset * n:(offset + 1) * n]
+        return out
+
+    def vectorized_eval_batch_multi(self, points, derivative_orders
+                                    ) -> np.ndarray:
+        """Batch x multi-spec evaluation -> (N, len(derivative_orders))
+        NumPy array.
+
+        A whole TT Greek report in one batched chain.  Each spec's
+        central-difference stencil (the same per-dim {+h, -h} /
+        {+h, 0, -h} products with boundary nudges that
+        :meth:`eval_multi` applies point-at-a-time) is expanded into
+        shifted copies of the query batch on the device; every shifted
+        batch from every spec is concatenated and evaluated in ONE
+        ``tt_eval_batch`` call, then recombined with the stencil
+        coefficients.  The stencil (points, shifts, coefficients) is
+        identical to the per-point path; only the contraction backend
+        differs, so agreement is to roundoff.
+        """
+        return self._eval_batch_multi_device(
+            points, derivative_orders).cpu().numpy()
+
+    eval_batch_multi = vectorized_eval_batch_multi
+
+    # --- finite differences (storage frame) ---------------------------
+
+    def _fd_step(self, d: int) -> float:
+        a, b = self.domain[d]
+        return (b - a) * 1e-4
+
+    def _nudge_point(self, point, d: int, h: float):
+        pt = list(point)
+        a, b = self.domain[d]
+        needed = h * 1.5
+        if pt[d] - a < needed:
+            pt[d] = a + needed
+        if b - pt[d] < needed:
+            pt[d] = b - needed
+        return pt
+
+    def _fd_derivative(self, point, deriv_order) -> float:
+        active = [(d, o) for d, o in enumerate(deriv_order) if o > 0]
+        if len(active) == 1:
+            d, order = active[0]
+            return self._fd_single_dim(point, d, order)
+        if len(active) == 2:
+            (d1, o1), (d2, o2) = active
+            if o1 == 1 and o2 == 1:
+                return self._fd_cross_deriv(point, d1, d2)
+        return self._fd_nested(point, active)
+
+    def _fd_single_dim(self, point, d: int, order: int) -> float:
+        h = self._fd_step(d)
+        pt = self._nudge_point(point, d, h)
+        zero = [0] * self.num_dimensions
+        pt_plus, pt_minus = list(pt), list(pt)
+        pt_plus[d] += h
+        pt_minus[d] -= h
+        if order == 1:
+            return (self._eval_storage_frame(pt_plus, zero)
+                    - self._eval_storage_frame(pt_minus, zero)) / (2.0 * h)
+        if order == 2:
+            f_plus = self._eval_storage_frame(pt_plus, zero)
+            f_center = self._eval_storage_frame(pt, zero)
+            f_minus = self._eval_storage_frame(pt_minus, zero)
+            return (f_plus - 2.0 * f_center + f_minus) / (h * h)
+        raise ValueError(
+            f"Derivative order {order} not supported (use 1 or 2)")
+
+    def _fd_cross_deriv(self, point, d1: int, d2: int) -> float:
+        h1, h2 = self._fd_step(d1), self._fd_step(d2)
+        pt = self._nudge_point(self._nudge_point(point, d1, h1), d2, h2)
+        zero = [0] * self.num_dimensions
+
+        def at(delta1, delta2):
+            p = list(pt)
+            p[d1] += delta1
+            p[d2] += delta2
+            return self._eval_storage_frame(p, zero)
+
+        return (at(h1, h2) - at(h1, -h2) - at(-h1, h2)
+                + at(-h1, -h2)) / (4.0 * h1 * h2)
+
+    def _fd_nested(self, point, active_dims) -> float:
+        if not active_dims:
+            return self._eval_storage_frame(point,
+                                            [0] * self.num_dimensions)
+        d, order = active_dims[0]
+        remaining = active_dims[1:]
+        h = self._fd_step(d)
+        pt = self._nudge_point(point, d, h)
+        pt_plus, pt_minus = list(pt), list(pt)
+        pt_plus[d] += h
+        pt_minus[d] -= h
+        if order == 1:
+            return (self._fd_nested(pt_plus, remaining)
+                    - self._fd_nested(pt_minus, remaining)) / (2.0 * h)
+        if order == 2:
+            return (self._fd_nested(pt_plus, remaining)
+                    - 2.0 * self._fd_nested(pt, remaining)
+                    + self._fd_nested(pt_minus, remaining)) / (h * h)
+        raise ValueError(
+            f"Derivative order {order} not supported (use 1 or 2)")
+
+    # ------------------------------------------------------------------
+    # Error estimate + properties
+    # ------------------------------------------------------------------
+
+    def differentiate(self, derivative_order) -> "ChebyshevTT":
+        """Analytic spectral derivative as a new TT.
+
+        Applies the barycentric differentiation matrix along the node
+        axis of each targeted core in *value space* (convert core ->
+        values, ``D^k`` passes, convert back); rank structure is
+        untouched, so the result is an exact TT of the interpolant's
+        derivative.  Evaluating it matches the dense class's analytic
+        derivatives to roundoff, unlike the central finite differences
+        of :meth:`eval_multi`.
+
+        Parameters
+        ----------
+        derivative_order : sequence of int (user-frame, one per dim).
+        """
+        self._check_built()
+        if len(derivative_order) != self.num_dimensions:
+            raise ValueError(
+                f"derivative_order length {len(derivative_order)} does "
+                f"not match num_dimensions {self.num_dimensions}"
+            )
+
+        new_cores = []
+        for sp, core in enumerate(self._coeff_cores):
+            order = int(derivative_order[self._dim_order[sp]])
+            if order == 0:
+                new_cores.append(core.copy())
+                continue
+            if order < 0:
+                raise ValueError(
+                    f"derivative order must be >= 0, got {order}"
+                )
+            lo, hi = self.domain[sp]
+            nodes = nodes_for_dim_np(lo, hi, self.n_nodes[sp])
+            d_mat = differentiation_matrix_np(
+                nodes, barycentric_weights_np(nodes))
+            value_core = tta.coeff_core_to_value_core(core)
+            for _ in range(order):
+                value_core = np.einsum("ij,ajb->aib", d_mat, value_core)
+            new_cores.append(tta.value_core_to_coeff_core(value_core))
+
+        return self._assemble(new_cores, self.domain, self.n_nodes,
+                              self._dim_order)
+
+    def error_estimate(self, tail: int = 1) -> float:
+        """Sum over dims of max |last Chebyshev coefficient| in each core.
+
+        ``tail=2`` reads the last two coefficient slices per core —
+        robust to parity-symmetric functions whose alternating zero
+        coefficients blank the single-slice probe (see
+        ChebyshevApproximation.error_estimate)."""
+        self._check_built()
+        if tail == 1 and self._cached_error_estimate is not None:
+            return self._cached_error_estimate
+        total = sum(
+            float(np.max(np.abs(core[:, -min(max(1, int(tail)),
+                                             core.shape[1]):, :])))
+            for core in self._coeff_cores)
+        if tail == 1:
+            self._cached_error_estimate = total
+        return total
+
+    @property
+    def tt_ranks(self) -> List[int]:
+        """[1, r_1, ..., r_{d-1}, 1]."""
+        self._check_built()
+        return list(self._tt_ranks)
+
+    @property
+    def compression_ratio(self) -> float:
+        """Full-tensor elements / TT storage elements."""
+        self._check_built()
+        full_size = int(np.prod(self.n_nodes))
+        return full_size / sum(c.size for c in self._coeff_cores)
+
+    @property
+    def total_build_evals(self) -> int:
+        """Unique function evaluations used during build."""
+        return self._total_build_evals
+
+    @property
+    def dim_order(self) -> List[int]:
+        """dim_order[k] = original dim stored at TT position k."""
+        return list(self._dim_order)
+
+    def reorder(self, new_order, *, max_rank=None,
+                tolerance=None) -> "ChebyshevTT":
+        """New TT with storage permutation ``new_order`` via bubble-sorted
+        adjacent TT-swaps (SVD-split per swap)."""
+        self._check_built()
+        new_order = list(new_order)
+        d = self.num_dimensions
+        if sorted(new_order) != list(range(d)):
+            raise ValueError(
+                f"new_order must be a permutation of range({d}); "
+                f"got {new_order!r}"
+            )
+        if new_order == self._dim_order:
+            return self.clone()
+
+        eff_max_rank = self.max_rank if max_rank is None else max_rank
+        eff_tol = self.tolerance if tolerance is None else tolerance
+
+        current = list(self._dim_order)
+        cores = [c.copy() for c in self._coeff_cores]
+        n_nodes = list(self.n_nodes)
+        domain = list(self.domain)
+
+        for k in range(d):
+            j = current.index(new_order[k])
+            while j > k:
+                cores = tta.tt_swap_adjacent(
+                    cores, j - 1, max_rank=eff_max_rank, tolerance=eff_tol)
+                current[j - 1], current[j] = current[j], current[j - 1]
+                n_nodes[j - 1], n_nodes[j] = n_nodes[j], n_nodes[j - 1]
+                domain[j - 1], domain[j] = domain[j], domain[j - 1]
+                j -= 1
+
+        return self._assemble(cores, domain, n_nodes, new_order)
+
+    # ------------------------------------------------------------------
+    # Serialization + ergonomics
+    # ------------------------------------------------------------------
+
+    def __getstate__(self) -> dict:
+        """Picklable state: host cores, device as a string, no function,
+        no device tensors, no ctypes state."""
+        from pychebyshev_tpu_torch._version import __version__
+        state = self.__dict__.copy()
+        state["function"] = None
+        state.pop("_dev_cores", None)  # device cache never pickles
+        state.pop("_host_cpack_cache", None)  # ctypes state never pickles
+        state["device"] = str(self.device)
+        state["_pychebyshev_version"] = __version__
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        from pychebyshev_tpu_torch._version import __version__
+        saved = state.pop("_pychebyshev_version", None)
+        if saved is not None and saved != __version__:
+            warnings.warn(
+                f"This object was saved with pychebyshev-tpu {saved}, but "
+                f"you are loading it with {__version__}. Evaluation results "
+                f"may differ if internal data layout changed.",
+                UserWarning,
+                stacklevel=2,
+            )
+        self.__dict__.update(state)
+        self.function = None
+        self.device = torch.device(state["device"])
+        defaults = {
+            "_cached_error_estimate": None,
+            "additional_data": None,
+            "descriptor": "",
+            "max_derivative_order": 2,
+            "vectorized": False,
+        }
+        for key, val in defaults.items():
+            if not hasattr(self, key):
+                setattr(self, key, val)
+        if not hasattr(self, "_dim_order"):
+            self._dim_order = list(range(self.num_dimensions))
+
+    def is_construction_finished(self) -> bool:
+        """True iff built and usable."""
+        return self._built
+
+    def get_constructor_type(self) -> str:
+        """Class name."""
+        return type(self).__name__
+
+    def get_used_ns(self) -> list:
+        """Per-dim node counts."""
+        return list(self.n_nodes)
+
+    def set_descriptor(self, descriptor: str) -> None:
+        """Attach a free-form text label."""
+        if not isinstance(descriptor, str):
+            raise TypeError(
+                f"descriptor must be str, got {type(descriptor).__name__}"
+            )
+        self.descriptor = descriptor
+
+    def get_descriptor(self) -> str:
+        """The descriptor label (default '')."""
+        return self.descriptor
+
+    def get_max_derivative_order(self) -> int:
+        """Maximum queryable derivative order (via eval_multi FD)."""
+        return self.max_derivative_order
+
+    def get_special_points(self):
+        """Always None — TT grids have no special-point surface."""
+        return None
+
+    def get_error_threshold(self):
+        """Always None — TT builds target ``tolerance``, not the dense
+        auto-N error_threshold mode."""
+        return None
+
+    def get_num_evaluation_points(self) -> int:
+        """Full Cartesian grid size (TT-Cross samples a sparse subset;
+        see ``total_build_evals`` for the actual count)."""
+        return int(np.prod(self.n_nodes))
+
+    def get_evaluation_points(self) -> np.ndarray:
+        """Full Cartesian node grid, columns in user-frame order."""
+        grids = self._storage_grids()
+        mesh = np.meshgrid(*grids, indexing="ij")
+        user_frame = [mesh[self._dim_order.index(u)]
+                      for u in range(self.num_dimensions)]
+        return np.stack([g.ravel() for g in user_frame],
+                        axis=-1).astype(np.float64)
+
+    def clone(self) -> "ChebyshevTT":
+        """Independent deep copy (function not duplicated)."""
+        import copy
+        return copy.deepcopy(self)
+
+    @classmethod
+    def from_values(cls, tensor_values, num_dimensions: int, domain,
+                    n_nodes, max_rank: Optional[int] = None,
+                    tolerance: float = 1e-6,
+                    max_derivative_order: int = 2, additional_data=None,
+                    descriptor: str = "", *, device) -> "ChebyshevTT":
+        """TT-SVD compression of a precomputed dense value tensor."""
+        domain, n_nodes = _unwrap_typed(domain, n_nodes)
+        if isinstance(tensor_values, torch.Tensor):
+            tensor_values = tensor_values.detach().cpu().numpy()
+
+        arr = np.asarray(tensor_values, dtype=np.float64)
+        expected_shape = tuple(n_nodes)
+        if arr.shape != expected_shape:
+            raise ValueError(
+                f"tensor_values shape {arr.shape} does not match expected "
+                f"{expected_shape}"
+            )
+        if not np.isfinite(arr).all():
+            raise ValueError(
+                "tensor_values contains NaN or Inf — all values must be "
+                "finite"
+            )
+        if max_rank is None:
+            max_rank = max(n_nodes)
+
+        value_cores = tta.tt_svd_from_tensor(arr, max_rank=max_rank,
+                                             tol=tolerance)
+        coeff_cores = [tta.value_core_to_coeff_core(c)
+                       for c in value_cores]
+        return cls._from_coeff_cores(
+            coeff_cores, domain, n_nodes,
+            dim_order=list(range(num_dimensions)), max_rank=max_rank,
+            tolerance=tolerance, max_derivative_order=max_derivative_order,
+            additional_data=additional_data, descriptor=descriptor,
+            method="svd", device=device)
+
+    @classmethod
+    def _from_coeff_cores(cls, coeff_cores, domain, n_nodes, *,
+                          dim_order, max_rank, tolerance,
+                          max_derivative_order=2, additional_data=None,
+                          descriptor: str = "", method: str = "cores",
+                          device) -> "ChebyshevTT":
+        """One authoritative built-object factory for external cores.
+
+        ``domain``/``n_nodes`` are STORAGE-frame (position k describes
+        user dim ``dim_order[k]``).  Every factory that fabricates a
+        TT from precomputed coefficient cores (``from_values``,
+        ``ChebyshevApproximation.to_tt``, ``utils.convert``) routes here
+        so the attribute list has a single owner.
+        """
+        obj = cls.__new__(cls)
+        obj.device = torch.device(device)
+        obj.function = None
+        obj.num_dimensions = len(n_nodes)
+        obj.domain = [list(b) for b in domain]
+        obj.n_nodes = [int(n) for n in n_nodes]
+        obj.max_rank = int(max_rank)
+        obj.tolerance = tolerance
+        obj.max_sweeps = 10
+        obj.max_derivative_order = max_derivative_order
+        obj.additional_data = additional_data
+        obj.descriptor = descriptor
+        obj.method = method
+        obj.vectorized = False
+        obj._coeff_cores = list(coeff_cores)
+        obj._tt_ranks = ([c.shape[0] for c in coeff_cores]
+                         + [coeff_cores[-1].shape[2]])
+        obj._built = True
+        obj._build_time = 0.0
+        obj._total_build_evals = 0
+        obj._cached_error_estimate = None
+        obj._dim_order = list(dim_order)
+        return obj
+
+    @classmethod
+    def with_auto_order(cls, function, num_dimensions: int, domain,
+                        n_nodes, *, max_rank: int = 10,
+                        tolerance: float = 1e-6, max_sweeps: int = 10,
+                        additional_data=None, n_trials: int = 5,
+                        method: str = "greedy_swap",
+                        vectorized: bool = False,
+                        device) -> "ChebyshevTT":
+        """Build trying multiple dim orderings; keep the lowest total rank.
+
+        ``greedy_swap`` tries adjacent transpositions from the canonical
+        order; ``random`` samples ``n_trials`` permutations (seeded).
+        The winner's :attr:`dim_order` records the chosen permutation and
+        ``eval``/``eval_batch`` remap user coordinates transparently.
+        """
+        def build_with_order(order):
+            perm_domain = [domain[order[k]] for k in range(num_dimensions)]
+            perm_n_nodes = [n_nodes[order[k]]
+                            for k in range(num_dimensions)]
+
+            if vectorized:
+                inv = np.argsort(np.asarray(order))
+
+                def perm_f(points, ad):
+                    pts = np.asarray(points)
+                    return function(pts[:, inv], ad)
+            else:
+                def perm_f(point, ad):
+                    orig = [0.0] * num_dimensions
+                    for k in range(num_dimensions):
+                        orig[order[k]] = point[k]
+                    return function(orig, ad)
+
+            tt = cls(perm_f, num_dimensions, perm_domain, perm_n_nodes,
+                     max_rank=max_rank, tolerance=tolerance,
+                     max_sweeps=max_sweeps,
+                     additional_data=additional_data,
+                     vectorized=vectorized, device=device)
+            tt.build(verbose=False)
+            tt._dim_order = list(order)
+            return tt
+
+        def total_rank(tt):
+            return sum(tt.tt_ranks)
+
+        canonical = list(range(num_dimensions))
+        best_tt = build_with_order(canonical)
+        best_rank = total_rank(best_tt)
+
+        if method == "random":
+            rng = np.random.default_rng(42)
+            for _ in range(n_trials):
+                perm = rng.permutation(num_dimensions).tolist()
+                tt = build_with_order(perm)
+                if total_rank(tt) < best_rank:
+                    best_tt, best_rank = tt, total_rank(tt)
+        elif method == "greedy_swap":
+            improved = True
+            trial = 0
+            while improved and trial < n_trials:
+                improved = False
+                current = best_tt.dim_order
+                for i in range(num_dimensions - 1):
+                    trial_order = list(current)
+                    trial_order[i], trial_order[i + 1] = (
+                        trial_order[i + 1], trial_order[i])
+                    tt = build_with_order(trial_order)
+                    if total_rank(tt) < best_rank:
+                        best_tt, best_rank = tt, total_rank(tt)
+                        improved = True
+                        break
+                trial += 1
+        else:
+            raise ValueError(
+                f"with_auto_order: unknown method {method!r}; "
+                "expected 'greedy_swap' or 'random'"
+            )
+        return best_tt
+
+    @staticmethod
+    def nodes(num_dimensions, domain, n_nodes) -> dict:
+        """Per-dim Chebyshev node arrays (no function evaluation)."""
+        domain, n_nodes = _unwrap_typed(domain, n_nodes)
+        if len(domain) != num_dimensions or len(n_nodes) != num_dimensions:
+            raise ValueError(
+                f"domain and n_nodes must have length {num_dimensions}"
+            )
+        nodes_per_dim = [
+            nodes_for_dim_np(domain[d][0], domain[d][1], int(n_nodes[d]))
+            for d in range(num_dimensions)
+        ]
+        return {"nodes_per_dim": nodes_per_dim}
+
+    @staticmethod
+    def is_dimensionality_allowed(num_dimensions: int) -> bool:
+        """Whether this class supports ``num_dimensions`` (any >= 1)."""
+        return isinstance(num_dimensions, int) and num_dimensions >= 1
+
+    def save(self, path: str | os.PathLike,
+             format: str = "pickle") -> None:
+        """Save to pickle (the function is excluded).  The pickle-free
+        ``.npz`` format is not ported yet."""
+        self._check_built()
+        if format == "pickle":
+            with open(os.fspath(path), "wb") as f:
+                pickle.dump(self, f, protocol=pickle.HIGHEST_PROTOCOL)
+        elif format == "npz":
+            raise NotImplementedError(
+                "ChebyshevTT.save(format='npz') is not ported yet (it "
+                "comes with utils/native_save.py, see ROADMAP.md)")
+        else:
+            raise ValueError(
+                f"format must be 'pickle' or 'npz', got {format!r}"
+            )
+
+    @classmethod
+    def load(cls, path: str | os.PathLike, *, device) -> "ChebyshevTT":
+        """Load a pickle this class wrote, onto ``device``; only load
+        trusted pickle files.  ``.npz`` checkpoints are not ported yet."""
+        with open(os.fspath(path), "rb") as f:
+            if f.read(2) == b"PK":
+                raise NotImplementedError(
+                    "loading an .npz checkpoint is not ported yet (it "
+                    "comes with utils/native_save.py, see ROADMAP.md)")
+            f.seek(0)
+            obj = pickle.load(f)  # noqa: S301
+        if not isinstance(obj, cls):
+            raise TypeError(
+                f"Expected a {cls.__name__} instance, got "
+                f"{type(obj).__name__}"
+            )
+        obj.device = torch.device(device)
+        return obj
+
+    # ------------------------------------------------------------------
+    # Printing
+    # ------------------------------------------------------------------
+
+    def __repr__(self) -> str:
+        return (f"ChebyshevTT(dims={self.num_dimensions}, "
+                f"nodes={self.n_nodes}, max_rank={self.max_rank}, "
+                f"built={self._built})")
+
+    def __str__(self) -> str:
+        status = "built" if self._built else "not built"
+        full_tensor_size = int(np.prod(self.n_nodes))
+        max_display = 6
+        if self.num_dimensions > max_display:
+            nodes_str = ("[" + ", ".join(
+                str(n) for n in self.n_nodes[:max_display]) + ", ...]")
+            domain_str = (" x ".join(
+                f"[{lo}, {hi}]" for lo, hi in self.domain[:max_display])
+                + " x ...")
+        else:
+            nodes_str = str(self.n_nodes)
+            domain_str = " x ".join(f"[{lo}, {hi}]"
+                                    for lo, hi in self.domain)
+
+        lines = [
+            f"ChebyshevTT ({self.num_dimensions}D, {status})",
+            f"  Nodes:       {nodes_str}",
+        ]
+        if self._built:
+            tt_storage = sum(c.size for c in self._coeff_cores)
+            lines.append(f"  TT ranks:    {self._tt_ranks}")
+            lines.append(f"  Compression: {full_tensor_size:,} -> "
+                         f"{tt_storage:,} elements "
+                         f"({full_tensor_size / tt_storage:.1f}x)")
+            lines.append(f"  Build:       {self._build_time:.3f}s "
+                         f"({self._total_build_evals:,} function evals)")
+            lines.append(f"  Domain:      {domain_str}")
+            lines.append(f"  Error est:   {self.error_estimate():.2e}")
+        else:
+            lines.append(f"  Domain:      {domain_str}")
+        return "\n".join(lines)
+
+    # ------------------------------------------------------------------
+    # Algebra
+    # ------------------------------------------------------------------
+
+    def _check_compatible_tt(self, other) -> None:
+        if not isinstance(other, ChebyshevTT):
+            raise TypeError(
+                f"unsupported operand type for ChebyshevTT: "
+                f"{type(other).__name__}"
+            )
+        self._check_built()
+        other._check_built()
+        if self.num_dimensions != other.num_dimensions:
+            raise ValueError(
+                f"num_dimensions mismatch: {self.num_dimensions} vs "
+                f"{other.num_dimensions}"
+            )
+        # Frame check first: a permuted sibling has storage-frame
+        # n_nodes/domain that differ even when the user-frame grids are
+        # identical, and the actionable message is the reorder hint.
+        if self._dim_order != other._dim_order:
+            raise ValueError(
+                f"TT dim_order mismatch: {self._dim_order} vs "
+                f"{other._dim_order}. Call other = "
+                f"other.reorder(self.dim_order) to align before "
+                f"adding/subtracting."
+            )
+        if list(self.n_nodes) != list(other.n_nodes):
+            raise ValueError(
+                f"n_nodes mismatch: {self.n_nodes} vs {other.n_nodes}"
+            )
+        if not np.allclose(np.asarray(self.domain, dtype=float),
+                           np.asarray(other.domain, dtype=float)):
+            raise ValueError(
+                f"domain mismatch: {self.domain} vs {other.domain}"
+            )
+
+    def __add__(self, other: "ChebyshevTT") -> "ChebyshevTT":
+        """Block-diagonal core stacking + TT-SVD rounding to
+        ``max(self.max_rank, other.max_rank)``."""
+        self._check_compatible_tt(other)
+        stacked = tta.tt_add_cores(self._coeff_cores, other._coeff_cores)
+        target_rank = max(self.max_rank, other.max_rank)
+        rounded = tta.tt_round_cores(stacked, max_rank=target_rank,
+                                     tolerance=self.tolerance)
+        return self._assemble(rounded, self.domain, self.n_nodes,
+                              self._dim_order, max_rank=target_rank)
+
+    def __neg__(self) -> "ChebyshevTT":
+        self._check_built()
+        new_cores = [c.copy() for c in self._coeff_cores]
+        new_cores[0] = -new_cores[0]
+        return self._assemble(new_cores, self.domain, self.n_nodes,
+                              self._dim_order)
+
+    def __sub__(self, other: "ChebyshevTT") -> "ChebyshevTT":
+        return self + (-other)
+
+    def __mul__(self, scalar) -> "ChebyshevTT":
+        if not _is_scalar(scalar):
+            raise TypeError(
+                f"ChebyshevTT * {type(scalar).__name__} is not supported "
+                "(only scalar multiplication is defined for TT)"
+            )
+        self._check_built()
+        new_cores = [c.copy() for c in self._coeff_cores]
+        new_cores[0] = new_cores[0] * float(scalar)
+        return self._assemble(new_cores, self.domain, self.n_nodes,
+                              self._dim_order)
+
+    def __rmul__(self, scalar) -> "ChebyshevTT":
+        return self.__mul__(scalar)
+
+    def __truediv__(self, scalar) -> "ChebyshevTT":
+        if not _is_scalar(scalar):
+            raise TypeError(
+                f"ChebyshevTT / {type(scalar).__name__} is not supported"
+            )
+        if float(scalar) == 0.0:
+            raise ZeroDivisionError("division by zero")
+        return self.__mul__(1.0 / float(scalar))
+
+    def __iadd__(self, other) -> "ChebyshevTT":
+        return self + other
+
+    def __isub__(self, other) -> "ChebyshevTT":
+        return self - other
+
+    def __imul__(self, scalar) -> "ChebyshevTT":
+        return self * scalar
+
+    def __itruediv__(self, scalar) -> "ChebyshevTT":
+        return self / scalar
+
+    def vectorized_eval_batch(self, points, derivative_order=None
+                              ) -> np.ndarray:
+        """Batched evaluation -> (N,) NumPy array, matching the dense
+        class's batch surface.
+
+        A derivative spec runs through the batched stencil path
+        (:meth:`vectorized_eval_batch_multi`): one chain for the whole
+        batch instead of a host FD loop per point.
+        """
+        if derivative_order is not None and any(
+                o != 0 for o in derivative_order):
+            return self.vectorized_eval_batch_multi(
+                points, [list(derivative_order)])[:, 0]
+        return self.eval_batch(points).cpu().numpy()
+
+
+def _not_ported(name: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"ChebyshevTT.{name} is not ported yet; it waits for its own "
+            f"slice of the port (see ROADMAP.md)")
+    method.__name__ = name
+    method.__doc__ = ("Not ported yet: raises NotImplementedError "
+                      "(see ROADMAP.md).")
+    return method
+
+
+for _name in ("integrate", "integrate_batch", "partial_integrate_batch",
+              "roots", "minimize", "maximize", "critical_points",
+              "roots_batch", "minimize_batch", "maximize_batch",
+              "to_slider", "extrude", "slice", "run_completion",
+              "sobol_indices", "interaction_matrix", "suggest_partition",
+              "hadamard", "compose", "plot_1d", "plot_2d_surface",
+              "plot_2d_contour"):
+    setattr(ChebyshevTT, _name, _not_ported(_name))
+ChebyshevTT.fit = classmethod(_not_ported("fit"))
+del _name

@@ -1,5 +1,6 @@
 """Chebyshev grid metadata on the host: nodes, barycentric weights and
-differentiation matrices.
+differentiation matrices; and the Chebyshev-Vandermonde rows of the
+tensor-train chain, on the device.
 
 Framework-free NumPy, identical to the JAX package's ``_np`` twins, so
 the port's grid metadata is bitwise equal to the reference's.  These
@@ -9,6 +10,9 @@ are O(n) / O(n^2) build-time arrays, not query-path work.
 - Barycentric weights ``w_i = 1 / prod_{j != i} (x_i - x_j)``,
   power-of-two normalized.
 - Spectral differentiation matrix after Berrut & Trefethen (2004) §9.3.
+
+``chebyshev_polynomial_matrix`` is the one torch function here: query
+path work of ``ops.tt_eval``.
 """
 
 from __future__ import annotations
@@ -16,11 +20,13 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 __all__ = [
     "nodes_for_dim_np",
     "barycentric_weights_np",
     "differentiation_matrix_np",
+    "chebyshev_polynomial_matrix",
 ]
 
 
@@ -102,3 +108,20 @@ def differentiation_matrix_np(nodes, weights):
     np.fill_diagonal(d, 0.0)
     np.fill_diagonal(d, -np.sum(d, axis=1))
     return d
+
+
+def chebyshev_polynomial_matrix(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Matrix ``Q[m, k] = T_k(x[m])`` for ``k = 0..n-1``
+    (Chebyshev-Vandermonde), in ``x``'s dtype.
+
+    The three-term recurrence ``T_k = 2 x T_{k-1} - T_{k-2}``, not
+    ``cos(k acos x)``: points outside [-1, 1] extrapolate as the
+    polynomials do.
+    """
+    cols = [torch.ones_like(x)]
+    if n > 1:
+        cols.append(x)
+    two_x = 2.0 * x
+    for _ in range(2, n):
+        cols.append(two_x * cols[-1] - cols[-2])
+    return torch.stack(cols, dim=-1)

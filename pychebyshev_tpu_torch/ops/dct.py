@@ -1,8 +1,10 @@
-"""Values-to-coefficients cosine matrix (the error estimate's transform).
+"""Chebyshev value <-> coefficient transforms as explicit cosine matrices
+(the error estimate's transform, and the tensor-train cores' in both
+directions).
 
-One constant matrix per n bakes in the reference convention (reverse to
-descending node order, DCT-II, divide by n, halve c_0), so no other
-module reimplements it.
+One constant matrix per n and direction bakes in the reference
+convention (reverse to descending node order, DCT-II, divide by n, halve
+c_0), so no other module reimplements it.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import functools
 
 import numpy as np
 
-__all__ = ["_coeff_matrix_np"]
+__all__ = ["_coeff_matrix_np", "_synthesis_matrix_np"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,3 +32,17 @@ def _coeff_matrix_np(n: int) -> np.ndarray:
     mat = scale * base
     # map from descending index j to ascending index i = n-1-j
     return np.ascontiguousarray(mat[:, ::-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _synthesis_matrix_np(n: int) -> np.ndarray:
+    """Chebyshev coefficients -> values at ascending Type-I nodes.
+
+    ``S[i, k] = T_k(x_i)`` with ``x_i`` ascending Type-I points; the exact
+    inverse of :func:`_coeff_matrix_np`.  Uses the closed form
+    ``T_k(x_i) = cos(k * theta_i)`` with ``theta_i = (2(n-1-i)+1)pi/(2n)``.
+    """
+    i = np.arange(n, dtype=np.float64)
+    theta = (2.0 * (n - 1 - i) + 1.0) * np.pi / (2.0 * n)
+    k = np.arange(n, dtype=np.float64)
+    return np.ascontiguousarray(np.cos(theta[:, None] * k[None, :]))

@@ -1,8 +1,10 @@
-"""Serving engines for batched queries (dense interpolants).
+"""Serving engines for batched queries (dense and tensor-train
+interpolants).
 
-The port of ``pychebyshev_tpu.serving``, dense branch.  An engine
-snapshots an interpolant's arrays at a chosen dtype on its device, with
-the derivative passes it serves applied once, and answers any batch.
+The port of ``pychebyshev_tpu.serving``, dense and TT branches.  An
+engine snapshots an interpolant's arrays at a chosen dtype on its
+device, with the derivative passes it serves applied once, and answers
+any batch.
 
 PyTorch runs eagerly, so nothing recompiles per batch size: the bucket
 sizes only cap the slice a single call processes (the largest bucket),
@@ -18,8 +20,16 @@ f64: on a CUDA device through the f64 instance of the same kernel
 in the reference, a dd engine refuses grids outside ``supports_dd`` and
 serves an out-of-domain call through an f64 sibling engine.
 
-Spline, slider and tensor-train interpolants (dd included) and mesh
-sharding are not ported yet.
+A tensor-train engine runs the chain of ``ops.tt_eval`` at f32 or f64,
+and ``dtype="dd"`` through ``ops.tt_eval_dd`` (native f64, per-dim or
+grouped).  A derivative spec swaps in the analytic-derivative TT
+(``differentiate``), and points are permuted on the device into the
+TT's storage frame.  ``MultiModelEvaluator`` serves a book of same-grid
+dense or TT models from one batch, e.g. a TT risk report: price plus
+Greeks as ``differentiate()``d TTs.
+
+Spline and slider interpolants, ``build_book``, ``integrate_book``,
+``save_book``/``load_book`` and mesh sharding are not ported yet.
 
 Example
 -------
@@ -32,14 +42,30 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from pychebyshev_tpu_torch.ops import eval as eval_ops
-from pychebyshev_tpu_torch.ops import eval_dd, fused_eval
+from pychebyshev_tpu_torch.ops import eval_dd, fused_eval, tt_eval, tt_eval_dd
 
-__all__ = ["BatchedEvaluator", "MultiSpecEvaluator"]
+__all__ = ["BatchedEvaluator", "MultiSpecEvaluator", "MultiModelEvaluator"]
 
 _DEFAULT_BUCKETS = (1 << 10, 1 << 14, 1 << 17, 1 << 20)
+
+
+def _check_dtype(engine: str, dtype) -> None:
+    if isinstance(dtype, str) and dtype != "dd":
+        raise ValueError(
+            f"{engine}: dtype={dtype!r} is not a tier of this engine; use "
+            f"torch.float32, torch.float64 or 'dd'")
+    if dtype not in ("dd", torch.float32, torch.float64):
+        raise ValueError(f"{engine}: dtype must be torch.float32, "
+                         f"torch.float64 or 'dd', got {dtype}")
+
+
+def _is_tt(interpolant) -> bool:
+    from pychebyshev_tpu_torch.models.tensor_train import ChebyshevTT
+    return isinstance(interpolant, ChebyshevTT)
 
 
 def _dense_snapshot(interpolant, engine: str, dtype, device):
@@ -49,18 +75,13 @@ def _dense_snapshot(interpolant, engine: str, dtype, device):
     from pychebyshev_tpu_torch.models.approximation import (
         ChebyshevApproximation,
     )
-    if isinstance(dtype, str) and dtype != "dd":
-        raise ValueError(
-            f"{engine}: dtype={dtype!r} is not a tier of this engine; use "
-            f"torch.float32, torch.float64 or 'dd'")
-    if dtype not in ("dd", torch.float32, torch.float64):
-        raise ValueError(f"{engine}: dtype must be torch.float32, "
-                         f"torch.float64 or 'dd', got {dtype}")
+    _check_dtype(engine, dtype)
     if not isinstance(interpolant, ChebyshevApproximation):
         raise TypeError(
-            f"{engine} serves dense ChebyshevApproximation objects; "
-            f"{type(interpolant).__name__} serving is not ported yet (it "
-            f"comes with its family's slice of the port, see ROADMAP.md)")
+            f"{engine} serves ChebyshevApproximation and ChebyshevTT "
+            f"objects; {type(interpolant).__name__} serving is not ported "
+            f"yet (it comes with its family's slice of the port, see "
+            f"ROADMAP.md)")
     if interpolant.tensor_values is None:
         raise RuntimeError("interpolant is not built")
     if dtype == "dd":
@@ -73,6 +94,19 @@ def _dense_snapshot(interpolant, engine: str, dtype, device):
     nodes, weights, diffs = interpolant._grid_tuples()
     return tuple(tuple(a.to(device=device, dtype=dtype) for a in grp)
                  for grp in (nodes, weights, diffs))
+
+
+def _tt_core_shapes(interpolant):
+    return [tuple(int(x) for x in c.shape) for c in interpolant._coeff_cores]
+
+
+def _check_tt_dd(interpolant, prefix: str = "") -> None:
+    """A dd engine refuses core chains outside the reference's plan."""
+    shapes = _tt_core_shapes(interpolant)
+    if not tt_eval_dd.tt_supports_dd(shapes):
+        raise ValueError(
+            f"{prefix}TT core shapes {shapes} are outside the digit-GEMM "
+            f"plan budget; serve at dtype=torch.float64 instead")
 
 
 def _spec_tensor(interpolant, orders, dtype, device):
@@ -93,8 +127,12 @@ def _validated_orders(orders, num_dimensions):
 
 
 class _Engine:
-    """Points intake, the slice loop and the dd tier's out-of-domain
-    route, shared by both engines."""
+    """Points intake, the slice loop, the TT storage frame and the dd
+    tier's out-of-domain route, shared by the engines."""
+
+    # dim_order of a TT engine whose storage frame is not the user's;
+    # None for dense engines and canonical TTs.
+    _perm = None
 
     def _intake(self, points) -> torch.Tensor:
         # dtype= converts host input straight to the engine's dtype: a
@@ -110,7 +148,9 @@ class _Engine:
         """Set the engine's tier.  A dd engine computes in f64 and keeps
         ``sibling`` (an f64 engine's constructor) for out-of-domain
         calls: the reference's dd contract holds in the domain only, so
-        such a call is served at f64, reference extrapolation included."""
+        such a call is served at f64, reference extrapolation included.
+        ``interpolant.domain`` is in the frame ``_run`` works in (a TT's
+        storage frame)."""
         self._dd = dtype == "dd"
         self.dtype = torch.float64 if self._dd else dtype
         if self._dd:
@@ -119,9 +159,31 @@ class _Engine:
             self._dd_fallback = None
             self._dd_fallback_ctor = sibling
 
+    def _init_frame(self, dim_order) -> None:
+        """Remember a TT's storage permutation, if it is one."""
+        dim_order = [int(k) for k in dim_order]
+        if dim_order != list(range(len(dim_order))):
+            self._perm = dim_order
+
+    def _storage(self, points: torch.Tensor) -> torch.Tensor:
+        """User-frame points permuted (on the device) into the frame
+        ``_run`` works in."""
+        return points if self._perm is None else points[:, self._perm]
+
+    def _serve(self, points) -> torch.Tensor:
+        """Intake, frame, the dd out-of-domain route, slices.  The f64
+        sibling permutes for itself, so it gets the user-frame points."""
+        points = self._intake(points)
+        framed = self._storage(points)
+        sibling = self._dd_sibling(framed)
+        if sibling is not None:
+            return sibling(points)
+        return self._sliced(framed)
+
     def _dd_sibling(self, points: torch.Tensor):
         """The f64 sibling engine when a dd engine gets a batch with a
-        point outside the domain (one device-to-host read), else None."""
+        point outside the domain (one device-to-host read), else None.
+        ``points`` are in the domain's frame."""
         if not self._dd:
             return None
         dom = self._dd_domain
@@ -153,19 +215,23 @@ class _Engine:
 
 
 class BatchedEvaluator(_Engine):
-    """Batched evaluation of a dense interpolant at one derivative spec.
+    """Batched evaluation of a dense or tensor-train interpolant at one
+    derivative spec.
 
     Parameters
     ----------
-    interpolant : a built ``ChebyshevApproximation``.
+    interpolant : a built ``ChebyshevApproximation`` or ``ChebyshevTT``.
     dtype : torch.float32 (throughput), torch.float64 (parity) or "dd"
         (the near-f64 tier, f64 results).
-    derivative_order : fixed per-dim derivative spec; None = values.
+    derivative_order : fixed per-dim derivative spec; None = values.  A
+        TT engine serves it from the analytic-derivative TT
+        (``differentiate``).
     bucket_sizes : ascending sizes; the largest caps one call's slice.
-    use_fused : ``None`` = the fused kernel for f32 CUDA engines whose
-        grid ``supports_fused`` covers; ``True`` forces it (raising
-        outside the envelope), ``False`` the plain path.  A dd engine
-        picks its route itself (``ops.eval_dd``) and refuses ``True``.
+    use_fused : dense engines only.  ``None`` = the fused kernel for f32
+        CUDA engines whose grid ``supports_fused`` covers; ``True``
+        forces it (raising outside the envelope), ``False`` the plain
+        path.  A dd engine picks its route itself (``ops.eval_dd``) and
+        refuses ``True``, as a TT engine does (its chain has no kernel).
     device : the engine's device (required).
     """
 
@@ -174,15 +240,24 @@ class BatchedEvaluator(_Engine):
                  bucket_sizes: Tuple[int, ...] = _DEFAULT_BUCKETS,
                  use_fused: bool = None, *, device):
         self.device = torch.device(device)
+        self.bucket_sizes = tuple(sorted(int(b) for b in bucket_sizes))
+
+        def sibling():
+            return BatchedEvaluator(
+                interpolant, dtype=torch.float64,
+                derivative_order=derivative_order,
+                bucket_sizes=bucket_sizes, device=device)
+
+        self._tt = _is_tt(interpolant)
+        if self._tt:
+            self._init_tt(interpolant, dtype, derivative_order, use_fused,
+                          sibling)
+            return
         grid = _dense_snapshot(interpolant, "BatchedEvaluator", dtype,
                                self.device)
-        self._init_dd(interpolant, dtype, lambda: BatchedEvaluator(
-            interpolant, dtype=torch.float64,
-            derivative_order=derivative_order, bucket_sizes=bucket_sizes,
-            device=device))
+        self._init_dd(interpolant, dtype, sibling)
         self._nodes, self._weights, self._diffs = grid
         self.num_dimensions = interpolant.num_dimensions
-        self.bucket_sizes = tuple(sorted(int(b) for b in bucket_sizes))
         self._domain = [tuple(b) for b in interpolant.domain]
         orders = _validated_orders(derivative_order, self.num_dimensions)
         self._tensor = _spec_tensor(interpolant, orders, self.dtype,
@@ -205,7 +280,38 @@ class BatchedEvaluator(_Engine):
             raise ValueError("use_fused needs dtype=torch.float32")
         self._use_fused = bool(use_fused)
 
+    def _init_tt(self, interpolant, dtype, derivative_order, use_fused,
+                 sibling) -> None:
+        _check_dtype("BatchedEvaluator", dtype)
+        interpolant._check_built()
+        if use_fused:
+            raise ValueError("use_fused serves dense interpolants; the TT "
+                             "chain has no fused kernel")
+        if dtype == "dd":
+            _check_tt_dd(interpolant)
+        self._init_dd(interpolant, dtype, sibling)
+        self._use_fused = False
+        self.num_dimensions = interpolant.num_dimensions
+        orders = _validated_orders(derivative_order, self.num_dimensions)
+        if any(o != 0 for o in orders):
+            # The analytic-derivative TT evaluates like any other TT.
+            interpolant = interpolant.differentiate(list(orders))
+        # The engine's own device copies: nothing else holds them, so
+        # nothing edits them in place.
+        self._cores = tuple(
+            torch.tensor(c, dtype=self.dtype, device=self.device)
+            for c in interpolant._coeff_cores)
+        self._tt_domain = np.asarray(interpolant.domain, dtype=np.float64)
+        self._domain = [tuple(b) for b in interpolant.domain]  # storage
+        self._init_frame(interpolant._dim_order)
+
     def _run(self, points: torch.Tensor) -> torch.Tensor:
+        if self._tt:
+            if self._dd:
+                return tt_eval_dd.tt_eval_batch_dd(
+                    self._cores, self._tt_domain, points, groups="auto")
+            return tt_eval.tt_eval_batch(self._cores, self._tt_domain,
+                                         points)
         if self._dd:
             return self._dd_runner(points)[0]
         if self._use_fused:
@@ -217,11 +323,7 @@ class BatchedEvaluator(_Engine):
 
     def __call__(self, points) -> torch.Tensor:
         """Evaluate at (N, d) points -> (N,) tensor on the engine device."""
-        points = self._intake(points)
-        sibling = self._dd_sibling(points)
-        if sibling is not None:
-            return sibling(points)
-        return self._sliced(points)
+        return self._serve(points)
 
 
 class MultiSpecEvaluator(_Engine):
@@ -243,6 +345,11 @@ class MultiSpecEvaluator(_Engine):
                  bucket_sizes: Tuple[int, ...] = _DEFAULT_BUCKETS, *,
                  device):
         self.device = torch.device(device)
+        if _is_tt(interpolant):
+            raise TypeError(
+                "MultiSpecEvaluator serves ChebyshevApproximation objects "
+                "(TT models: differentiate() per spec + "
+                "MultiModelEvaluator)")
         grid = _dense_snapshot(interpolant, "MultiSpecEvaluator", dtype,
                                self.device)
         self._init_dd(interpolant, dtype, lambda: MultiSpecEvaluator(
@@ -279,3 +386,154 @@ class MultiSpecEvaluator(_Engine):
         if sibling is not None:
             return sibling(points)
         return self._sliced(points).T
+
+
+class MultiModelEvaluator(_Engine):
+    """One query batch against a *book* of same-grid interpolants.
+
+    M dense interpolants sharing one grid (identical ``domain`` and
+    ``n_nodes``) evaluate at N points for the cost of one barycentric
+    row build plus M GEMMs per slice (``ops.eval.eval_batch_models``);
+    the per-point row work amortizes across the whole book.
+
+    TT books stack rank-padded cores and run one batched chain over the
+    model axis (``ops.tt_eval.tt_eval_batch_models``); a derivative spec
+    swaps in each model's analytic-derivative TT.  Every model pays the
+    book-wide max-rank chain cost, so split a book with one high-rank
+    outlier into rank-homogeneous sub-books.  Zero-padded bonds add
+    exact zeros: a model's values are the same in any book.
+
+    ``dtype="dd"`` serves the book at near-f64 (native f64): dense books
+    through ``ops.eval_dd.dd_models_runner``, TT books through
+    ``ops.tt_eval_dd.tt_dd_book_runner``; both hold every model's
+    prepared operands, so a dd book has no size limit here.  Out-of-
+    domain calls go to an f64 sibling book.
+
+    One fixed derivative spec, hoisted per model at construction.
+
+    Example
+    -------
+    >>> book = MultiModelEvaluator(models, dtype=torch.float32,
+    ...                            device="cuda")
+    >>> book.warmup()
+    >>> values = book(points)        # (M, N)
+    """
+
+    def __init__(self, interpolants, dtype=torch.float32,
+                 derivative_order: Optional[Sequence[int]] = None,
+                 bucket_sizes: Tuple[int, ...] = _DEFAULT_BUCKETS, *,
+                 device):
+        from pychebyshev_tpu_torch.models.approximation import (
+            ChebyshevApproximation,
+        )
+        from pychebyshev_tpu_torch.models.tensor_train import ChebyshevTT
+
+        self.device = torch.device(device)
+        interpolants = list(interpolants)
+        if not interpolants:
+            raise ValueError("interpolants must be a non-empty sequence")
+        kinds = {type(m) for m in interpolants}
+        if len(kinds) > 1 or kinds - {ChebyshevApproximation, ChebyshevTT}:
+            raise TypeError(
+                f"MultiModelEvaluator supports a homogeneous book of "
+                f"ChebyshevApproximation or ChebyshevTT models, got "
+                f"{sorted(t.__name__ for t in kinds)}"
+            )
+        _check_dtype("MultiModelEvaluator", dtype)
+        first = interpolants[0]
+        self._tt = isinstance(first, ChebyshevTT)
+        for i, m in enumerate(interpolants):
+            if self._tt:
+                m._check_built()
+                if dtype == "dd":
+                    _check_tt_dd(m, prefix=f"interpolants[{i}] ")
+            elif m.tensor_values is None:
+                raise RuntimeError("all interpolants must be built")
+        if dtype == "dd" and not self._tt:
+            shape = tuple(first.tensor_values.shape)
+            if not eval_dd.supports_dd(shape):
+                raise ValueError(
+                    f"grid shape {shape} is outside the digit-GEMM plan "
+                    f"budget")
+        for i, m in enumerate(interpolants[1:], start=1):
+            if (list(m.n_nodes) != list(first.n_nodes)
+                    or [list(b) for b in m.domain]
+                    != [list(b) for b in first.domain]):
+                raise ValueError(
+                    f"interpolants[{i}] grid (n_nodes/domain) differs "
+                    f"from interpolants[0]; multi-model evaluation "
+                    f"requires one shared grid"
+                )
+        book = list(interpolants)
+        self._init_dd(first, dtype, lambda: MultiModelEvaluator(
+            book, dtype=torch.float64, derivative_order=derivative_order,
+            bucket_sizes=bucket_sizes, device=device))
+        self.bucket_sizes = tuple(sorted(int(b) for b in bucket_sizes))
+        self.num_dimensions = first.num_dimensions
+        self.num_models = len(interpolants)
+        self._domain = [tuple(b) for b in first.domain]
+        orders = _validated_orders(derivative_order, self.num_dimensions)
+        if self._tt:
+            self._init_tt_book(interpolants, orders)
+        else:
+            self._init_dense_book(interpolants, orders)
+
+    def _init_tt_book(self, interpolants, orders) -> None:
+        first = interpolants[0]
+        if any(list(m._dim_order) != list(first._dim_order)
+               for m in interpolants):
+            raise ValueError(
+                "all TT models must share one dim_order; reorder() "
+                "them to a common storage frame first"
+            )
+        if any(o != 0 for o in orders):
+            # Analytic derivative TTs evaluate like any other TT.
+            interpolants = [m.differentiate(list(orders))
+                            for m in interpolants]
+        self._tt_domain = np.asarray(first.domain, dtype=np.float64)
+        self._init_frame(first._dim_order)
+        if self._dd:
+            self._dd_book_runner = tt_eval_dd.tt_dd_book_runner(
+                tuple(tuple(torch.tensor(c, dtype=torch.float64,
+                                         device=self.device)
+                            for c in m._coeff_cores)
+                      for m in interpolants),
+                self._tt_domain)
+            return
+        # Zero-pad every bond to the book-wide max rank and stack: one
+        # (M, r, n, r) tensor per dim, batched through the chain.
+        self._tt_cores = tt_eval.stack_rank_padded(
+            [m._coeff_cores for m in interpolants], self.dtype, self.device)
+
+    def _init_dense_book(self, interpolants, orders) -> None:
+        first = interpolants[0]
+        nodes, weights, diffs = first._grid_tuples()
+        self._nodes, self._weights, self._diffs = (
+            tuple(a.to(device=self.device, dtype=self.dtype) for a in grp)
+            for grp in (nodes, weights, diffs))
+        if self._dd:
+            # Every model's operands (derivative passes folded) are
+            # prepared now and held by the runner.
+            self._dd_book_runner = eval_dd.dd_models_runner(
+                tuple(m.tensor_values.to(self.device)
+                      for m in interpolants),
+                self._nodes, self._weights, self._diffs, orders)
+        else:
+            self._tensors = tuple(
+                _spec_tensor(m, orders, self.dtype, self.device)
+                for m in interpolants)
+
+    def _run(self, points: torch.Tensor) -> torch.Tensor:
+        if self._dd:
+            return self._dd_book_runner(points)
+        if self._tt:
+            return tt_eval.tt_eval_batch_models(self._tt_cores,
+                                                self._tt_domain, points)
+        return eval_ops.eval_batch_models(
+            self._tensors, self._nodes, self._weights, self._diffs, points,
+            (0,) * self.num_dimensions)
+
+    def __call__(self, points) -> torch.Tensor:
+        """Evaluate every model at (N, d) points -> (M, N) tensor on the
+        engine device."""
+        return self._serve(points)

@@ -7,16 +7,23 @@ keys ``tensor_values``, ``domain``, ``n_nodes``, ``nodes``, ``weights``,
 and holds it bitwise to the state's, so the two packages are known to
 evaluate on the same grid.  The ``.pcb`` route (``save(format="binary")``
 there, ``load`` here) gives the same object.
+
+``tt_from_jax_state`` does the same for a JAX ``ChebyshevTT``: its state
+(what its ``__getstate__`` holds) as plain NumPy, with the coefficient
+cores carried over bit for bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["from_jax_state"]
+__all__ = ["from_jax_state", "tt_from_jax_state"]
 
 _KEYS = ("tensor_values", "domain", "n_nodes", "nodes", "weights",
          "diff_matrices", "max_derivative_order")
+_TT_KEYS = ("_coeff_cores", "domain", "n_nodes", "_dim_order", "max_rank",
+            "tolerance", "max_sweeps", "max_derivative_order", "method",
+            "_total_build_evals")
 
 
 def _bitwise_equal(a, b) -> bool:
@@ -56,4 +63,54 @@ def from_jax_state(state: dict, *, device):
                 raise ValueError(
                     f"{key}[{d}] recomputed by the port differs from the "
                     f"state's (not bitwise equal)")
+    return obj
+
+
+def tt_from_jax_state(state: dict, *, device):
+    """The port's built ``ChebyshevTT`` on ``device`` from a JAX
+    ``ChebyshevTT``'s state, cores bitwise equal (private copies).
+
+    Raises ValueError if a key is missing, a core is not a 3-D array
+    whose node count matches ``n_nodes``, the bond chain is inconsistent
+    (unit outer bonds, each core's right bond equal to the next one's
+    left), or ``_dim_order`` is not a permutation.
+    """
+    from pychebyshev_tpu_torch.models.tensor_train import ChebyshevTT
+
+    missing = [k for k in _TT_KEYS if k not in state]
+    if missing:
+        raise ValueError(f"state lacks {missing}")
+    n_nodes = [int(n) for n in state["n_nodes"]]
+    d = len(n_nodes)
+    cores = [np.array(c, dtype=np.float64, order="C")
+             for c in state["_coeff_cores"]]
+    if len(cores) != d or len(state["domain"]) != d:
+        raise ValueError(
+            f"{len(cores)} cores and {len(state['domain'])} domain rows "
+            f"for {d} entries of n_nodes")
+    for k, c in enumerate(cores):
+        if c.ndim != 3 or c.shape[1] != n_nodes[k]:
+            raise ValueError(
+                f"_coeff_cores[{k}] has shape {c.shape}; expected "
+                f"(r_left, {n_nodes[k]}, r_right)")
+    bonds = [cores[0].shape[0]] + [c.shape[2] for c in cores]
+    if bonds[0] != 1 or bonds[-1] != 1 or any(
+            a.shape[2] != b.shape[0] for a, b in zip(cores, cores[1:])):
+        raise ValueError(
+            f"inconsistent TT bond chain: core shapes "
+            f"{[c.shape for c in cores]}")
+    dim_order = [int(k) for k in state["_dim_order"]]
+    if sorted(dim_order) != list(range(d)):
+        raise ValueError(f"_dim_order {dim_order} is not a permutation of "
+                         f"range({d})")
+    obj = ChebyshevTT._from_coeff_cores(
+        cores, [list(map(float, b)) for b in state["domain"]], n_nodes,
+        dim_order=dim_order, max_rank=int(state["max_rank"]),
+        tolerance=state["tolerance"],
+        max_derivative_order=int(state["max_derivative_order"]),
+        additional_data=state.get("additional_data"),
+        descriptor=state.get("descriptor", ""), method=state["method"],
+        device=device)
+    obj.max_sweeps = state["max_sweeps"]
+    obj._total_build_evals = int(state["_total_build_evals"])
     return obj

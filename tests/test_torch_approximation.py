@@ -238,3 +238,62 @@ def test_derivative_ids_and_deferred_build(pair):
     assert math.isclose(obj.vectorized_eval(p, derivative_id=did),
                         ref.vectorized_eval(p, [1, 0, 0, 0, 0]),
                         rel_tol=1e-12)
+
+
+# ----------------------------------------------------------------------
+# Host multi-spec and batch paths, and to_tt
+# ----------------------------------------------------------------------
+
+def test_vectorized_eval_multi_matches_reference(pair, pts):
+    """Price plus five Greeks at one point: the C multi kernel where the
+    library is built (then bitwise, same source and flags), else the
+    NumPy suffix path (<= 1e-12)."""
+    ref, port = pair
+    for p in pts[:12]:
+        got = port.vectorized_eval_multi(p, GREEKS)
+        want = ref.vectorized_eval_multi(p, GREEKS)
+        assert _dev(got, want) <= F64_TOL
+        single = [port.vectorized_eval(p, list(o)) for o in GREEKS]
+        assert _dev(got, single) <= 1e-10
+    assert port.eval_multi(pts[0], GREEKS[:2]) == \
+        port.vectorized_eval_multi(pts[0], GREEKS[:2])
+    fresh = ChebyshevApproximation(bs_price_vectorized, 5, BS_DOMAIN_5D,
+                                   [5] * 5, device="cpu")
+    with pytest.raises(RuntimeError, match="build"):
+        fresh.vectorized_eval_multi(pts[0], GREEKS)
+
+
+@pytest.mark.parametrize("orders", GREEKS[:3])
+def test_eval_batch_host_matches_reference_and_device(pair, pts, orders):
+    ref, port = pair
+    got = port.eval_batch_host(pts[:200], list(orders))
+    assert isinstance(got, np.ndarray) and got.shape == (200,)
+    assert _dev(got, ref.eval_batch_host(pts[:200], list(orders))) \
+        <= F64_TOL
+    assert _dev(got, port.eval_batch_device(pts[:200], orders)) <= 1e-10
+    did = port.get_derivative_id(list(orders))
+    np.testing.assert_array_equal(
+        port.eval_batch_host(pts[:5], derivative_id=did), got[:5])
+
+
+@pytest.mark.parametrize("tolerance", [1e-6, 1e-13])
+def test_to_tt_of_the_bs_interpolant(pair, pts, tolerance):
+    """Exact-compression serving: the TT-SVD cores are bitwise the
+    reference's; at 1e-13 the chain (dd surface, both routes) is within
+    1e-12 of the dense f64 path."""
+    ref, port = pair
+    a, b = ref.to_tt(tolerance=tolerance), port.to_tt(tolerance=tolerance)
+    assert b.tt_ranks == a.tt_ranks
+    for x, y in zip(a._coeff_cores, b._coeff_cores):
+        np.testing.assert_array_equal(np.asarray(x), y)
+    dense = port.eval_batch_device(pts)
+    assert _dev(b.eval_batch(pts), a.eval_batch(pts)) <= F64_TOL
+    if tolerance == 1e-13:
+        for groups in ("auto", None, (2, 2, 1)):
+            assert _dev(b.eval_batch_dd(pts, groups=groups), dense) \
+                <= F64_TOL
+        for p in pts[:8]:
+            assert abs(b.eval(p) - port.eval(p, [0] * 5)) <= \
+                F64_TOL * float(dense.abs().max())
+    else:
+        assert _dev(b.eval_batch(pts), dense) <= 1e-4

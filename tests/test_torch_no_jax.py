@@ -35,8 +35,13 @@ def test_package_covers_the_slice():
     names = set(_modules())
     for want in ("config", "ops.chebyshev", "ops.dct", "ops.eval",
                  "ops.fused_eval", "ops.eval_dd", "ops.fused_dd",
-                 "ops._build", "utils.binary",
+                 "ops._build", "ops.tt_eval", "ops.tt_eval_dd",
+                 "utils.binary", "utils.ceval",
                  "utils.convert", "utils.derivative_ids",
-                 "utils.parallel_build", "models.approximation", "serving"):
+                 "utils.parallel_build", "models.approximation",
+                 "models.tensor_train", "models.tt_algorithms", "serving"):
         assert f"pychebyshev_tpu_torch.{want}" in names
     assert (REPO / "pychebyshev_tpu_torch" / "csrc" / "fused_eval.cu").is_file()
+    # the C host path's source is the repository's own, not a copy
+    assert (REPO / "cpp" / "hosteval.c").is_file()
+    assert not list((REPO / "pychebyshev_tpu_torch").rglob("hosteval.c"))
