@@ -28,6 +28,17 @@ through ``eval_batch_dd``); the TT engines, a six-model book of price
 plus ``differentiate()``d Greeks, and the finite-difference report; and
 their times at 2^20 points.
 
+Then the spline and slider families (plain PyTorch, K3 under the dd
+spline route): the repository's configuration 3, the payoff
+max(x0 - 1, 0) e^(-0.1 x1) on [0, 2] x [0, 1] with a knot at 1.0 and
+17^2 nodes per piece, through the ``special_points`` dispatch, the class
+path, the f32/f64/dd engines and the multi-spec report at 2^20 points;
+the masked-against-routed sweep that sets ``ops.spline_eval``'s
+crossover constants (P = 2, 16, 64 pieces of 12^2 nodes); a 3-D spline
+served at ``dtype="dd"`` through K3; and configuration 4, the 10-D
+additive basket on [-1, 1]^10 with 9 nodes a dim and singleton slides,
+through its engines, the dd Greek report and ``to_tt``.
+
 Run from the repository root, with one CUDA card:
 
     python3 chip_smoke.py
@@ -54,6 +65,8 @@ from scipy.stats import norm
 from pychebyshev_tpu_torch import (
     BatchedEvaluator,
     ChebyshevApproximation,
+    ChebyshevSlider,
+    ChebyshevSpline,
     ChebyshevTT,
     MultiModelEvaluator,
     MultiSpecEvaluator,
@@ -62,6 +75,7 @@ from pychebyshev_tpu_torch.ops import (
     _build,
     fused_dd,
     fused_eval,
+    spline_eval,
     tt_eval,
     tt_eval_dd,
 )
@@ -97,6 +111,17 @@ TT_PRICE_ERR_MAX_PCT = 0.1      # rank-15 cross, 50 test points
 TT_CROSS_VALUE = 1e-3           # rank-15 cross vs the dense interpolant
 TT_CROSS_DELTA = 1e-2
 FD_REPORT = 1e-6                # batched FD stencil vs the per-point one
+# Configuration 3 (scripts/run_baseline_table.py:400-475): the payoff
+# kink at 1.0, 17^2 nodes per piece.  Configuration 4 (:482-540,
+# bench.py:531-570): the 10-D additive basket, 9 nodes a dim.
+SPLINE_DOMAIN = [[0.0, 2.0], [0.0, 1.0]]
+SPLINE_SPECS = [(0, 0), (1, 0), (2, 0), (0, 1)]
+SLIDER_D = 10
+SLIDER_W = np.linspace(0.5, 1.5, SLIDER_D)
+SLIDER_GREEKS = [(0,) * SLIDER_D] + [
+    tuple(1 if j == k else 0 for j in range(SLIDER_D)) for k in (0, 2, 4, 6)]
+SLIDER_VS_FUNCTION = 1e-6       # 9 nodes a dim (the reference read 8.1e-8)
+SWEEP_PIECES = (2, 16, 64)      # scripts/sweep_spline_crossover.py:24-31
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W, dense): the pipes
 # each instance runs on (TF32 tensor cores, three passes for f32; f64
 # tensor cores), the SIMT pipes printed beside them, and device memory.
@@ -127,6 +152,40 @@ def bs_div_np(points, _data=None):
     d2 = d1 - sigma * sqrt_t
     return (s * np.exp(-TT_Q * t) * norm.cdf(d1)
             - k * np.exp(-r * t) * norm.cdf(d2))
+
+
+def payoff_np(points, _data=None):
+    """Configuration 3's payoff, max(x0 - 1, 0) e^(-0.1 x1) (host f64)."""
+    p = np.asarray(points, dtype=np.float64)
+    return np.maximum(p[:, 0] - 1.0, 0.0) * np.exp(-0.1 * p[:, 1])
+
+
+def basket_np(points, _data=None):
+    """Configuration 4's basket, sum w sin(x) + 0.25 sum x^2 (host f64)."""
+    p = np.asarray(points, dtype=np.float64)
+    return np.sum(SLIDER_W * np.sin(p), axis=1) + 0.25 * np.sum(p ** 2,
+                                                                axis=1)
+
+
+def additive_interpolant_np(points, n_nodes):
+    """The basket's slider computed independently on the host: each
+    dim's 1-D barycentric interpolant of its slice through the pivot 0
+    (NumPy, f64), summed, minus 9 pivots (the pivot value is 0)."""
+    total = np.zeros(len(points))
+    for d in range(SLIDER_D):
+        x = nodes_for_dim_np(-1.0, 1.0, n_nodes)
+        w = barycentric_weights_np(x)
+        grid = np.zeros((n_nodes, SLIDER_D))
+        grid[:, d] = x
+        v = basket_np(grid)
+        diff = points[:, d, None] - x[None, :]
+        hit = np.abs(diff) < 1e-14
+        with np.errstate(divide="ignore", invalid="ignore"):
+            r = w / diff
+            row = r / r.sum(axis=1, keepdims=True)
+        row[hit.any(axis=1)] = hit[hit.any(axis=1)].astype(float)
+        total += row @ v
+    return total
 
 
 def sample_points(n, seed, domain=DOMAIN):
@@ -287,6 +346,313 @@ def device_busy_ms(fn) -> float:
         fn()
         torch.cuda.synchronize()
     return sum(e.device_time_total for e in prof.key_averages()) / 1e3
+
+
+def spline_and_slider(card: str, ms: dict) -> int:
+    """Phases 21-24: the spline and slider families on the card.  Adds
+    their times to ``ms`` and returns K3's launches under the dd spline
+    route (phase 23's main-path run)."""
+    # 21. Spline, configuration 3: the special_points dispatch, the
+    # error against the function, the class path, the engines, the
+    # report, the host path and the knot guard.
+    t0 = time.perf_counter()
+    via = ChebyshevApproximation(payoff_np, 2, SPLINE_DOMAIN,
+                                 [[17, 17], [17]],
+                                 special_points=[[1.0], []],
+                                 vectorized=True, device=DEVICE)
+    check(type(via) is ChebyshevSpline, f"special_points dispatch gave "
+                                        f"{type(via).__name__}")
+    via.build(verbose=False)
+    spline = ChebyshevSpline(payoff_np, 2, SPLINE_DOMAIN, [17, 17],
+                             [[1.0], []], vectorized=True, device=DEVICE)
+    spline.build(verbose=False)
+    torch.cuda.synchronize()
+    spline_build = time.perf_counter() - t0
+    plain = ChebyshevApproximation(payoff_np, 2, SPLINE_DOMAIN, [17, 17],
+                                   vectorized=True, device=DEVICE)
+    plain.build(verbose=False)
+    err_pts = sample_points(4000, 0, [(0.0 + 0.002, 2.0 - 0.002),
+                                      (0.0 + 0.001, 1.0 - 0.001)])
+    exact = payoff_np(err_pts)
+    err_spline = float(np.abs(spline.eval_batch(err_pts, [0, 0])
+                              - exact).max())
+    err_plain = float(np.abs(plain.vectorized_eval_batch(err_pts, [0, 0])
+                             - exact).max())
+    d_via = dev(via.eval_batch(err_pts, [0, 0]),
+                spline.eval_batch(err_pts, [0, 0]))
+    check(err_spline <= 1e-12 and err_spline * 1e6 <= err_plain,
+          f"spline error {err_spline:.3e} not far below the global grid's "
+          f"{err_plain:.3e}")
+    check(d_via <= F64_CEILING, f"dispatched vs direct spline {d_via:.3e}")
+    sp_pts64 = torch.tensor(sample_points(N, SEED + 60, SPLINE_DOMAIN),
+                            device=DEVICE)
+    sp_f64 = checked(spline.eval_batch_device(sp_pts64, [0, 0]), (N,),
+                     "spline eval_batch_device")
+    sp_engines = {tier: BatchedEvaluator(spline, dtype=dtype, device=DEVICE)
+                  for tier, dtype in (("f32", torch.float32),
+                                      ("f64", torch.float64), ("dd", "dd"))}
+    sp_reports = {tier: MultiSpecEvaluator(spline, SPLINE_SPECS,
+                                           dtype=dtype, device=DEVICE)
+                  for tier, dtype in (("f32", torch.float32),
+                                      ("f64", torch.float64), ("dd", "dd"))}
+    report_ref = torch.tensor(spline.vectorized_eval_batch_multi(
+        sp_pts64, SPLINE_SPECS), device=DEVICE)
+    sp_dev = {}
+    for tier in ("f32", "f64", "dd"):
+        sp_engines[tier].warmup()
+        sp_reports[tier].warmup()
+        v = checked(sp_engines[tier](sp_pts64), (N,), f"spline {tier} engine")
+        r = checked(sp_reports[tier](sp_pts64), (N, len(SPLINE_SPECS)),
+                    f"spline {tier} report")
+        sp_dev[f"{tier} engine"] = dev(v, sp_f64)
+        sp_dev[f"{tier} report"] = dev(r, report_ref)
+        ceiling = F32_CEILING if tier == "f32" else F64_CEILING
+        check(sp_dev[f"{tier} engine"] <= ceiling
+              and sp_dev[f"{tier} report"] <= ceiling,
+              f"spline {tier}: engine {sp_dev[f'{tier} engine']:.3e}, "
+              f"report {sp_dev[f'{tier} report']:.3e} > {ceiling:g}")
+    host_pts = sp_pts64[:256].cpu().numpy()
+    sp_host = np.array([spline.eval(p, [0, 0]) for p in host_pts])
+    d_host = dev(sp_f64[:256], sp_host)
+    check(d_host <= F64_CEILING, f"spline host path {d_host:.3e}")
+    us_spline = host_us(lambda: spline.eval(host_pts[0], [0, 0]))
+    on_knot = sample_points(1000, SEED + 61, SPLINE_DOMAIN)
+    on_knot[500, 0] = 1.0
+    refused = []
+    for engine in (BatchedEvaluator(spline, dtype=torch.float32,
+                                    derivative_order=[1, 0], device=DEVICE),
+                   sp_reports["dd"]):
+        try:
+            engine(on_knot)
+        except ValueError as err:
+            refused.append("not defined at knot" in str(err))
+    check(refused == [True, True], "a derivative request on the knot was "
+                                   "not refused")
+    sp_runs = {
+        "spline class path f64 (eval_batch_device)":
+            lambda: spline.eval_batch_device(sp_pts64, [0, 0]),
+        "spline engine f32 (BatchedEvaluator)":
+            lambda: sp_engines["f32"](sp_pts64),
+        "spline engine f64": lambda: sp_engines["f64"](sp_pts64),
+        "spline engine dd": lambda: sp_engines["dd"](sp_pts64),
+        "spline report f32, 4 specs (MultiSpecEvaluator)":
+            lambda: sp_reports["f32"](sp_pts64),
+        "spline report f64, 4 specs": lambda: sp_reports["f64"](sp_pts64),
+        "spline report dd, 4 specs": lambda: sp_reports["dd"](sp_pts64),
+    }
+    for name, fn in sp_runs.items():
+        ms[name] = cuda_ms(fn)
+    print(f"[21 spline, config 3] dispatch -> ChebyshevSpline, 2 pieces of "
+          f"17^2 built in {spline_build:.3f} s; max abs error on 4,000 "
+          f"points: spline {err_spline:.3e}, global 17^2 grid "
+          f"{err_plain:.3e}; dispatched vs direct {d_via:.3e}; at N=2^20 "
+          f"vs the class path: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sp_dev.items())
+          + f"; host path on 256 points {d_host:.3e} ({us_spline:.1f} us a "
+          f"point); derivative requests on the knot refused; times: "
+          + "; ".join(f"{k} {ms[k]:.4f} ms" for k in sp_runs)
+          + f" | {card}", flush=True)
+
+    # 22. The masked-against-routed sweep: P pieces of 12^2 nodes, one
+    # knot grid along dim 0, at N = 2^20, routing included in both.
+    sweep_pts = torch.tensor(np.random.default_rng(3).uniform(
+        -0.999, 0.999, size=(N, 2)), device=DEVICE)
+    sweep = []
+    for n_pieces in SWEEP_PIECES:
+        knots = [list(np.linspace(-1.0, 1.0, n_pieces + 1)[1:-1]), []]
+        spl = ChebyshevSpline(
+            lambda p, _: np.abs(np.sin(3 * p[:, 0])) + p[:, 1] ** 2, 2,
+            [[-1, 1], [-1, 1]], [12, 12], knots, vectorized=True,
+            device=DEVICE)
+        spl.build(verbose=False)
+        strides = spline_eval.piece_strides([len(k) for k in knots])
+        row = {"pieces": n_pieces}
+        outs = {}
+        for label, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            stacked = spline_eval.stack_pieces(spl._pieces, dtype)
+            arrays = [tuple(a.to(dtype) if isinstance(a, torch.Tensor)
+                            else tuple(x.to(dtype) for x in a)
+                            for a in (p.tensor_values,) + p._grid_tuples())
+                      for p in spl._pieces]
+
+            def masked(stacked=stacked):
+                flat = spline_eval.route_piece_indices(knots, strides,
+                                                       sweep_pts)
+                return spline_eval.masked_eval_batch(*stacked, flat,
+                                                     sweep_pts, (0, 0))
+
+            def routed(arrays=arrays):
+                flat = spline_eval.route_piece_indices(knots, strides,
+                                                       sweep_pts)
+                return spline_eval.routed_eval_batch(arrays, flat,
+                                                     sweep_pts, (0, 0))
+
+            outs[label] = (masked(), routed())
+            row[f"masked_{label}_ms"] = cuda_ms(masked)
+            row[f"routed_{label}_ms"] = cuda_ms(routed)
+        d_routes = dev(outs["f64"][0], outs["f64"][1])
+        d_f32 = max(dev(o, outs["f64"][0]) for o in outs["f32"])
+        check(d_routes <= F64_CEILING and d_f32 <= F32_CEILING,
+              f"P={n_pieces}: masked vs routed {d_routes:.3e}, f32 vs f64 "
+              f"{d_f32:.3e}")
+        sweep.append(row)
+        print(f"[22 sweep] P={n_pieces}: masked f32 "
+              f"{row['masked_f32_ms']:.4f} ms, routed f32 "
+              f"{row['routed_f32_ms']:.4f} ms, masked f64 "
+              f"{row['masked_f64_ms']:.4f} ms, routed f64 "
+              f"{row['routed_f64_ms']:.4f} ms; masked vs routed (f64) "
+              f"{d_routes:.3e}, f32 vs f64 {d_f32:.3e} | {card}", flush=True)
+    crossover = {
+        label: max([r["pieces"] for r in sweep
+                    if r[f"masked_{label}_ms"] <= r[f"routed_{label}_ms"]],
+                   default=1)
+        for label in ("f32", "f64")}
+    print(f"[22 sweep] largest P at which the masked route is as fast: f32 "
+          f"{crossover['f32']}, f64 {crossover['f64']}; the port's constants: "
+          f"MASKED_MAX_PIECES={spline_eval.MASKED_MAX_PIECES} (f32 engines; "
+          f"f64 always routes)", flush=True)
+
+    # 23. K3 under a spline: a 3-D flat spline, 2 pieces of 11^3, at
+    # dtype="dd"; its main-path run with the K3 count from zero.
+    spline3 = ChebyshevSpline(
+        lambda p, _: (np.abs(p[:, 0]) * np.cos(p[:, 1])
+                      + p[:, 2] ** 2 * p[:, 1]),
+        3, [[-1, 1]] * 3, [11, 11, 11], [[0.0], [], []], vectorized=True,
+        device=DEVICE)
+    spline3.build(verbose=False)
+    pts3 = torch.tensor(sample_points(N, SEED + 62, [(-1.0, 1.0)] * 3),
+                        device=DEVICE)
+    dd3 = BatchedEvaluator(spline3, dtype="dd", device=DEVICE)
+    dd3_report = MultiSpecEvaluator(spline3, [(0, 0, 0), (0, 1, 0)],
+                                    dtype="dd", device=DEVICE)
+    fused_dd.launches = 0
+    v3 = checked(dd3(pts3), (N,), "3-D spline dd engine")
+    r3 = checked(dd3_report(pts3), (N, 2), "3-D spline dd report")
+    c3 = checked(spline3.eval_batch_dd(pts3, [0, 0, 0]), (N,),
+                 "3-D spline eval_batch_dd")
+    torch.cuda.synchronize()
+    k3_spline_launches = fused_dd.launches
+    check(k3_spline_launches > 0, "the dd spline route never launched K3")
+    f64_3 = spline3.eval_batch_device(pts3, [0, 0, 0])
+    d3 = {"dd engine": dev(v3, f64_3),
+          "dd report": dev(r3, torch.stack(
+              [f64_3, spline3.eval_batch_device(pts3, [0, 1, 0])], dim=1)),
+          "eval_batch_dd": dev(c3, f64_3)}
+    check(max(d3.values()) <= K3_VS_PLAIN,
+          f"dd spline vs plain f64: {d3}")
+    k3_piece_worst = 0.0
+    flat3 = spline_eval.route_piece_indices(
+        spline3.knots, spline_eval.piece_strides([1, 0, 0]), pts3)
+    for i, piece in enumerate(spline3._pieces):
+        sub = pts3[flat3 == i]
+        operands = (piece.tensor_values,) + piece._grid_tuples()
+        got = fused_dd.fused_eval_batch_dd(*operands, sub, (0, 0, 0))
+        k3_piece_worst = max(k3_piece_worst, dev(
+            got, fused_dd.fused_eval_batch_dd_reference(*operands, sub,
+                                                        (0, 0, 0))))
+    check(k3_piece_worst <= K3_VS_PLAIN, f"K3 on a spline piece vs plain "
+                                         f"{k3_piece_worst:.3e}")
+    f64_3_engine = BatchedEvaluator(spline3, dtype=torch.float64,
+                                    device=DEVICE)
+    ms["3-D spline engine dd (K3 route)"] = cuda_ms(lambda: dd3(pts3))
+    ms["3-D spline engine f64 (plain)"] = cuda_ms(lambda: f64_3_engine(pts3))
+    print(f"[23 K3 under a spline] 3-D spline, 2 pieces of 11^3, at "
+          f"N=2^20: K3 launches {k3_spline_launches} (engine, 2-spec report "
+          f"and eval_batch_dd); vs the plain f64 path: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d3.items())
+          + f"; K3 vs plain on each piece's points {k3_piece_worst:.3e}; all "
+          f"<= {K3_VS_PLAIN:g}; dd engine "
+          f"{ms['3-D spline engine dd (K3 route)']:.4f} ms, f64 engine "
+          f"{ms['3-D spline engine f64 (plain)']:.4f} ms | {card}",
+          flush=True)
+
+    # 24. Slider, configuration 4: the 10-D basket, its engines, the dd
+    # Greek report and to_tt.
+    t0 = time.perf_counter()
+    slider = ChebyshevSlider(basket_np, SLIDER_D, [[-1.0, 1.0]] * SLIDER_D,
+                             [9] * SLIDER_D, [[i] for i in range(SLIDER_D)],
+                             [0.0] * SLIDER_D, vectorized=True,
+                             device=DEVICE)
+    slider.build(verbose=False)
+    torch.cuda.synchronize()
+    slider_build = time.perf_counter() - t0
+    sl_err_pts = np.random.default_rng(0).uniform(-1, 1, (5000, SLIDER_D))
+    sl_err = float(np.abs(slider.eval_batch(sl_err_pts)
+                          - basket_np(sl_err_pts)).max())
+    check(sl_err <= SLIDER_VS_FUNCTION, f"slider vs the basket {sl_err:.3e}")
+    sl_pts64 = torch.tensor(np.random.default_rng(5).uniform(
+        -1, 1, (N, SLIDER_D)), device=DEVICE)
+    sl_f64 = checked(slider.eval_batch_device(sl_pts64), (N,),
+                     "slider eval_batch_device")
+    additive = additive_interpolant_np(sl_pts64[:5000].cpu().numpy(), 9)
+    d_additive = dev(sl_f64[:5000], additive)
+    check(d_additive <= F64_CEILING,
+          f"slider vs the host additive interpolant {d_additive:.3e}")
+    sl_engines = {tier: BatchedEvaluator(slider, dtype=dtype, device=DEVICE)
+                  for tier, dtype in (("f32", torch.float32),
+                                      ("f64", torch.float64), ("dd", "dd"))}
+    sl_dev = {}
+    for tier, engine in sl_engines.items():
+        engine.warmup()
+        sl_dev[tier] = dev(checked(engine(sl_pts64), (N,),
+                                   f"slider {tier} engine"), sl_f64)
+        check(sl_dev[tier] <= (F32_CEILING if tier == "f32"
+                               else F64_CEILING),
+              f"slider {tier} engine {sl_dev[tier]:.3e}")
+    greek_pts = sl_pts64[:1 << 18]
+    greek_dd = MultiSpecEvaluator(slider, SLIDER_GREEKS, dtype="dd",
+                                  device=DEVICE)
+    greek_dd.warmup()
+    g_dd = checked(greek_dd(greek_pts), (1 << 18, len(SLIDER_GREEKS)),
+                   "slider dd Greek report")
+    g_ref = torch.tensor(slider.vectorized_eval_batch_multi(
+        greek_pts, SLIDER_GREEKS), device=DEVICE)
+    d_greeks = dev(g_dd, g_ref)
+    check(d_greeks <= DD_CEILING, f"slider dd Greeks vs f64 {d_greeks:.3e}")
+    greek_f64 = MultiSpecEvaluator(slider, SLIDER_GREEKS,
+                                   dtype=torch.float64, device=DEVICE)
+    greek_f64.warmup()
+    d_greeks_f64 = dev(checked(greek_f64(greek_pts),
+                               (1 << 18, len(SLIDER_GREEKS)),
+                               "slider f64 Greek report"), g_ref)
+    check(d_greeks_f64 <= F64_CEILING,
+          f"slider f64 Greeks vs the class path {d_greeks_f64:.3e}")
+    t0 = time.perf_counter()
+    sl_tt = slider.to_tt()
+    to_tt_sl = time.perf_counter() - t0
+    check(sl_tt.tt_ranks == [1] + [2] * (SLIDER_D - 1) + [1],
+          f"slider to_tt ranks {sl_tt.tt_ranks}")
+    tt_engine = BatchedEvaluator(sl_tt, dtype=torch.float64, device=DEVICE)
+    d_tt = dev(checked(tt_engine(sl_pts64), (N,), "slider to_tt engine"),
+               sl_f64)
+    check(d_tt <= F64_CEILING, f"slider to_tt engine vs slider {d_tt:.3e}")
+    sl_runs = {
+        "slider engine f32 (BatchedEvaluator)":
+            lambda: sl_engines["f32"](sl_pts64),
+        "slider engine f64": lambda: sl_engines["f64"](sl_pts64),
+        "slider engine dd": lambda: sl_engines["dd"](sl_pts64),
+        "slider dd Greek report, 5 specs, 2^18 points":
+            lambda: greek_dd(greek_pts),
+        "slider f64 Greek report, 5 specs, 2^18 points":
+            lambda: greek_f64(greek_pts),
+        "slider to_tt engine f64": lambda: tt_engine(sl_pts64),
+    }
+    for name, fn in sl_runs.items():
+        ms[name] = cuda_ms(fn)
+    print(f"[24 slider, config 4] 10 slides of 9 nodes built in "
+          f"{slider_build:.3f} s ({slider.total_build_evals} evaluations); "
+          f"max abs error vs the basket on 5,000 points {sl_err:.3e} <= "
+          f"{SLIDER_VS_FUNCTION:g} (9 nodes a dim); vs the additive "
+          f"interpolant computed on the host {d_additive:.3e}; engines vs "
+          f"the class path at N=2^20: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sl_dev.items())
+          + f"; dd Greek report (value + d0, d2, d4, d6) at 2^18 vs f64 "
+          f"{d_greeks:.3e} <= {DD_CEILING:g}, the f64 engine's "
+          f"{d_greeks_f64:.3e}; to_tt ({to_tt_sl:.3f} s, ranks "
+          f"{sl_tt.tt_ranks}) through the TT engine {d_tt:.3e}; times: "
+          + "; ".join(f"{k} {ms[k]:.4f} ms" for k in sl_runs)
+          + f" | {card}", flush=True)
+    return k3_spline_launches
 
 
 def main() -> None:
@@ -969,6 +1335,9 @@ def main() -> None:
           f"(fewest intermediate elements per point) picks {auto_groups}",
           flush=True)
 
+    # 21-24. The spline and slider families.
+    k3_spline_launches = spline_and_slider(card, ms)
+
     # Bounds on the pipes each instance runs on: f32 on the TF32 tensor
     # cores in three passes, f64 on the f64 tensor cores; the SIMT pipes'
     # bound beside each.
@@ -985,7 +1354,8 @@ def main() -> None:
          bound((19,) * 5, N, 4, TF32_PEAK, passes=3),
          bound((19,) * 5, N, 4, F32_SIMT_PEAK)[0]),
         ("K3 fused dd dense evaluator (f64)",
-         "pychebyshev_tpu/ops/pallas_dd.py:155", k3_launches, k3_abs,
+         "pychebyshev_tpu/ops/pallas_dd.py:155",
+         k3_launches + k3_spline_launches, k3_abs,
          "K3 f64 (fused_eval_batch_dd)",
          "plain f64 (fused_eval_batch_dd_reference)", "GEMM f64 11^5",
          bound((11,) * 5, N, 8, F64_TC_PEAK),

@@ -1,6 +1,7 @@
 """pychebyshev_tpu_torch: the PyTorch / CUDA port of pychebyshev-tpu.
 
-The dense and tensor-train slices of the library on PyTorch:
+The dense, tensor-train, spline and slider slices of the library on
+PyTorch:
 
 - ``ChebyshevApproximation``: full-tensor barycentric interpolation with
   analytical derivatives and the portable ``.pcb`` format.  On a CUDA
@@ -10,9 +11,14 @@ The dense and tensor-train slices of the library on PyTorch:
 - ``ChebyshevTT``: tensor-train interpolation (TT-Cross, TT-SVD, ALS
   builds on the host; batched chains on the device), and
   ``ChebyshevApproximation.to_tt`` for exact-compression serving.
+- ``ChebyshevSpline``: piecewise interpolation at knots (also what
+  ``ChebyshevApproximation(..., special_points=...)`` returns), routed
+  in f64 on the device.
+- ``ChebyshevSlider``: the additive (sliding) decomposition over a
+  partition of the dims, and its exact ``to_tt``.
 - The serving engines at f32, f64 and the near-f64 "dd" tier:
-  ``BatchedEvaluator``, ``MultiSpecEvaluator`` (dense) and
-  ``MultiModelEvaluator`` (books of dense or TT models).
+  ``BatchedEvaluator``, ``MultiSpecEvaluator`` (dense, spline and
+  slider) and ``MultiModelEvaluator`` (books of dense or TT models).
 - Single points are answered on the host, through the C kernels of
   ``cpp/hosteval.c`` where a C compiler is present (``utils.ceval``).
 
@@ -53,8 +59,22 @@ class Ns:
     counts: list
 
 
+@dataclass(frozen=True)
+class SpecialPoints:
+    """Typed container for per-dimension kink/knot locations
+    (``list[list[float]]``)."""
+
+    knots_per_dim: list
+
+
 from pychebyshev_tpu_torch.models.approximation import (  # noqa: E402
     ChebyshevApproximation,
+)
+from pychebyshev_tpu_torch.models.slider import (  # noqa: E402
+    ChebyshevSlider,
+)
+from pychebyshev_tpu_torch.models.spline import (  # noqa: E402
+    ChebyshevSpline,
 )
 from pychebyshev_tpu_torch.models.tensor_train import (  # noqa: E402
     ChebyshevTT,
@@ -68,10 +88,13 @@ from pychebyshev_tpu_torch.serving import (  # noqa: E402
 __all__ = [
     "BatchedEvaluator",
     "ChebyshevApproximation",
+    "ChebyshevSlider",
+    "ChebyshevSpline",
     "ChebyshevTT",
     "Domain",
     "MultiModelEvaluator",
     "MultiSpecEvaluator",
     "Ns",
+    "SpecialPoints",
     "__version__",
 ]

@@ -2,10 +2,11 @@
 interpolation with analytical derivatives, on PyTorch.
 
 The port of ``pychebyshev_tpu.models.approximation`` (main-path surface):
-construction with a fixed grid or auto-N, single-point host evaluation,
-batched f64, f32 and near-f64 device evaluation, multi-spec batches, the
-error estimate, ``from_values``, ``to_tt``, and pickle / ``.pcb``
-serialization.
+construction with a fixed grid or auto-N (``special_points`` with knots
+returns a ``ChebyshevSpline``), single-point host evaluation, batched
+f64, f32 and near-f64 device evaluation, multi-spec batches, the error
+estimate, ``differentiate``, the algebra operators, ``from_values``,
+``to_tt``, and pickle / ``.pcb`` serialization.
 
 - Grid data (nodes, barycentric weights, differentiation matrices) and
   the value tensor live on ``device`` as float64 tensors.
@@ -40,6 +41,7 @@ from pychebyshev_tpu_torch.ops.chebyshev import (
 )
 from pychebyshev_tpu_torch.ops.dct import _coeff_matrix_np
 from pychebyshev_tpu_torch.utils import ceval
+from pychebyshev_tpu_torch.utils.algebra import check_compatible, is_scalar
 
 __all__ = ["ChebyshevApproximation"]
 
@@ -55,14 +57,60 @@ def _private_f64(values, device) -> torch.Tensor:
                         dtype=DEFAULT_DTYPE, device=device)
 
 
-def _unwrap_typed(domain, n_nodes):
-    """Unwrap the Domain / Ns typed helpers."""
-    from pychebyshev_tpu_torch import Domain, Ns
+def _unwrap_typed(domain, n_nodes, special_points=None):
+    """Unwrap the Domain / Ns / SpecialPoints typed helpers."""
+    from pychebyshev_tpu_torch import Domain, Ns, SpecialPoints
     if isinstance(domain, Domain):
         domain = list(domain.bounds)
     if isinstance(n_nodes, Ns):
         n_nodes = list(n_nodes.counts)
-    return domain, n_nodes
+    if isinstance(special_points, SpecialPoints):
+        special_points = [list(k) for k in special_points.knots_per_dim]
+    return domain, n_nodes, special_points
+
+
+def _validate_special_points_shape(special_points, n_nodes, num_dimensions,
+                                   domain) -> None:
+    """Shape/content validation before the spline dispatch (the
+    reference's rules and messages)."""
+    for d in range(num_dimensions):
+        lo, hi = domain[d]
+        pts = list(special_points[d])
+        for k in pts:
+            if not (lo < k < hi):
+                raise ValueError(
+                    f"Special point {k} for dimension {d} is not strictly "
+                    f"inside domain [{lo}, {hi}]"
+                )
+        if pts != sorted(pts):
+            raise ValueError(
+                f"special_points for dimension {d} must be sorted"
+            )
+        if len(set(pts)) != len(pts):
+            raise ValueError(f"Coinciding special points in dimension {d}")
+
+    if n_nodes is None:
+        return
+
+    any_nested = any(isinstance(x, (list, tuple)) for x in n_nodes)
+    all_nested = all(isinstance(x, (list, tuple)) for x in n_nodes)
+    if any_nested and not all_nested:
+        raise ValueError(
+            f"n_nodes must be fully nested (all dims as lists) when any "
+            f"dim is nested; got mixed form {n_nodes!r}"
+        )
+    if not all_nested:
+        raise ValueError(
+            f"n_nodes must be nested as List[List[int]] when special_points "
+            f"is present; got {n_nodes!r}"
+        )
+    for d in range(num_dimensions):
+        expected = len(special_points[d]) + 1
+        if len(n_nodes[d]) != expected:
+            raise ValueError(
+                f"n_nodes[{d}] must have {expected} entries "
+                f"(one per sub-interval); got {len(n_nodes[d])}"
+            )
 
 
 def _with_padded_rows(grid: dict) -> dict:
@@ -105,9 +153,53 @@ class ChebyshevApproximation:
     Parameters mirror the JAX package's constructor; ``device`` (required,
     keyword-only) places the grid and value tensors.  ``vectorized=True``
     marks ``function`` as batch-capable
-    (``f(points_array (N, d), data) -> (N,) values``).  Piecewise grids
-    (``special_points`` with knots) are not ported yet.
+    (``f(points_array (N, d), data) -> (N,) values``).
+
+    ``special_points`` declaring any knot makes the constructor return a
+    :class:`ChebyshevSpline` on the same ``device`` (``n_nodes`` then
+    nested, one count per sub-interval), as in the reference.
     """
+
+    def __new__(cls, function=None, num_dimensions=None, domain=None,
+                n_nodes=None, max_derivative_order=2, error_threshold=None,
+                max_n=64, special_points=None, additional_data=None, *,
+                device=None, defer_build=False, n_workers=None,
+                vectorized=False):
+        domain, n_nodes, special_points = _unwrap_typed(
+            domain, n_nodes, special_points)
+        if special_points is not None:
+            if (num_dimensions is not None
+                    and len(special_points) != num_dimensions):
+                raise ValueError(
+                    f"special_points must have {num_dimensions} entries, "
+                    f"got {len(special_points)}"
+                )
+            for d, sp in enumerate(special_points):
+                if not isinstance(sp, (list, tuple)):
+                    raise ValueError(
+                        f"special_points[{d}] must be a list/tuple of "
+                        f"floats, got {type(sp).__name__}: {sp!r}"
+                    )
+            if any(len(sp) > 0 for sp in special_points):
+                from pychebyshev_tpu_torch.models.spline import (
+                    ChebyshevSpline,
+                )
+                if device is None:
+                    raise TypeError(
+                        "ChebyshevApproximation() missing required "
+                        "keyword-only argument: 'device'")
+                _validate_special_points_shape(
+                    special_points, n_nodes, num_dimensions, domain)
+                return ChebyshevSpline(
+                    function, num_dimensions, domain, n_nodes=n_nodes,
+                    knots=special_points,
+                    max_derivative_order=max_derivative_order,
+                    error_threshold=error_threshold, max_n=max_n,
+                    additional_data=additional_data, device=device,
+                    defer_build=defer_build, n_workers=n_workers,
+                    vectorized=vectorized,
+                )
+        return super().__new__(cls)
 
     def __init__(self, function, num_dimensions, domain, n_nodes=None,
                  max_derivative_order=2, error_threshold=None, max_n=64,
@@ -118,12 +210,8 @@ class ChebyshevApproximation:
             normalize_n_workers,
         )
 
-        domain, n_nodes = _unwrap_typed(domain, n_nodes)
-        if special_points is not None and any(
-                len(sp) > 0 for sp in special_points):
-            raise NotImplementedError(
-                "special_points with knots build a ChebyshevSpline, which "
-                "pychebyshev_tpu_torch does not port yet")
+        domain, n_nodes, special_points = _unwrap_typed(
+            domain, n_nodes, special_points)
 
         self.device = torch.device(device)
         self.function = function
@@ -782,6 +870,197 @@ class ChebyshevApproximation:
         return np.stack([g.ravel() for g in grids], axis=-1).astype(np.float64)
 
     # ------------------------------------------------------------------
+    # Ergonomics surface
+    # ------------------------------------------------------------------
+
+    def is_construction_finished(self) -> bool:
+        """True iff this interpolant is built and usable."""
+        return self.tensor_values is not None
+
+    def get_constructor_type(self) -> str:
+        """Class name (MoCaX getConstructorType convention)."""
+        return type(self).__name__
+
+    def get_used_ns(self) -> list:
+        """Resolved per-dim node counts."""
+        return list(self.n_nodes)
+
+    def set_descriptor(self, descriptor: str) -> None:
+        """Attach a free-form text label."""
+        if not isinstance(descriptor, str):
+            raise TypeError(
+                f"descriptor must be str, got {type(descriptor).__name__}"
+            )
+        self.descriptor = descriptor
+
+    def get_descriptor(self) -> str:
+        """The descriptor label (default '')."""
+        return self.descriptor
+
+    def get_max_derivative_order(self) -> int:
+        """Maximum queryable derivative order."""
+        return self.max_derivative_order
+
+    @staticmethod
+    def is_dimensionality_allowed(num_dimensions: int) -> bool:
+        """Whether this class supports ``num_dimensions`` (any >= 1)."""
+        return isinstance(num_dimensions, int) and num_dimensions >= 1
+
+    def get_special_points(self):
+        """special_points declared at construction (None or empty lists)."""
+        return self.special_points
+
+    def get_error_threshold(self):
+        """The error_threshold ctor kwarg (target precision), or None."""
+        return self.error_threshold
+
+    def clone(self) -> "ChebyshevApproximation":
+        """Independent deep copy (function is not duplicated)."""
+        import copy
+        return copy.deepcopy(self)
+
+    @staticmethod
+    def nodes(num_dimensions: int, domain, n_nodes) -> dict:
+        """Grid info without evaluating a function: ``nodes_per_dim``,
+        ``full_grid`` (C-order), ``shape``."""
+        if len(domain) != num_dimensions or len(n_nodes) != num_dimensions:
+            raise ValueError(
+                f"len(domain)={len(domain)} and len(n_nodes)={len(n_nodes)} "
+                f"must both equal num_dimensions={num_dimensions}"
+            )
+        nodes_per_dim = [
+            nodes_for_dim_np(domain[d][0], domain[d][1], int(n_nodes[d]))
+            for d in range(num_dimensions)
+        ]
+        grids = np.meshgrid(*nodes_per_dim, indexing="ij")
+        full_grid = np.column_stack([g.ravel() for g in grids])
+        return {
+            "nodes_per_dim": nodes_per_dim,
+            "full_grid": full_grid,
+            "shape": tuple(n_nodes),
+        }
+
+    def differentiate(self, derivative_order) -> "ChebyshevApproximation":
+        """A first-class interpolant of the given derivative: the
+        spectral differentiation matrices applied to the value tensor
+        once (in f64, on the device)."""
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        orders = tuple(int(o) for o in derivative_order)
+        if len(orders) != self.num_dimensions:
+            raise ValueError(
+                f"derivative_order length {len(orders)} does not match "
+                f"num_dimensions {self.num_dimensions}"
+            )
+        if any(o < 0 for o in orders):
+            raise ValueError("derivative orders must be >= 0")
+        _, _, diffs = self._grid_tuples()
+        new_tensor = eval_ops.apply_derivative_passes(self.tensor_values,
+                                                      diffs, orders)
+        return ChebyshevApproximation._from_grid(self, new_tensor)
+
+    @classmethod
+    def _from_grid(cls, source, tensor_values):
+        """New built instance on *source*'s grid and device (the operator
+        factory).  Every tensor it holds is its own copy: torch tensors
+        change in place, so sharing the source's would let an edit of
+        one interpolant change the other."""
+        obj = object.__new__(cls)
+        obj.device = source.device
+        obj.function = None
+        obj.num_dimensions = source.num_dimensions
+        obj.domain = [list(b) for b in source.domain]
+        obj.n_nodes = list(source.n_nodes)
+        obj._original_n_nodes = list(source.n_nodes)
+        obj.max_derivative_order = source.max_derivative_order
+        obj.error_threshold = None
+        obj.max_n = 64
+        obj.nodes = [_private_f64(a, obj.device) for a in source.nodes]
+        obj.weights = [_private_f64(a, obj.device) for a in source.weights]
+        obj.diff_matrices = [_private_f64(a, obj.device)
+                             for a in source.diff_matrices]
+        src_grid = getattr(source, "_host_grid", None)
+        if src_grid is not None:
+            obj._host_grid = src_grid  # host NumPy, never edited in place
+        obj.tensor_values = _private_f64(tensor_values, obj.device)
+        if isinstance(tensor_values, np.ndarray):
+            obj._offer_host_tensor(tensor_values)
+        obj.build_time = 0.0
+        obj.n_evaluations = 0
+        obj._cached_error_estimate = None
+        obj.special_points = None
+        obj.descriptor = ""
+        obj.additional_data = None
+        obj.n_workers = None
+        obj.vectorized = False
+        obj._derivative_id_registry = {}
+        obj._derivative_id_to_orders = []
+        return obj
+
+    # ------------------------------------------------------------------
+    # Arithmetic operators
+    # ------------------------------------------------------------------
+
+    def __add__(self, other):
+        if type(self) is not type(other):
+            return NotImplemented
+        check_compatible(self, other)
+        return ChebyshevApproximation._from_grid(
+            self, self.tensor_values + other.tensor_values.to(self.device))
+
+    def __sub__(self, other):
+        if type(self) is not type(other):
+            return NotImplemented
+        check_compatible(self, other)
+        return ChebyshevApproximation._from_grid(
+            self, self.tensor_values - other.tensor_values.to(self.device))
+
+    def __mul__(self, scalar):
+        if not is_scalar(scalar):
+            return NotImplemented
+        return ChebyshevApproximation._from_grid(
+            self, self.tensor_values * float(scalar))
+
+    def __rmul__(self, scalar):
+        return self.__mul__(scalar)
+
+    def __truediv__(self, scalar):
+        if not is_scalar(scalar):
+            return NotImplemented
+        return self.__mul__(1.0 / float(scalar))
+
+    def __neg__(self):
+        return self.__mul__(-1.0)
+
+    # The in-place forms rebind tensor_values to a new tensor (as the
+    # reference does), so every cache keyed on the old one refreshes.
+    def __iadd__(self, other):
+        check_compatible(self, other)
+        self.tensor_values = (self.tensor_values
+                              + other.tensor_values.to(self.device))
+        self._cached_error_estimate = None
+        return self
+
+    def __isub__(self, other):
+        check_compatible(self, other)
+        self.tensor_values = (self.tensor_values
+                              - other.tensor_values.to(self.device))
+        self._cached_error_estimate = None
+        return self
+
+    def __imul__(self, scalar):
+        if not is_scalar(scalar):
+            return NotImplemented
+        self.tensor_values = self.tensor_values * float(scalar)
+        self._cached_error_estimate = None
+        return self
+
+    def __itruediv__(self, scalar):
+        if not is_scalar(scalar):
+            return NotImplemented
+        return self.__imul__(1.0 / float(scalar))
+
+    # ------------------------------------------------------------------
     # Serialization
     # ------------------------------------------------------------------
 
@@ -866,14 +1145,20 @@ class ChebyshevApproximation:
                 f"Expected a {cls.__name__} instance, got "
                 f"{type(obj).__name__}"
             )
-        device = torch.device(device)
-        if obj.device != device:
-            obj.device = device
-            obj.nodes = [a.to(device) for a in obj.nodes]
-            obj.weights = [a.to(device) for a in obj.weights]
-            obj.diff_matrices = [a.to(device) for a in obj.diff_matrices]
-            obj.tensor_values = obj.tensor_values.to(device)
+        obj._move_to(device)
         return obj
+
+    def _move_to(self, device) -> None:
+        """Move the grid and value tensors to ``device`` (a restored
+        pickle starts on the device it was saved from)."""
+        device = torch.device(device)
+        if self.device != device:
+            self.device = device
+            self.nodes = [a.to(device) for a in self.nodes]
+            self.weights = [a.to(device) for a in self.weights]
+            self.diff_matrices = [a.to(device) for a in self.diff_matrices]
+            if self.tensor_values is not None:
+                self.tensor_values = self.tensor_values.to(device)
 
     @classmethod
     def from_values(cls, tensor_values, num_dimensions, domain, n_nodes,

@@ -1,0 +1,814 @@
+"""ChebyshevSlider: additive (sliding-technique) decomposition, on
+PyTorch.
+
+The port of ``pychebyshev_tpu.models.slider`` (serving surface).
+Approximates ``f(x) ~= f(z) + sum_i [s_i(x_{G_i}) - f(z)]`` over a
+partition of the dims with pivot z; each slide is a low-dimensional
+:class:`ChebyshevApproximation` on ``device``, so the build costs the
+*sum* of the groups' grid sizes instead of their product.
+
+- Single points run on the host through each slide's host path.
+- Batches run on the device (``ops.slider_eval``): the value sums the
+  slides' batched evaluations; a derivative spec confined to one group
+  is that slide's derivative, and one that crosses groups is exactly 0.
+- ``eval_batch_dd`` is the near-f64 tier in native f64: one contraction
+  of every slide's rows put side by side against the stacked slide
+  tensors.
+
+Batched results: ``eval_batch_device`` and ``eval_batch_dd`` return
+tensors on the device; ``eval_batch`` and the ``vectorized_*`` spellings
+return NumPy arrays.
+
+Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
+``fit``, ``extrude``/``slice``, integration, root finding and
+optimisation, the Sobol family, the plots, and ``save(format="npz")``.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import time
+import warnings
+from typing import Callable, List
+
+import numpy as np
+import torch
+
+from pychebyshev_tpu_torch.models.approximation import ChebyshevApproximation
+from pychebyshev_tpu_torch.ops import eval_dd, slider_eval
+from pychebyshev_tpu_torch.utils.algebra import check_compatible, is_scalar
+from pychebyshev_tpu_torch.utils.unported import mark_not_ported
+
+__all__ = ["ChebyshevSlider"]
+
+
+class ChebyshevSlider:
+    """Additive Chebyshev decomposition around a pivot point.
+
+    Parameters mirror the JAX package's constructor; ``vectorized``
+    marks ``function`` as batch-capable, and ``device`` (required,
+    keyword-only) places every slide's tensors.
+    """
+
+    def __init__(self, function: Callable, num_dimensions: int, domain,
+                 n_nodes, partition, pivot_point,
+                 max_derivative_order: int = 2, additional_data=None, *,
+                 device, vectorized: bool = False):
+        from pychebyshev_tpu_torch import Domain, Ns
+        if isinstance(domain, Domain):
+            domain = list(domain.bounds)
+        if isinstance(n_nodes, Ns):
+            n_nodes = list(n_nodes.counts)
+
+        self.device = torch.device(device)
+        self.function = function
+        self.num_dimensions = num_dimensions
+        self.domain = [list(b) for b in domain]
+        self.n_nodes = list(n_nodes)
+        self.partition = [list(g) for g in partition]
+        self.pivot_point = list(pivot_point)
+        self.max_derivative_order = max_derivative_order
+        self.descriptor: str = ""
+        self.additional_data = additional_data
+        self.vectorized = bool(vectorized)
+
+        if any(len(g) == 0 for g in self.partition):
+            raise ValueError("Partition groups must be non-empty")
+        all_dims = sorted(d for group in self.partition for d in group)
+        if all_dims != list(range(num_dimensions)):
+            raise ValueError(
+                f"Partition must cover all dimensions "
+                f"0..{num_dimensions - 1} exactly once. "
+                f"Got dimensions: {all_dims}"
+            )
+
+        self._dim_to_slide = {d: slide_idx
+                              for slide_idx, group in enumerate(self.partition)
+                              for d in group}
+        self.slides: List[ChebyshevApproximation] = []
+        self.pivot_value: float = 0.0
+        self._built = False
+        self._cached_error_estimate = None
+        self._derivative_id_registry: dict = {}
+        self._derivative_id_to_orders: list = []
+
+    # ------------------------------------------------------------------
+    # Build
+    # ------------------------------------------------------------------
+
+    def build(self, verbose: bool | int = True) -> None:
+        """Build one low-dim approximation per group (off-group dims fixed
+        at the pivot)."""
+        if self.function is None:
+            raise RuntimeError(
+                "Cannot build: no function assigned. "
+                "This object was created via load() or a factory."
+            )
+        start = time.time()
+        self._cached_error_estimate = None
+
+        if self.vectorized:
+            pivot_arr = np.asarray([self.pivot_point], dtype=np.float64)
+            self.pivot_value = float(np.asarray(
+                self.function(pivot_arr, self.additional_data)).reshape(-1)[0])
+        else:
+            self.pivot_value = float(
+                self.function(self.pivot_point, self.additional_data))
+
+        if verbose:
+            print(f"Building {self.num_dimensions}D Chebyshev Slider "
+                  f"({len(self.partition)} slides, "
+                  f"{self.total_build_evals:,} evaluations)...")
+        self.slides = []
+        for slide_idx, group in enumerate(self.partition):
+            slide = ChebyshevApproximation(
+                self._make_slide_func(group), len(group),
+                [self.domain[d] for d in group],
+                [self.n_nodes[d] for d in group],
+                max_derivative_order=self.max_derivative_order,
+                additional_data=self.additional_data, device=self.device,
+                vectorized=self.vectorized,
+            )
+            slide.build(verbose=False)
+            self.slides.append(slide)
+            if verbose:
+                print(f"  Slide {slide_idx + 1}/{len(self.partition)}: "
+                      f"dims {group}")
+        if verbose:
+            print(f"Build complete in {time.time() - start:.3f}s")
+        self._built = True
+
+    def _make_slide_func(self, group):
+        """Slide closure: fills off-group dims with the pivot."""
+        pivot = list(self.pivot_point)
+        function = self.function
+        if self.vectorized:
+            group_arr = np.asarray(group, dtype=np.intp)
+            pivot_arr = np.asarray(pivot, dtype=np.float64)
+
+            def slide_func(sub_points, data):
+                sub_points = np.asarray(sub_points, dtype=np.float64)
+                full = np.tile(pivot_arr, (sub_points.shape[0], 1))
+                full[:, group_arr] = sub_points
+                return function(full, data)
+        else:
+            def slide_func(sub_point, data):
+                full_point = list(pivot)
+                for local_i, global_d in enumerate(group):
+                    full_point[global_d] = sub_point[local_i]
+                return function(full_point, data)
+        return slide_func
+
+    # ------------------------------------------------------------------
+    # Derivative-id registry
+    # ------------------------------------------------------------------
+
+    def get_derivative_id(self, derivative_order) -> int:
+        """Stable per-process id for a derivative-orders tuple."""
+        from pychebyshev_tpu_torch.utils.derivative_ids import (
+            register_derivative_id,
+        )
+        return register_derivative_id(self, derivative_order)
+
+    def _resolve_derivative_args(self, derivative_order, derivative_id):
+        """Resolve orders xor id; raises on both/neither/unknown."""
+        from pychebyshev_tpu_torch.utils.derivative_ids import (
+            resolve_derivative_args,
+        )
+        return resolve_derivative_args(self, derivative_order,
+                                       derivative_id)
+
+    # ------------------------------------------------------------------
+    # Evaluation
+    # ------------------------------------------------------------------
+
+    def _active_slides(self, derivative_order) -> set:
+        return {self._dim_to_slide[d]
+                for d, order in enumerate(derivative_order) if order > 0}
+
+    def eval(self, point, derivative_order=None, *, derivative_id=None
+             ) -> float:
+        """The sliding sum at one point, on the host; derivatives route
+        to the owning slide (cross-group mixed partials are exactly 0)."""
+        if not self._built:
+            raise RuntimeError("Call build() before eval().")
+        derivative_order = self._resolve_derivative_args(
+            derivative_order, derivative_id)
+
+        if any(o > 0 for o in derivative_order):
+            active = self._active_slides(derivative_order)
+            if len(active) > 1:
+                return 0.0
+            slide_idx = active.pop()
+            group = self.partition[slide_idx]
+            return self.slides[slide_idx].vectorized_eval(
+                [point[d] for d in group],
+                [derivative_order[d] for d in group])
+
+        result = self.pivot_value
+        for slide_idx, group in enumerate(self.partition):
+            slide_val = self.slides[slide_idx].vectorized_eval(
+                [point[d] for d in group], [0] * len(group))
+            result += slide_val - self.pivot_value
+        return result
+
+    def eval_multi(self, point, derivative_orders) -> List[float]:
+        """Multiple derivative specs at one point."""
+        return [self.eval(point, do) for do in derivative_orders]
+
+    vectorized_eval = eval
+    vectorized_eval_multi = eval_multi
+
+    def _points(self, points) -> torch.Tensor:
+        pts = torch.as_tensor(points, dtype=torch.float64,
+                              device=self.device)
+        if pts.dim() != 2 or pts.shape[1] != self.num_dimensions:
+            raise ValueError(
+                f"points must have shape (N, {self.num_dimensions}), "
+                f"got {tuple(pts.shape)}")
+        return pts
+
+    def _orders(self, derivative_order, derivative_id=None):
+        if derivative_order is not None or derivative_id is not None:
+            derivative_order = self._resolve_derivative_args(
+                derivative_order, derivative_id)
+        if derivative_order is None:
+            derivative_order = [0] * self.num_dimensions
+        if len(derivative_order) != self.num_dimensions:
+            raise ValueError(
+                f"derivative_order length {len(derivative_order)} does "
+                f"not match num_dimensions {self.num_dimensions}"
+            )
+        return [int(o) for o in derivative_order]
+
+    def _slide_data(self):
+        return tuple((s.tensor_values,) + s._grid_tuples()
+                     for s in self.slides)
+
+    def _groups(self):
+        return tuple(tuple(int(d) for d in g) for g in self.partition)
+
+    def eval_batch_device(self, points, derivative_order=None, *,
+                          derivative_id=None) -> torch.Tensor:
+        """Batched f64 evaluation, result left on the device: values sum
+        the slides' batched evaluations; a derivative spec runs its
+        owning slide (or is exactly 0 across groups)."""
+        if not self._built:
+            raise RuntimeError("Call build() before eval_batch().")
+        pts = self._points(points)
+        orders = self._orders(derivative_order, derivative_id)
+        if any(o > 0 for o in orders):
+            active = self._active_slides(orders)
+            if len(active) > 1:
+                return pts.new_zeros(pts.shape[0])
+            slide_idx = active.pop()
+            group = self.partition[slide_idx]
+            return self.slides[slide_idx].eval_batch_device(
+                pts[:, group], [orders[d] for d in group])
+        return slider_eval.slider_value_batch(
+            self._slide_data(), self.pivot_value, self._groups(), pts)
+
+    def eval_batch(self, points, derivative_order=None, *,
+                   derivative_id=None) -> np.ndarray:
+        """Batched f64 evaluation: (N, d) points -> (N,) NumPy values."""
+        return self.eval_batch_device(
+            points, derivative_order,
+            derivative_id=derivative_id).cpu().numpy()
+
+    vectorized_eval_batch = eval_batch
+
+    def eval_batch_dd(self, points, derivative_order=None,
+                      mode: str = "accurate") -> torch.Tensor:
+        """Near-f64 batched evaluation, result left on the device.
+
+        The slider's dd tier (``ops.slider_eval.slider_batch_dd``) in
+        native f64: one contraction of the slides' rows put side by side
+        against the stacked slide tensors.  Derivative specs keep the
+        reference's routing.  An out-of-domain batch (one device-to-host
+        read decides it), or slides the reference's plan refuses, take
+        the f64 path, reference extrapolation included.
+        """
+        if not self._built:
+            raise RuntimeError("Call build() before eval_batch_dd().")
+        if mode not in ("accurate", "fast"):
+            raise ValueError(
+                f"mode must be 'accurate' or 'fast', got {mode!r}")
+        pts = self._points(points)
+        orders = self._orders(derivative_order)
+        shapes = [tuple(s.tensor_values.shape) for s in self.slides]
+        dom = torch.tensor(self.domain, dtype=torch.float64,
+                           device=self.device)
+        out_of_domain = bool(((pts < dom[:, 0]) | (pts > dom[:, 1]))
+                             .any().item())
+        if out_of_domain or not slider_eval.slider_dd_plan(shapes)["ok"]:
+            return self.eval_batch_device(pts, orders)
+        cutoff = eval_dd.FAST_PAIR_CUTOFF if mode == "fast" else None
+        return slider_eval.slider_batch_dd(
+            self._slide_data(), self.pivot_value, self._groups(), pts,
+            orders=orders, cutoff=cutoff)
+
+    def _multi_spec_plans(self, orders_list):
+        """Routing plan per derivative spec: ``("value",)``, ``("zero",)``
+        for a spec that crosses groups, else ``("slide", idx,
+        sub_orders)`` (``ops.slider_eval.spec_plan``).  Shared by the
+        class path and the serving engines so their routing cannot
+        diverge."""
+        for orders in orders_list:
+            if len(orders) != self.num_dimensions:
+                raise ValueError(
+                    f"derivative_order length {len(orders)} does not "
+                    f"match num_dimensions {self.num_dimensions}"
+                )
+        return list(slider_eval.spec_plan(self._groups(), orders_list))
+
+    def vectorized_eval_batch_multi(self, points, derivative_orders
+                                    ) -> np.ndarray:
+        """Batch x multi-spec evaluation -> (N, len(derivative_orders))
+        NumPy array: the value sum at most once, one owning-slide
+        evaluation per derivative spec, exact zeros across groups."""
+        if not self._built:
+            raise RuntimeError(
+                "Call build() before vectorized_eval_batch_multi()."
+            )
+        pts = self._points(points)
+        orders_list = tuple(tuple(int(o) for o in orders)
+                            for orders in derivative_orders)
+        if not orders_list:
+            return np.zeros((pts.shape[0], 0))
+        plan = self._multi_spec_plans(orders_list)
+        out = slider_eval.slider_multi_batch(
+            self._slide_data(), self.pivot_value, self._groups(),
+            tuple(plan), pts)
+        return out.T.cpu().numpy()
+
+    eval_batch_multi = vectorized_eval_batch_multi
+
+    # ------------------------------------------------------------------
+    # Error estimation + properties
+    # ------------------------------------------------------------------
+
+    def error_estimate(self, tail: int = 1) -> float:
+        """Sum of per-slide estimates (cross-group interaction error is
+        not included)."""
+        if not self._built:
+            raise RuntimeError("Call build() before error_estimate().")
+        if tail == 1 and self._cached_error_estimate is not None:
+            return self._cached_error_estimate
+        est = sum(slide.error_estimate(tail) for slide in self.slides)
+        if tail == 1:
+            self._cached_error_estimate = est
+        return est
+
+    @property
+    def total_build_evals(self) -> int:
+        """Sum over groups of their grid sizes."""
+        return sum(int(np.prod([self.n_nodes[d] for d in group]))
+                   for group in self.partition)
+
+    # ------------------------------------------------------------------
+    # Serialization + ergonomics
+    # ------------------------------------------------------------------
+
+    def __getstate__(self) -> dict:
+        from pychebyshev_tpu_torch._version import __version__
+        state = self.__dict__.copy()
+        state["function"] = None
+        state["device"] = str(self.device)
+        state["_pychebyshev_version"] = __version__
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        from pychebyshev_tpu_torch._version import __version__
+        saved = state.pop("_pychebyshev_version", None)
+        if saved is not None and saved != __version__:
+            warnings.warn(
+                f"This object was saved with pychebyshev-tpu {saved}, but "
+                f"you are loading it with {__version__}. Evaluation results "
+                f"may differ if internal data layout changed.",
+                UserWarning,
+                stacklevel=2,
+            )
+        self.__dict__.update(state)
+        self.function = None
+        self.device = torch.device(state["device"])
+
+    def is_construction_finished(self) -> bool:
+        """True iff built and usable."""
+        return self._built
+
+    def get_constructor_type(self) -> str:
+        """Class name."""
+        return type(self).__name__
+
+    def get_used_ns(self) -> list:
+        """Per-dim node counts."""
+        return list(self.n_nodes)
+
+    def set_descriptor(self, descriptor: str) -> None:
+        """Attach a free-form text label."""
+        if not isinstance(descriptor, str):
+            raise TypeError(
+                f"descriptor must be str, got {type(descriptor).__name__}"
+            )
+        self.descriptor = descriptor
+
+    def get_descriptor(self) -> str:
+        """The descriptor label (default '')."""
+        return self.descriptor
+
+    def get_max_derivative_order(self) -> int:
+        """Maximum queryable derivative order."""
+        return self.max_derivative_order
+
+    def get_special_points(self):
+        """Always None: sliders have no special-point surface."""
+        return None
+
+    def get_error_threshold(self):
+        """Always None: slider builds have no auto-N threshold mode."""
+        return None
+
+    def get_num_evaluation_points(self) -> int:
+        """Slide grid points (pivot singleton excluded)."""
+        return int(self.total_build_evals)
+
+    def get_evaluation_points(self) -> np.ndarray:
+        """Slide grids lifted into d-D space (off-group dims at pivot)."""
+        pivot = np.array(self.pivot_point, dtype=np.float64)
+        rows = []
+        for slide, group in zip(self.slides, self.partition):
+            grid = slide.get_evaluation_points()
+            full = np.tile(pivot, (len(grid), 1))
+            full[:, group] = grid
+            rows.append(full)
+        return np.concatenate(rows, axis=0)
+
+    def clone(self) -> "ChebyshevSlider":
+        """Independent deep copy (function not duplicated)."""
+        import copy
+        return copy.deepcopy(self)
+
+    def differentiate(self, derivative_order) -> "ChebyshevSlider":
+        """A first-class slider of the given derivative, term by term:
+        all-zero orders copy the slider; orders touching one group
+        differentiate that slide and zero the others (pivot 0); orders
+        spanning several groups give the identically-zero slider."""
+        if not self._built:
+            raise RuntimeError("Call build() before differentiate().")
+        orders = [int(o) for o in derivative_order]
+        if len(orders) != self.num_dimensions:
+            raise ValueError(
+                f"derivative_order length {len(orders)} does not match "
+                f"num_dimensions {self.num_dimensions}"
+            )
+        if any(o < 0 for o in orders):
+            raise ValueError("derivative orders must be >= 0")
+
+        def _zero_like(slide):
+            return ChebyshevApproximation._from_grid(
+                slide, slide.tensor_values * 0.0)
+
+        active = self._active_slides(orders)
+        if not active:
+            new_slides = [s.differentiate([0] * len(g))
+                          for s, g in zip(self.slides, self.partition)]
+            return ChebyshevSlider._from_slides(
+                self, new_slides, self.pivot_value)
+        if len(active) > 1:
+            return ChebyshevSlider._from_slides(
+                self, [_zero_like(s) for s in self.slides], 0.0)
+        owner = active.pop()
+        new_slides = [
+            s.differentiate([orders[d] for d in g]) if i == owner
+            else _zero_like(s)
+            for i, (s, g) in enumerate(zip(self.slides, self.partition))
+        ]
+        return ChebyshevSlider._from_slides(self, new_slides, 0.0)
+
+    def to_tt(self, tolerance: float = 1e-12):
+        """Exact TT form of the sliding sum on this slider's device.
+
+        ``f = sum_g s_g - (G-1) p`` is a sum of group-local terms, which
+        a tensor train holds through an accumulator and a pass-through
+        channel: rank 2 between groups, the slide's rank plus 1 or 2
+        inside a group.  Non-contiguous partitions use the TT's
+        ``dim_order`` frame (storage order = groups concatenated).  The
+        result's ``max_rank`` is the uncapped TT bound, so later TT
+        algebra has rounding headroom.
+        """
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        from pychebyshev_tpu_torch.models import tt_algorithms as tta
+        from pychebyshev_tpu_torch.models.tensor_train import ChebyshevTT
+
+        n_groups = len(self.partition)
+        # Per-group VALUE cores of the slide tensors, constant folded
+        # into the first group so f = sum of group terms exactly.
+        group_cores: List[List[np.ndarray]] = []
+        for g, slide in enumerate(self.slides):
+            w = np.array(slide.tensor_values.detach().cpu().numpy(),
+                         dtype=np.float64)
+            if g == 0:
+                w = w - (n_groups - 1) * self.pivot_value
+            group_cores.append(
+                tta.tt_svd_from_tensor(w, max_rank=int(w.size),
+                                       tol=tolerance))
+
+        # Bond channel layout [acc? | partial? | pass?]: acc exists once
+        # the first group's term has completed; partial carries the
+        # current group's slide between its own cores; pass carries the
+        # constant 1 that seeds later groups and dies once the last
+        # group starts.
+        value_cores: List[np.ndarray] = []
+        in_acc = in_partial = False
+        in_pass = True
+        for g, cores_g in enumerate(group_cores):
+            k = len(cores_g)
+            last_g = g == n_groups - 1
+            for m, b in enumerate(cores_g):
+                rho_l, n_m, rho_r = b.shape
+                completes = m == k - 1
+                out_acc = in_acc or completes
+                out_partial = not completes
+                out_pass = not last_g
+                r_in = ((1 if in_acc else 0)
+                        + (rho_l if in_partial else 0)
+                        + (1 if in_pass else 0))
+                r_out = ((1 if out_acc else 0)
+                         + (rho_r if out_partial else 0)
+                         + (1 if out_pass else 0))
+                core = np.zeros((r_in, n_m, r_out))
+                i_acc = 0 if in_acc else None
+                i_par = (1 if in_acc else 0) if in_partial else None
+                i_pass = r_in - 1 if in_pass else None
+                o_acc = 0 if out_acc else None
+                o_par = (1 if out_acc else 0) if out_partial else None
+                o_pass = r_out - 1 if out_pass else None
+                one = np.ones(n_m, dtype=np.float64)
+                if i_acc is not None:
+                    core[i_acc, :, o_acc] = one
+                if out_partial:
+                    if in_partial:
+                        core[i_par:i_par + rho_l, :,
+                             o_par:o_par + rho_r] = b
+                    else:
+                        # The group's term starts: pass seeds partial.
+                        core[i_pass, :, o_par:o_par + rho_r] = b[0]
+                else:
+                    # The group's term completes into the accumulator.
+                    if in_partial:
+                        core[i_par:i_par + rho_l, :, o_acc] = b[:, :, 0]
+                    else:
+                        core[i_pass, :, o_acc] = b[0, :, 0]
+                if o_pass is not None:
+                    core[i_pass, :, o_pass] = one
+                value_cores.append(core)
+                in_acc, in_partial = out_acc, out_partial
+                in_pass = out_pass
+
+        coeff_cores = [tta.value_core_to_coeff_core(c)
+                       for c in value_cores]
+        storage_dims = [d for group in self.partition for d in group]
+        storage_domain = [list(self.domain[d]) for d in storage_dims]
+        storage_n = [int(self.n_nodes[d]) for d in storage_dims]
+        if len(storage_n) > 1:
+            cap = max(
+                min(int(np.prod(storage_n[:j + 1])),
+                    int(np.prod(storage_n[j + 1:])))
+                for j in range(len(storage_n) - 1))
+        else:
+            cap = 1
+        return ChebyshevTT._from_coeff_cores(
+            coeff_cores, storage_domain, storage_n,
+            dim_order=storage_dims, max_rank=cap, tolerance=tolerance,
+            max_derivative_order=self.max_derivative_order,
+            additional_data=self.additional_data,
+            descriptor=self.descriptor, method="slider",
+            device=self.device)
+
+    @staticmethod
+    def is_dimensionality_allowed(num_dimensions: int) -> bool:
+        """Whether this class supports ``num_dimensions`` (any >= 1)."""
+        return isinstance(num_dimensions, int) and num_dimensions >= 1
+
+    def save(self, path: str | os.PathLike,
+             format: str = "pickle") -> None:
+        """Save to pickle (the function is not saved)."""
+        if not self._built:
+            raise RuntimeError(
+                "Cannot save an unbuilt slider. Call build() first."
+            )
+        if format == "pickle":
+            with open(os.fspath(path), "wb") as f:
+                pickle.dump(self, f, protocol=pickle.HIGHEST_PROTOCOL)
+        elif format == "npz":
+            raise NotImplementedError(
+                "save(format='npz') is not ported yet; it waits for "
+                "utils/native_save.py (see ROADMAP.md)")
+        else:
+            raise ValueError(
+                f"format must be 'pickle' or 'npz', got {format!r}"
+            )
+
+    @classmethod
+    def load(cls, path: str | os.PathLike, *, device) -> "ChebyshevSlider":
+        """Load a pickle onto ``device``; only unpickle files this
+        program wrote."""
+        with open(os.fspath(path), "rb") as f:
+            obj = pickle.load(f)  # noqa: S301
+        if not isinstance(obj, cls):
+            raise TypeError(
+                f"Expected a {cls.__name__} instance, got "
+                f"{type(obj).__name__}"
+            )
+        obj.device = torch.device(device)
+        for slide in obj.slides:
+            slide._move_to(device)
+        return obj
+
+    @classmethod
+    def _from_slides(cls, source, slides, pivot_value):
+        """New slider sharing metadata from *source* with new slides."""
+        return cls._assemble(
+            num_dimensions=source.num_dimensions, domain=source.domain,
+            n_nodes=source.n_nodes, partition=source.partition,
+            pivot_point=source.pivot_point, slides=slides,
+            pivot_value=pivot_value,
+            max_derivative_order=source.max_derivative_order,
+            device=source.device)
+
+    @classmethod
+    def _assemble(cls, *, num_dimensions, domain, n_nodes, partition,
+                  pivot_point, slides, pivot_value, max_derivative_order,
+                  device, descriptor="", additional_data=None):
+        """One built-object factory for slides made elsewhere
+        (``_from_slides``, ``utils.convert``)."""
+        obj = object.__new__(cls)
+        obj.device = torch.device(device)
+        obj.function = None
+        obj.num_dimensions = num_dimensions
+        obj.domain = [list(b) for b in domain]
+        obj.n_nodes = list(n_nodes)
+        obj.max_derivative_order = max_derivative_order
+        obj.partition = [list(g) for g in partition]
+        obj.pivot_point = list(pivot_point)
+        obj.slides = list(slides)
+        obj.pivot_value = pivot_value
+        obj._dim_to_slide = {d: si for si, group in enumerate(obj.partition)
+                             for d in group}
+        obj._built = True
+        obj.descriptor = descriptor
+        obj.additional_data = additional_data
+        obj.vectorized = False
+        obj._cached_error_estimate = None
+        obj._derivative_id_registry = {}
+        obj._derivative_id_to_orders = []
+        return obj
+
+    # ------------------------------------------------------------------
+    # Algebra
+    # ------------------------------------------------------------------
+
+    def _check_slider_compatible(self, other):
+        check_compatible(self, other)
+        if self.partition != other.partition:
+            raise ValueError(
+                f"Partition mismatch: {self.partition} vs {other.partition}"
+            )
+        if self.pivot_point != other.pivot_point:
+            raise ValueError(
+                f"Pivot point mismatch: {self.pivot_point} vs "
+                f"{other.pivot_point}"
+            )
+
+    def _combined(self, other, op):
+        self._check_slider_compatible(other)
+        slides = [ChebyshevApproximation._from_grid(
+            a, op(a.tensor_values, b.tensor_values.to(a.device)))
+            for a, b in zip(self.slides, other.slides)]
+        return ChebyshevSlider._from_slides(
+            self, slides, op(self.pivot_value, other.pivot_value))
+
+    def __add__(self, other):
+        if type(self) is not type(other):
+            return NotImplemented
+        return self._combined(other, lambda a, b: a + b)
+
+    def __sub__(self, other):
+        if type(self) is not type(other):
+            return NotImplemented
+        return self._combined(other, lambda a, b: a - b)
+
+    def __mul__(self, scalar):
+        if not is_scalar(scalar):
+            return NotImplemented
+        s = float(scalar)
+        slides = [ChebyshevApproximation._from_grid(sl, sl.tensor_values * s)
+                  for sl in self.slides]
+        return ChebyshevSlider._from_slides(self, slides,
+                                            self.pivot_value * s)
+
+    def __rmul__(self, scalar):
+        return self.__mul__(scalar)
+
+    def __truediv__(self, scalar):
+        if not is_scalar(scalar):
+            return NotImplemented
+        return self.__mul__(1.0 / float(scalar))
+
+    def __neg__(self):
+        return self.__mul__(-1.0)
+
+    # The in-place forms rebind each slide's tensor to a new one.
+    def __iadd__(self, other):
+        self._check_slider_compatible(other)
+        for a, b in zip(self.slides, other.slides):
+            a.tensor_values = a.tensor_values + b.tensor_values.to(a.device)
+            a._cached_error_estimate = None
+        self.pivot_value += other.pivot_value
+        self._cached_error_estimate = None
+        return self
+
+    def __isub__(self, other):
+        self._check_slider_compatible(other)
+        for a, b in zip(self.slides, other.slides):
+            a.tensor_values = a.tensor_values - b.tensor_values.to(a.device)
+            a._cached_error_estimate = None
+        self.pivot_value -= other.pivot_value
+        self._cached_error_estimate = None
+        return self
+
+    def __imul__(self, scalar):
+        if not is_scalar(scalar):
+            return NotImplemented
+        s = float(scalar)
+        for sl in self.slides:
+            sl.tensor_values = sl.tensor_values * s
+            sl._cached_error_estimate = None
+        self.pivot_value *= s
+        self._cached_error_estimate = None
+        return self
+
+    def __itruediv__(self, scalar):
+        if not is_scalar(scalar):
+            return NotImplemented
+        return self.__imul__(1.0 / float(scalar))
+
+    # ------------------------------------------------------------------
+    # Printing
+    # ------------------------------------------------------------------
+
+    def __repr__(self) -> str:
+        return (f"ChebyshevSlider(dims={self.num_dimensions}, "
+                f"slides={len(self.partition)}, "
+                f"partition={self.partition}, built={self._built}, "
+                f"device={self.device})")
+
+    def __str__(self) -> str:
+        status = "built" if self._built else "not built"
+        full_tensor_evals = int(np.prod(self.n_nodes))
+        max_display = 6
+
+        def _fmt(seq):
+            if len(seq) > max_display:
+                return ("[" + ", ".join(str(v) for v in seq[:max_display])
+                        + ", ...]")
+            return str(seq)
+
+        if self.num_dimensions > max_display:
+            domain_str = (" x ".join(
+                f"[{lo}, {hi}]" for lo, hi in self.domain[:max_display])
+                + " x ...")
+        else:
+            domain_str = " x ".join(f"[{lo}, {hi}]"
+                                    for lo, hi in self.domain)
+
+        lines = [
+            f"ChebyshevSlider ({self.num_dimensions}D, "
+            f"{len(self.partition)} slides, {status})",
+            f"  Partition: {_fmt(self.partition)}",
+            f"  Pivot:     {_fmt(self.pivot_point)}",
+            f"  Nodes:     {_fmt(self.n_nodes)} "
+            f"({self.total_build_evals:,} vs {full_tensor_evals:,} full "
+            f"tensor)",
+            f"  Domain:    {domain_str}",
+        ]
+        if self._built and self.slides:
+            lines.append(f"  Error est: {self.error_estimate():.2e}")
+            lines.append("  Slides:")
+            for i, (group, slide) in enumerate(zip(self.partition,
+                                                   self.slides)):
+                slide_evals = int(np.prod([self.n_nodes[d] for d in group]))
+                lines.append(f"    [{i}] dims {group}: {slide_evals:,} "
+                             f"evals, built in {slide.build_time:.3f}s")
+        return "\n".join(lines)
+
+
+
+mark_not_ported(ChebyshevSlider, (
+    "extrude", "slice", "integrate", "integrate_batch",
+    "partial_integrate_batch", "roots", "minimize", "maximize",
+    "critical_points", "roots_batch", "minimize_batch", "maximize_batch",
+    "sobol_indices", "interaction_matrix", "suggest_partition", "plot_1d",
+    "plot_2d_surface", "plot_2d_contour"), classmethods=("fit",))

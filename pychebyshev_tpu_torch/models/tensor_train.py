@@ -46,13 +46,10 @@ from pychebyshev_tpu_torch.ops.chebyshev import (
 )
 from pychebyshev_tpu_torch.ops.tt_eval import tt_eval_batch
 from pychebyshev_tpu_torch.utils import ceval
+from pychebyshev_tpu_torch.utils.algebra import is_scalar
+from pychebyshev_tpu_torch.utils.unported import mark_not_ported
 
 __all__ = ["ChebyshevTT"]
-
-
-def _is_scalar(value) -> bool:
-    """True if *value* is a plain numeric scalar."""
-    return isinstance(value, (int, float, np.integer, np.floating))
 
 
 def _unwrap_typed(domain, n_nodes):
@@ -1234,7 +1231,7 @@ class ChebyshevTT:
         return self + (-other)
 
     def __mul__(self, scalar) -> "ChebyshevTT":
-        if not _is_scalar(scalar):
+        if not is_scalar(scalar):
             raise TypeError(
                 f"ChebyshevTT * {type(scalar).__name__} is not supported "
                 "(only scalar multiplication is defined for TT)"
@@ -1249,7 +1246,7 @@ class ChebyshevTT:
         return self.__mul__(scalar)
 
     def __truediv__(self, scalar) -> "ChebyshevTT":
-        if not _is_scalar(scalar):
+        if not is_scalar(scalar):
             raise TypeError(
                 f"ChebyshevTT / {type(scalar).__name__} is not supported"
             )
@@ -1285,24 +1282,11 @@ class ChebyshevTT:
         return self.eval_batch(points).cpu().numpy()
 
 
-def _not_ported(name: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"ChebyshevTT.{name} is not ported yet; it waits for its own "
-            f"slice of the port (see ROADMAP.md)")
-    method.__name__ = name
-    method.__doc__ = ("Not ported yet: raises NotImplementedError "
-                      "(see ROADMAP.md).")
-    return method
 
-
-for _name in ("integrate", "integrate_batch", "partial_integrate_batch",
-              "roots", "minimize", "maximize", "critical_points",
-              "roots_batch", "minimize_batch", "maximize_batch",
-              "to_slider", "extrude", "slice", "run_completion",
-              "sobol_indices", "interaction_matrix", "suggest_partition",
-              "hadamard", "compose", "plot_1d", "plot_2d_surface",
-              "plot_2d_contour"):
-    setattr(ChebyshevTT, _name, _not_ported(_name))
-ChebyshevTT.fit = classmethod(_not_ported("fit"))
-del _name
+mark_not_ported(ChebyshevTT, (
+    "integrate", "integrate_batch", "partial_integrate_batch", "roots",
+    "minimize", "maximize", "critical_points", "roots_batch",
+    "minimize_batch", "maximize_batch", "to_slider", "extrude", "slice",
+    "run_completion", "sobol_indices", "interaction_matrix",
+    "suggest_partition", "hadamard", "compose", "plot_1d", "plot_2d_surface",
+    "plot_2d_contour"), classmethods=("fit",))

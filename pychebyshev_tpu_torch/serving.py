@@ -1,10 +1,10 @@
-"""Serving engines for batched queries (dense and tensor-train
-interpolants).
+"""Serving engines for batched queries (dense, tensor-train, spline and
+slider interpolants).
 
-The port of ``pychebyshev_tpu.serving``, dense and TT branches.  An
-engine snapshots an interpolant's arrays at a chosen dtype on its
-device, with the derivative passes it serves applied once, and answers
-any batch.
+The port of ``pychebyshev_tpu.serving``, without ``mesh``.  An engine
+snapshots an interpolant's arrays at a chosen dtype on its device, with
+the derivative passes it serves applied once (in f64, then cast), and
+answers any batch.
 
 PyTorch runs eagerly, so nothing recompiles per batch size: the bucket
 sizes only cap the slice a single call processes (the largest bucket),
@@ -28,8 +28,25 @@ TT's storage frame.  ``MultiModelEvaluator`` serves a book of same-grid
 dense or TT models from one batch, e.g. a TT risk report: price plus
 Greeks as ``differentiate()``d TTs.
 
-Spline and slider interpolants, ``build_book``, ``integrate_book``,
-``save_book``/``load_book`` and mesh sharding are not ported yet.
+A spline engine routes every point to its piece in f64 on the device
+(``ops.spline_eval``; an f32 engine routes its f64 input and casts after,
+so a point one f32 ulp from a knot stays in its piece), then serves the
+masked route (an f32 engine on flat grids of at most
+``MASKED_MAX_PIECES`` pieces) or the routed one.  A derivative spec
+refuses a point on a knot.  At ``dtype="dd"`` each piece is served by a
+runner the engine owns (``eval_dd``: the f64 kernel for piece grids that
+``supports_fused_dd`` covers); the reference's 16-piece cap, the size of
+its digit-plane cache, is not ported, since the runners hold their own
+operands.
+
+A slider engine sums its slides (``ops.slider_eval``); a derivative spec
+confined to one group is that slide's derivative, and one that crosses
+groups is served as exact zeros without touching the device.  At
+``dtype="dd"`` the whole sum is one f64 contraction, refusing the
+sliders the reference's plan refuses.
+
+``build_book``, ``integrate_book``, ``save_book``/``load_book`` and mesh
+sharding are not ported yet.
 
 Example
 -------
@@ -45,8 +62,16 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from pychebyshev_tpu_torch.config import NODE_COINCIDENCE_TOL
 from pychebyshev_tpu_torch.ops import eval as eval_ops
-from pychebyshev_tpu_torch.ops import eval_dd, fused_eval, tt_eval, tt_eval_dd
+from pychebyshev_tpu_torch.ops import (
+    eval_dd,
+    fused_eval,
+    slider_eval,
+    spline_eval,
+    tt_eval,
+    tt_eval_dd,
+)
 
 __all__ = ["BatchedEvaluator", "MultiSpecEvaluator", "MultiModelEvaluator"]
 
@@ -63,25 +88,33 @@ def _check_dtype(engine: str, dtype) -> None:
                          f"torch.float64 or 'dd', got {dtype}")
 
 
-def _is_tt(interpolant) -> bool:
+def _family(interpolant) -> str:
+    """"dense", "tt", "spline", "slider", or "" for anything else."""
+    from pychebyshev_tpu_torch.models.approximation import (
+        ChebyshevApproximation,
+    )
+    from pychebyshev_tpu_torch.models.slider import ChebyshevSlider
+    from pychebyshev_tpu_torch.models.spline import ChebyshevSpline
     from pychebyshev_tpu_torch.models.tensor_train import ChebyshevTT
-    return isinstance(interpolant, ChebyshevTT)
+    for cls, name in ((ChebyshevApproximation, "dense"),
+                      (ChebyshevTT, "tt"), (ChebyshevSpline, "spline"),
+                      (ChebyshevSlider, "slider")):
+        if isinstance(interpolant, cls):
+            return name
+    return ""
 
 
 def _dense_snapshot(interpolant, engine: str, dtype, device):
     """(nodes, weights, diffs) of a built dense interpolant at ``dtype``
     (f64 for ``"dd"``) on ``device``, or an error naming what is not
     served."""
-    from pychebyshev_tpu_torch.models.approximation import (
-        ChebyshevApproximation,
-    )
     _check_dtype(engine, dtype)
-    if not isinstance(interpolant, ChebyshevApproximation):
+    if _family(interpolant) != "dense":
         raise TypeError(
-            f"{engine} serves ChebyshevApproximation and ChebyshevTT "
-            f"objects; {type(interpolant).__name__} serving is not ported "
-            f"yet (it comes with its family's slice of the port, see "
-            f"ROADMAP.md)")
+            f"{engine} serves ChebyshevApproximation, ChebyshevSpline, "
+            f"ChebyshevSlider and ChebyshevTT objects; "
+            f"{type(interpolant).__name__} serving is not ported yet "
+            f"(see ROADMAP.md)")
     if interpolant.tensor_values is None:
         raise RuntimeError("interpolant is not built")
     if dtype == "dd":
@@ -114,7 +147,58 @@ def _spec_tensor(interpolant, orders, dtype, device):
     tensor = interpolant.tensor_values.to(device)
     diffs = [m.to(device) for m in interpolant.diff_matrices]
     return eval_ops.apply_derivative_passes(tensor, diffs, orders).to(
-        dtype).contiguous()
+        dtype=dtype, copy=True).contiguous()
+
+
+def _grid_snapshot(piece, dtype, device):
+    """(nodes, weights, diffs) of one spline piece or slider slide at
+    ``dtype`` on ``device``: the engine's own copies."""
+    return tuple(tuple(a.to(device=device, dtype=dtype, copy=True)
+                       for a in grp) for grp in piece._grid_tuples())
+
+
+def _piece_snapshot(piece, orders, dtype, device):
+    """(tensor with ``orders`` applied, nodes, weights, diffs) of one
+    spline piece or slider slide at ``dtype`` on ``device``."""
+    return ((_spec_tensor(piece, orders, dtype, device),)
+            + _grid_snapshot(piece, dtype, device))
+
+
+def _check_spline_dd(spline, engine: str) -> None:
+    """A dd spline engine serves one piece grid inside the dd plan (the
+    reference's rule)."""
+    shapes = {tuple(p.tensor_values.shape) for p in spline._pieces}
+    if len(shapes) != 1:
+        raise ValueError(
+            f"{engine}: dtype='dd' spline serving requires flat n_nodes "
+            f"(all pieces on one grid shape)")
+    shape = next(iter(shapes))
+    if not eval_dd.supports_dd(shape):
+        raise ValueError(
+            f"grid shape {shape} is outside the digit-GEMM plan budget; "
+            f"serve at dtype=torch.float64 instead")
+
+
+def _check_slider_dd(slider) -> None:
+    shapes = [tuple(s.tensor_values.shape) for s in slider.slides]
+    if not slider_eval.slider_dd_plan(shapes)["ok"]:
+        raise ValueError(
+            f"slider slide shapes {shapes} are outside the digit-GEMM plan "
+            f"budget; serve at dtype=torch.float64 instead")
+
+
+def _check_built(interpolant, family: str) -> None:
+    if family == "tt":
+        interpolant._check_built()
+    elif family in ("spline", "slider") and not interpolant._built:
+        raise RuntimeError("interpolant is not built")
+
+
+def _knot_guard(spline, dims, device):
+    """(dim, knots) pairs a derivative spec must keep points off."""
+    return tuple((d, torch.tensor(spline.knots[d], dtype=torch.float64,
+                                  device=device))
+                 for d in sorted(dims) if spline.knots[d])
 
 
 def _validated_orders(orders, num_dimensions):
@@ -126,6 +210,112 @@ def _validated_orders(orders, num_dimensions):
     return orders
 
 
+class _SplineSpecs:
+    """A spline's derivative specs prepared for one tier on one device:
+    ``points`` (f64, user frame) -> (M, N).
+
+    Points route in f64 first (``ops.spline_eval``), then each spec's
+    pre-differentiated pieces (passes applied once in f64, then cast)
+    serve them: on the masked route at f32 when the piece grids are
+    homogeneous and no more than ``MASKED_MAX_PIECES``, else each
+    occupied piece on its own points.  At ``dd`` every piece has a runner
+    of ``ops.eval_dd`` that holds its operands (on a CUDA device the f64
+    kernel for piece grids ``supports_fused_dd`` covers)."""
+
+    def __init__(self, spline, specs, dtype, dd: bool, device):
+        self.dtype = torch.float64 if dd else dtype
+        self._knots = [list(k) for k in spline.knots]
+        self._strides = spline_eval.piece_strides(
+            [len(k) for k in self._knots])
+        self._m = len(specs)
+        self.guard = _knot_guard(
+            spline, {d for s in specs for d, o in enumerate(s) if o > 0},
+            device)
+        pieces = spline._pieces
+        self._runners = self._stacks = self._pieces = None
+        if dd:
+            self._runners = [
+                eval_dd.dd_multi_runner(t, n, w, df, specs)
+                for t, n, w, df in (
+                    _piece_snapshot(p, (0,) * spline.num_dimensions,
+                                    torch.float64, device) for p in pieces)]
+            return
+        if (dtype == torch.float32 and spline._pieces_stackable()
+                and len(pieces) <= spline_eval.MASKED_MAX_PIECES):
+            tensors, nodes, weights, diffs = spline_eval.stack_pieces(pieces)
+            self._stacks = tuple(
+                spline_eval.stacked_derivative_passes(tensors, diffs, s).to(
+                    device=device, dtype=dtype) for s in specs)
+            self._grid = tuple(tuple(a.to(device=device, dtype=dtype)
+                                     for a in grp)
+                               for grp in (nodes, weights))
+            return
+        self._pieces = [
+            (tuple(_spec_tensor(p, s, dtype, device) for s in specs),)
+            + _grid_snapshot(p, dtype, device)[:2] for p in pieces]
+
+    @property
+    def masked(self) -> bool:
+        return self._stacks is not None
+
+    def __call__(self, points: torch.Tensor) -> torch.Tensor:
+        flat = spline_eval.route_piece_indices(self._knots, self._strides,
+                                               points)
+        if self._runners is not None:
+            return spline_eval.routed_apply(
+                flat, points, lambda i, p: self._runners[i](p),
+                n_cols=self._m).T
+        if self._stacks is not None:
+            return spline_eval.masked_eval_prepared(
+                self._stacks, *self._grid, flat, points)
+        return spline_eval.routed_apply(flat, points, self._piece,
+                                        n_cols=self._m, dtype=self.dtype).T
+
+    def _piece(self, i: int, points: torch.Tensor) -> torch.Tensor:
+        """(n, M): piece ``i``'s specs on its own points."""
+        tensors, nodes, weights = self._pieces[i]
+        return eval_ops.eval_batch_models(
+            tensors, nodes, weights, (), points.to(self.dtype),
+            (0,) * len(nodes)).T
+
+
+class _SliderSpecs:
+    """A slider's derivative specs prepared for one tier on one device:
+    ``points`` -> (M, N) through ``slider_eval.slider_multi_batch``: the
+    value sum runs at most once a call, a spec inside one group runs its
+    owning slide (passes applied once in f64, then cast), a spec across
+    groups is exact zeros.  At ``dd`` all of it is one f64 contraction
+    (``slider_eval.slider_dd_multi_runner``)."""
+
+    guard = ()
+
+    def __init__(self, slider, specs, dtype, dd: bool, device):
+        self.dtype = torch.float64 if dd else dtype
+        self._groups = tuple(tuple(int(d) for d in g)
+                             for g in slider.partition)
+        self._slides = tuple(
+            _piece_snapshot(s, (0,) * len(g), self.dtype, device)
+            for s, g in zip(slider.slides, self._groups))
+        self._dd_runner = None
+        if dd:
+            self._dd_runner = slider_eval.slider_dd_multi_runner(
+                self._slides, slider.pivot_value, self._groups, specs)
+            return
+        self._pivot = torch.tensor(float(slider.pivot_value), dtype=dtype,
+                                   device=device)
+        self._plan = tuple(slider._multi_spec_plans(specs))
+        self._derived = tuple(
+            _piece_snapshot(slider.slides[p[1]], p[2], dtype, device)
+            if p[0] == "slide" else None for p in self._plan)
+
+    def __call__(self, points: torch.Tensor) -> torch.Tensor:
+        if self._dd_runner is not None:
+            return self._dd_runner(points).T
+        return slider_eval.slider_multi_batch(
+            self._slides, self._pivot, self._groups, self._plan, points,
+            derived=self._derived)
+
+
 class _Engine:
     """Points intake, the slice loop, the TT storage frame and the dd
     tier's out-of-domain route, shared by the engines."""
@@ -133,16 +323,36 @@ class _Engine:
     # dim_order of a TT engine whose storage frame is not the user's;
     # None for dense engines and canonical TTs.
     _perm = None
+    # Spline engines take points in f64 and route them before the cast.
+    _route_f64 = False
+    # (dim, knots) pairs that a spline engine's derivative specs guard.
+    _guard = ()
 
     def _intake(self, points) -> torch.Tensor:
-        # dtype= converts host input straight to the engine's dtype: a
-        # list of Python floats must not pass through float32.
-        pts = torch.as_tensor(points, dtype=self.dtype, device=self.device)
+        # dtype= converts host input straight to the engine's dtype (f64
+        # for a spline engine): a list of Python floats must not pass
+        # through float32.
+        dtype = torch.float64 if self._route_f64 else self.dtype
+        pts = torch.as_tensor(points, dtype=dtype, device=self.device)
         if pts.dim() != 2 or pts.shape[1] != self.num_dimensions:
             raise ValueError(
                 f"points must have shape (N, {self.num_dimensions}); "
                 f"got {tuple(pts.shape)}")
+        self._check_knots(pts)
         return pts
+
+    def _check_knots(self, points: torch.Tensor) -> None:
+        """A derivative is not defined on a knot: refuse the batch (one
+        device-to-host read per guarded dim)."""
+        for d, knots in self._guard:
+            hit = (points[:, d, None].to(torch.float64)
+                   - knots[None, :]).abs() < NODE_COINCIDENCE_TOL
+            if bool(hit.any().item()):
+                i, k = torch.nonzero(hit)[0].tolist()
+                raise ValueError(
+                    f"Derivative w.r.t. dimension {d} is not defined at "
+                    f"knot x[{d}]={float(knots[k])} (point {i}). The left "
+                    f"and right derivatives may differ at this point.")
 
     def _init_dd(self, interpolant, dtype, sibling):
         """Set the engine's tier.  A dd engine computes in f64 and keeps
@@ -158,6 +368,21 @@ class _Engine:
                 interpolant.domain, dtype=torch.float64, device=self.device)
             self._dd_fallback = None
             self._dd_fallback_ctor = sibling
+
+    def _init_family(self, interpolant, specs, dtype, sibling) -> None:
+        """Prepare a spline or slider engine for ``specs`` (validated)."""
+        if dtype == "dd":
+            if self._kind == "spline":
+                _check_spline_dd(interpolant, type(self).__name__)
+            else:
+                _check_slider_dd(interpolant)
+        self._init_dd(interpolant, dtype, sibling)
+        self._domain = [tuple(b) for b in interpolant.domain]
+        runner = _SplineSpecs if self._kind == "spline" else _SliderSpecs
+        self._specs_run = runner(interpolant, specs, self.dtype, self._dd,
+                                 self.device)
+        self._route_f64 = self._kind == "spline"
+        self._guard = self._specs_run.guard
 
     def _init_frame(self, dim_order) -> None:
         """Remember a TT's storage permutation, if it is one."""
@@ -207,20 +432,23 @@ class _Engine:
     def warmup(self) -> None:
         """Run one smallest-bucket batch at the domain centre: builds the
         kernel and packs its operands before the first request."""
-        centre = torch.tensor([0.5 * (lo + hi) for lo, hi in self._domain],
-                              dtype=self.dtype, device=self.device)
+        centre = torch.tensor(
+            [0.5 * (lo + hi) for lo, hi in self._domain],
+            dtype=torch.float64 if self._route_f64 else self.dtype,
+            device=self.device)
         self._run(centre.expand(self.bucket_sizes[0], -1).contiguous())
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
 
 class BatchedEvaluator(_Engine):
-    """Batched evaluation of a dense or tensor-train interpolant at one
-    derivative spec.
+    """Batched evaluation of a dense, tensor-train, spline or slider
+    interpolant at one derivative spec.
 
     Parameters
     ----------
-    interpolant : a built ``ChebyshevApproximation`` or ``ChebyshevTT``.
+    interpolant : a built ``ChebyshevApproximation``, ``ChebyshevTT``,
+        ``ChebyshevSpline`` or ``ChebyshevSlider``.
     dtype : torch.float32 (throughput), torch.float64 (parity) or "dd"
         (the near-f64 tier, f64 results).
     derivative_order : fixed per-dim derivative spec; None = values.  A
@@ -231,7 +459,8 @@ class BatchedEvaluator(_Engine):
         CUDA engines whose grid ``supports_fused`` covers; ``True``
         forces it (raising outside the envelope), ``False`` the plain
         path.  A dd engine picks its route itself (``ops.eval_dd``) and
-        refuses ``True``, as a TT engine does (its chain has no kernel).
+        refuses ``True``, as TT, spline and slider engines do (the JAX
+        package has no fused kernel for those families).
     device : the engine's device (required).
     """
 
@@ -248,10 +477,22 @@ class BatchedEvaluator(_Engine):
                 derivative_order=derivative_order,
                 bucket_sizes=bucket_sizes, device=device)
 
-        self._tt = _is_tt(interpolant)
-        if self._tt:
-            self._init_tt(interpolant, dtype, derivative_order, use_fused,
-                          sibling)
+        self._kind = _family(interpolant)
+        self._tt = self._kind == "tt"
+        if self._kind in ("tt", "spline", "slider"):
+            _check_dtype("BatchedEvaluator", dtype)
+            _check_built(interpolant, self._kind)
+            if use_fused:
+                raise ValueError(
+                    f"use_fused serves dense interpolants; the "
+                    f"{type(interpolant).__name__} has no fused kernel")
+            if self._tt:
+                self._init_tt(interpolant, dtype, derivative_order, sibling)
+                return
+            self._use_fused = False
+            self.num_dimensions = interpolant.num_dimensions
+            self._init_family(interpolant, [_validated_orders(
+                derivative_order, self.num_dimensions)], dtype, sibling)
             return
         grid = _dense_snapshot(interpolant, "BatchedEvaluator", dtype,
                                self.device)
@@ -280,13 +521,8 @@ class BatchedEvaluator(_Engine):
             raise ValueError("use_fused needs dtype=torch.float32")
         self._use_fused = bool(use_fused)
 
-    def _init_tt(self, interpolant, dtype, derivative_order, use_fused,
+    def _init_tt(self, interpolant, dtype, derivative_order,
                  sibling) -> None:
-        _check_dtype("BatchedEvaluator", dtype)
-        interpolant._check_built()
-        if use_fused:
-            raise ValueError("use_fused serves dense interpolants; the TT "
-                             "chain has no fused kernel")
         if dtype == "dd":
             _check_tt_dd(interpolant)
         self._init_dd(interpolant, dtype, sibling)
@@ -306,6 +542,8 @@ class BatchedEvaluator(_Engine):
         self._init_frame(interpolant._dim_order)
 
     def _run(self, points: torch.Tensor) -> torch.Tensor:
+        if self._kind in ("spline", "slider"):
+            return self._specs_run(points)[0]
         if self._tt:
             if self._dd:
                 return tt_eval_dd.tt_eval_batch_dd(
@@ -327,42 +565,62 @@ class BatchedEvaluator(_Engine):
 
 
 class MultiSpecEvaluator(_Engine):
-    """One dense interpolant, many derivative specs per call.
+    """One dense, spline or slider interpolant, many derivative specs per
+    call.
 
-    ``engine(points)`` returns an (N, M) tensor — e.g. price plus five
-    Greeks.  Every spec's derivative passes are applied once at
-    construction (in f64, then cast); each call builds the per-point rows
-    once per slice and contracts them against all M tensors
-    (``ops.eval.eval_batch_models``).
+    ``engine(points)`` returns an (N, M) tensor, e.g. price plus five
+    Greeks.
 
-    ``dtype="dd"`` serves the report at near-f64 through
-    ``ops.eval_dd.dd_multi_runner``, which holds every spec's packed
-    operands: on a CUDA device one f64 kernel launch per spec per slice,
-    each against its pre-differentiated tensor.
+    - Dense: every spec's derivative passes are applied once at
+      construction (in f64, then cast); each call builds the per-point
+      rows once per slice and contracts them against all M tensors
+      (``ops.eval.eval_batch_models``).
+    - Spline: routed in f64 on the device, then every piece x every
+      spec on the masked route at f32 (flat, homogeneous piece grids of
+      at most ``MASKED_MAX_PIECES`` pieces), else each occupied piece's
+      specs on its own points (the routed route; the reference refuses
+      the splines past its caps here).  A
+      derivative spec refuses a point on a knot.
+    - Slider: the additive value sum at most once per slice plus one
+      owning-slide evaluation per derivative spec; a spec that crosses
+      groups is exact zeros.
+
+    ``dtype="dd"`` serves the report at near-f64 in native f64: dense
+    through ``ops.eval_dd.dd_multi_runner`` (on a CUDA device one f64
+    kernel launch per spec per slice, each against its
+    pre-differentiated tensor), a flat spline through one such runner
+    per piece (the points grouped by piece on the device), a slider
+    through one f64 contraction (``slider_eval.slider_dd_multi_runner``).
     """
 
     def __init__(self, interpolant, specs, dtype=torch.float32,
                  bucket_sizes: Tuple[int, ...] = _DEFAULT_BUCKETS, *,
                  device):
         self.device = torch.device(device)
-        if _is_tt(interpolant):
+        self._kind = _family(interpolant)
+        if self._kind == "tt":
             raise TypeError(
-                "MultiSpecEvaluator serves ChebyshevApproximation objects "
-                "(TT models: differentiate() per spec + "
-                "MultiModelEvaluator)")
-        grid = _dense_snapshot(interpolant, "MultiSpecEvaluator", dtype,
-                               self.device)
-        self._init_dd(interpolant, dtype, lambda: MultiSpecEvaluator(
+                "MultiSpecEvaluator serves ChebyshevApproximation, "
+                "ChebyshevSpline and ChebyshevSlider objects (TT models: "
+                "differentiate() per spec + MultiModelEvaluator)")
+        sibling = (lambda: MultiSpecEvaluator(
             interpolant, specs, dtype=torch.float64,
             bucket_sizes=bucket_sizes, device=device))
+        self.bucket_sizes = tuple(sorted(int(b) for b in bucket_sizes))
+        if self._kind in ("spline", "slider"):
+            _check_dtype("MultiSpecEvaluator", dtype)
+            _check_built(interpolant, self._kind)
+            self.num_dimensions = interpolant.num_dimensions
+            self.specs = self._validated_specs(specs)
+            self._init_family(interpolant, self.specs, dtype, sibling)
+            return
+        grid = _dense_snapshot(interpolant, "MultiSpecEvaluator", dtype,
+                               self.device)
+        self._init_dd(interpolant, dtype, sibling)
         self._nodes, self._weights, self._diffs = grid
         self.num_dimensions = interpolant.num_dimensions
-        self.bucket_sizes = tuple(sorted(int(b) for b in bucket_sizes))
         self._domain = [tuple(b) for b in interpolant.domain]
-        self.specs = tuple(_validated_orders(s, self.num_dimensions)
-                           for s in specs)
-        if not self.specs:
-            raise ValueError("MultiSpecEvaluator needs at least one spec")
+        self.specs = self._validated_specs(specs)
         if self._dd:
             self._dd_runner = eval_dd.dd_multi_runner(
                 interpolant.tensor_values.to(self.device), self._nodes,
@@ -372,7 +630,16 @@ class MultiSpecEvaluator(_Engine):
                 _spec_tensor(interpolant, s, self.dtype, self.device)
                 for s in self.specs)
 
+    def _validated_specs(self, specs):
+        specs = tuple(_validated_orders(s, self.num_dimensions)
+                      for s in specs)
+        if not specs:
+            raise ValueError("MultiSpecEvaluator needs at least one spec")
+        return specs
+
     def _run(self, points: torch.Tensor) -> torch.Tensor:
+        if self._kind in ("spline", "slider"):
+            return self._specs_run(points)
         if self._dd:
             return self._dd_runner(points).T    # (N, M) -> (M, N)
         return eval_ops.eval_batch_models(

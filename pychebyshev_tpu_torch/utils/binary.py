@@ -11,8 +11,8 @@ Structure mirrors the repo's own C++ reader (``cpp/pcb_reader.cpp``): a
 ``_Cursor`` wraps the stream and owns truncation checking; the
 class-specific readers consume typed fields from it.  Deliberately
 host-side NumPy — serialization is an I/O boundary, not a compute path.
-This port carries the ``ChebyshevApproximation`` record; the spline
-record waits for the spline port.
+This port carries the ``ChebyshevApproximation`` and ``ChebyshevSpline``
+records.
 """
 
 from __future__ import annotations
@@ -223,4 +223,89 @@ def read_approx(f: BinaryIO, *, device):
     return ChebyshevApproximation.from_values(
         tensor_values=tensor, num_dimensions=d, domain=domain,
         n_nodes=n_nodes, device=device,
+    )
+
+
+# --- ChebyshevSpline ---------------------------------------------------------
+
+
+def write_spline(f: BinaryIO, spline) -> None:
+    """Write a built spline: header, grid block, u32 num_knots[d],
+    concatenated f64 knots, u32 num_pieces, per-piece C-order tensors."""
+    if any(p is None or p.tensor_values is None for p in spline._pieces):
+        # Deferred (unfilled) pieces hold tensor_values=None; writing
+        # them would emit a truncated stream, not a readable file.
+        raise RuntimeError("Cannot save an unbuilt ChebyshevSpline")
+    if getattr(spline, "additional_data", None) is not None:
+        raise NotImplementedError(
+            "the .pcb format has no additional_data field; save with "
+            "format='pickle' or drop additional_data first"
+        )
+    from pychebyshev_tpu_torch.models.spline import is_nested_n_nodes
+    if is_nested_n_nodes(spline.n_nodes):
+        raise NotImplementedError(
+            "the .pcb spline record stores one shared n_nodes vector; "
+            "per-piece (nested) n_nodes only round-trips via "
+            "format='pickle'"
+        )
+
+    _emit_header(f, CLASS_TAG_SPLINE)
+    _emit_grid(f, spline.domain, spline.n_nodes)
+    d = int(spline.num_dimensions)
+    _emit_array(
+        f, np.array([len(spline.knots[i]) for i in range(d)],
+                    dtype=np.uint32), np.uint32)
+    all_knots = [np.asarray(k, dtype=np.float64) for k in spline.knots]
+    if any(k.size for k in all_knots):
+        _emit_array(f, np.concatenate([k for k in all_knots if k.size]),
+                    np.float64)
+
+    f.write(struct.pack("<I", len(spline._pieces)))
+    for piece in spline._pieces:
+        flat = np.ascontiguousarray(
+            piece.tensor_values.detach().cpu().numpy(),
+            dtype=np.float64).ravel(order="C")
+        _emit_array(f, flat, np.float64)
+
+
+def read_spline(f: BinaryIO, *, device):
+    """Read a spline onto ``device``; reconstructs via
+    ``ChebyshevSpline.from_values``."""
+    from pychebyshev_tpu_torch.models.spline import ChebyshevSpline
+
+    cur = _Cursor(f)
+    _parse_header(cur, CLASS_TAG_SPLINE, "ChebyshevSpline")
+    d, domain, n_nodes = _parse_grid(cur)
+
+    knot_counts = [int(k) for k in cur.u32s(d, "knot counts")]
+    flat = cur.f64s(sum(knot_counts), "knot positions")
+    splits = np.cumsum(knot_counts)[:-1]
+    knots = []
+    for i, seg in enumerate(np.split(flat, splits)):
+        if seg.size > 1 and not (np.diff(seg) > 0).all():
+            raise ValueError(f"knots in dim {i} not strictly ascending")
+        knots.append([float(x) for x in seg])
+
+    num_pieces = cur.u32("num_pieces")
+    # Exact Python-int product: adversarial u32 knot counts must not
+    # wrap an int64 accumulator into a spuriously-matching value.
+    expected = 1
+    for k in knot_counts:
+        expected *= k + 1
+    if num_pieces != expected:
+        raise ValueError(
+            f"num_pieces={num_pieces} inconsistent with knot counts: "
+            f"prod(num_knots+1)={expected}"
+        )
+
+    per_piece = _checked_grid_size(n_nodes)
+    piece_values = [
+        cur.f64s(per_piece, f"piece {p} tensor").reshape(
+            tuple(n_nodes), order="C")
+        for p in range(num_pieces)
+    ]
+
+    return ChebyshevSpline.from_values(
+        piece_values=piece_values, num_dimensions=d, domain=domain,
+        n_nodes=n_nodes, knots=knots, device=device,
     )

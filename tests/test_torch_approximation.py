@@ -222,9 +222,17 @@ def test_host_cache_follows_in_place_mutation(pts):
 def test_device_is_required_and_knots_are_not_ported():
     with pytest.raises(TypeError):
         ChebyshevApproximation(None, 1, [[0, 1]], [5])
-    with pytest.raises(NotImplementedError, match="ChebyshevSpline"):
+    # Knots are ported now: special_points dispatches to the port's
+    # ChebyshevSpline on the same device, and still needs one.
+    from pychebyshev_tpu_torch import ChebyshevSpline
+    spline = ChebyshevApproximation(None, 1, [[0, 1]], [[5, 5]],
+                                    special_points=[[0.5]], device="cpu",
+                                    defer_build=True)
+    assert type(spline) is ChebyshevSpline
+    assert spline.device == torch.device("cpu")
+    with pytest.raises(TypeError, match="device"):
         ChebyshevApproximation(None, 1, [[0, 1]], [[5, 5]],
-                               special_points=[[0.5]], device="cpu")
+                               special_points=[[0.5]])
 
 
 def test_derivative_ids_and_deferred_build(pair):

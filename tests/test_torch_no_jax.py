@@ -36,9 +36,12 @@ def test_package_covers_the_slice():
     for want in ("config", "ops.chebyshev", "ops.dct", "ops.eval",
                  "ops.fused_eval", "ops.eval_dd", "ops.fused_dd",
                  "ops._build", "ops.tt_eval", "ops.tt_eval_dd",
-                 "utils.binary", "utils.ceval",
+                 "ops.spline_eval", "ops.slider_eval",
+                 "utils.algebra", "utils.binary", "utils.ceval",
                  "utils.convert", "utils.derivative_ids",
-                 "utils.parallel_build", "models.approximation",
+                 "utils.parallel_build", "utils.unported",
+                 "models.approximation",
+                 "models.spline", "models.slider",
                  "models.tensor_train", "models.tt_algorithms", "serving"):
         assert f"pychebyshev_tpu_torch.{want}" in names
     assert (REPO / "pychebyshev_tpu_torch" / "csrc" / "fused_eval.cu").is_file()
