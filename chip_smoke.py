@@ -39,6 +39,16 @@ served at ``dtype="dd"`` through K3; and configuration 4, the 10-D
 additive basket on [-1, 1]^10 with 9 nodes a dim and singleton slides,
 through its engines, the dd Greek report and ``to_tt``.
 
+Then calculus and scenario batches (plain PyTorch, no kernel), on the
+same models: box integrals of the 11^5 interpolant over 2^17 boxes at
+f64, f32 and dd, conditional expectations over (S, T) boxes at the
+other three coordinates, ``integrate_book`` over price plus five
+``differentiate()``d Greeks, the TT family's box integrals (the rank-15
+cross at f64 and f32, ``to_tt(1e-13)`` at dd) and ``to_slider``, config
+3's spline and config 4's slider against closed forms and host
+integrals, and roots and 1-D optima along S over 4,096 scenarios,
+against the single-scenario calls.
+
 Run from the repository root, with one CUDA card:
 
     python3 chip_smoke.py
@@ -84,12 +94,21 @@ from pychebyshev_tpu_torch.ops.chebyshev import (
     differentiation_matrix_np,
     nodes_for_dim_np,
 )
+from pychebyshev_tpu_torch.ops import integrate as integrate_ops
+from pychebyshev_tpu_torch.ops.quadrature import (
+    fejer1_weights,
+    sub_interval_weights,
+)
+from pychebyshev_tpu_torch.serving import integrate_book
 from pychebyshev_tpu_torch.utils import ceval
+from pychebyshev_tpu_torch.utils.calculus import normalize_bounds_batch
 
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 SEED = 0
 N = 1 << 20
+NB = 1 << 17        # boxes and conditional scenarios (bench.py:468)
+NS = 4096           # scenarios of the batched roots and optima
 DOMAIN = [[80.0, 120.0], [90.0, 110.0], [0.25, 2.0], [0.1, 0.5],
           [0.01, 0.05]]
 GREEKS = [(0, 0, 0, 0, 0), (1, 0, 0, 0, 0), (2, 0, 0, 0, 0),
@@ -122,6 +141,14 @@ SLIDER_GREEKS = [(0,) * SLIDER_D] + [
     tuple(1 if j == k else 0 for j in range(SLIDER_D)) for k in (0, 2, 4, 6)]
 SLIDER_VS_FUNCTION = 1e-6       # 9 nodes a dim (the reference read 8.1e-8)
 SWEEP_PIECES = (2, 16, 64)      # scripts/sweep_spline_crossover.py:24-31
+# Batched against single roots, absolute on S.  Optimum locations are
+# held to 1e-10.  Roots get 1e-9, the reference's own batch-vs-single
+# bound (tests/test_calculus_batch.py:52): where the slice's last
+# Chebyshev coefficient is rounding noise (|c_10| / max|c| ~ 4e-16 for
+# some of these scenarios), the colleague matrix moves a root by up to
+# ~1.3e-10 between two f64 summation orders of the same slice values.
+ROOTS_VS_SINGLE = 1e-9
+LOCATION_VS_SINGLE = 1e-10
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W, dense): the pipes
 # each instance runs on (TF32 tensor cores, three passes for f32; f64
 # tensor cores), the SIMT pipes printed beside them, and device memory.
@@ -348,10 +375,11 @@ def device_busy_ms(fn) -> float:
     return sum(e.device_time_total for e in prof.key_averages()) / 1e3
 
 
-def spline_and_slider(card: str, ms: dict) -> int:
+def spline_and_slider(card: str, ms: dict):
     """Phases 21-24: the spline and slider families on the card.  Adds
     their times to ``ms`` and returns K3's launches under the dd spline
-    route (phase 23's main-path run)."""
+    route (phase 23's main-path run), config 3's spline and config 4's
+    slider."""
     # 21. Spline, configuration 3: the special_points dispatch, the
     # error against the function, the class path, the engines, the
     # report, the host path and the knot guard.
@@ -652,7 +680,384 @@ def spline_and_slider(card: str, ms: dict) -> int:
           f"{sl_tt.tt_ranks}) through the TT engine {d_tt:.3e}; times: "
           + "; ".join(f"{k} {ms[k]:.4f} ms" for k in sl_runs)
           + f" | {card}", flush=True)
-    return k3_spline_launches
+    return k3_spline_launches, spline, slider
+
+
+def random_boxes(n, seed, domain):
+    """(n, d, 2) boxes drawn as ``bench.py:469-474`` draws them: lo
+    uniform in the domain, hi uniform in [lo, the domain's top]."""
+    rng = np.random.default_rng(seed)
+    dom = np.asarray(domain, dtype=np.float64)
+    lo = rng.uniform(dom[:, 0], dom[:, 1], (n, len(domain)))
+    hi = rng.uniform(lo, dom[None, :, 1])
+    return np.stack([lo, hi], axis=-1)
+
+
+def quad_row_np(n, a, c, lo, hi):
+    """The host sub-interval Fejer row of one dim, scaled by its
+    half-width (zero for a zero-measure interval)."""
+    if lo == hi:
+        return np.zeros(n)
+    return sub_interval_weights(n, 2.0 * (lo - a) / (c - a) - 1.0,
+                                2.0 * (hi - a) / (c - a) - 1.0) * (c - a) / 2
+
+
+def bary_row_np(x, nodes):
+    """The host barycentric row of coordinate ``x`` (one-hot at a node)."""
+    hit = np.abs(x - nodes) < 1e-14
+    if hit.any():
+        return hit.astype(float)
+    r = barycentric_weights_np(nodes) / (x - nodes)
+    return r / r.sum()
+
+
+def contract_np(tensor, rows) -> float:
+    """The host tensor contracted with one row per dim, last dim first."""
+    t = tensor
+    for row in reversed(rows):
+        t = np.tensordot(t, row, axes=([t.ndim - 1], [0]))
+    return float(t)
+
+
+def calculus(card: str, ms: dict, cheb, tt, comp, spline, slider) -> None:
+    """Phases 25-31: calculus and scenario batches (plain PyTorch, no
+    kernel) on bench.py's models, uncut: box integrals and conditional
+    expectations of the 11^5 interpolant, the six-model book, the TT
+    family, config 3's spline and config 4's slider, and roots and 1-D
+    optima over scenario batches.  Adds their times to ``ms``."""
+    host_t = cheb.tensor_values.cpu().numpy()
+    host_nodes = cheb._nodes_np()
+
+    def dense_box_np(box):
+        return contract_np(host_t, [quad_row_np(11, *DOMAIN[d], *box[d])
+                                    for d in range(5)])
+
+    # 25. Dense box integrals at f64, f32 and dd on 2^17 boxes.
+    boxes = random_boxes(NB, 21, DOMAIN)
+    boxes[:64:8, 2, 1] = boxes[:64:8, 2, 0]        # zero measure in T
+    ib = {tier: checked(torch.from_numpy(cheb.integrate_batch(
+        boxes, dtype=dtype)), (NB,), f"integrate_batch {tier}")
+        for tier, dtype in (("f64", None), ("f32", torch.float32),
+                            ("dd", "dd"))}
+    ref = np.array([dense_box_np(b) for b in boxes[:64]])
+    d_ib = {"f64 vs host": dev(ib["f64"][:64], ref),
+            "f32 vs f64": dev(ib["f32"], ib["f64"]),
+            "dd vs f64": dev(ib["dd"], ib["f64"])}
+    check(d_ib["f64 vs host"] <= F64_CEILING
+          and d_ib["dd vs f64"] <= DD_CEILING
+          and d_ib["f32 vs f64"] <= F32_CEILING,
+          f"dense box integrals: {d_ib}")
+    zeros = {t: ib[t][:64:8] for t in ib}
+    check(all(bool((z == 0).all()) for z in zeros.values()),
+          f"zero-measure boxes did not integrate to 0: {zeros}")
+    full = cheb.integrate()
+    full_ref = contract_np(host_t, [fejer1_weights(11) * (c - a) / 2
+                                    for a, c in DOMAIN])
+    part = cheb.integrate(dims=[0])
+    part_pt = sample_points(1, SEED + 70)[0]
+    part_ref = contract_np(host_t, [fejer1_weights(11) * 20.0] + [
+        bary_row_np(part_pt[d], host_nodes[d]) for d in range(1, 5)])
+    d_full = abs(full - full_ref) / abs(full_ref)
+    d_part = abs(part.eval(part_pt[1:], [0] * 4) - part_ref) / abs(part_ref)
+    check(d_full <= F64_CEILING and d_part <= F64_CEILING,
+          f"integrate(): full {d_full:.3e}, partial {d_part:.3e}")
+    runs = {
+        "dense integrate_batch f64, 2^17 boxes":
+            lambda: cheb.integrate_batch(boxes),
+        "dense integrate_batch f32, 2^17 boxes":
+            lambda: cheb.integrate_batch(boxes, dtype=torch.float32),
+        "dense integrate_batch dd, 2^17 boxes":
+            lambda: cheb.integrate_batch(boxes, dtype="dd"),
+        "dense integrate() full": lambda: cheb.integrate(),
+        "dense integrate(dims=[0]) partial":
+            lambda: cheb.integrate(dims=[0]),
+    }
+    for name, fn in runs.items():
+        ms[name] = cuda_ms(fn)
+    # Where the f64 call's time goes: the host validation of the bounds,
+    # the device path on bounds already on the card, and the share of
+    # the call the card's kernels were running.
+    validate_ms = host_us(lambda: normalize_bounds_batch(boxes, DOMAIN),
+                          calls=10) / 1e3
+    boxes_dev = torch.tensor(boxes, device=DEVICE)
+    dom_np = np.asarray(DOMAIN)
+    ms["dense integrate_box_batch f64 (ops, bounds on the card)"] = cuda_ms(
+        lambda: integrate_ops.integrate_box_batch(cheb.tensor_values,
+                                                  dom_np, boxes_dev))
+    busy = device_busy_ms(lambda: cheb.integrate_batch(boxes))
+    ops_ms = ms["dense integrate_box_batch f64 (ops, bounds on the card)"]
+    call_ms = ms["dense integrate_batch f64, 2^17 boxes"]
+    split = (f"host validation {validate_ms:.4f} ms, ops path on the card "
+             f"{ops_ms:.4f} ms, kernels busy {busy:.4f} ms = "
+             f"{100.0 * busy / call_ms:.1f}% of the f64 call")
+    print(f"[25 dense box integrals] 11^5 at 2^17 boxes (seed 21, 8 of "
+          f"them zero-measure in T): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d_ib.items())
+          + f" (host on 64 boxes; f64 <= {F64_CEILING:g}, dd <= "
+          f"{DD_CEILING:g}, f32 <= {F32_CEILING:g}); zero-measure boxes "
+          f"exactly 0 at every tier; integrate() {full:.12g} vs host "
+          f"{d_full:.3e}, integrate(dims=[0]) at a point {d_part:.3e}; "
+          + "; ".join(f"{k} {ms[k]:.4f} ms"
+                      + (f" = {NB / ms[k] * 1e3:,.0f} boxes/s"
+                         if "2^17" in k else "") for k in runs)
+          + f"; {split} | {card}", flush=True)
+
+    # 26. Conditional expectations over dims (0, 2), 3 coordinates.
+    cond_pts = np.random.default_rng(22).uniform(
+        dom_np[[1, 3, 4], 0], dom_np[[1, 3, 4], 1], (NB, 3))
+    sub = np.ascontiguousarray(boxes[:, [0, 2], :])
+    ce = {tier: checked(torch.from_numpy(cheb.partial_integrate_batch(
+        [0, 2], sub, cond_pts, dtype=dtype)), (NB,), f"conditional {tier}")
+        for tier, dtype in (("f64", None), ("dd", "dd"))}
+
+    def cond_np(i):
+        rows = [quad_row_np(11, *DOMAIN[0], *sub[i, 0]),
+                bary_row_np(cond_pts[i, 0], host_nodes[1]),
+                quad_row_np(11, *DOMAIN[2], *sub[i, 1]),
+                bary_row_np(cond_pts[i, 1], host_nodes[3]),
+                bary_row_np(cond_pts[i, 2], host_nodes[4])]
+        return contract_np(host_t, rows)
+
+    d_ce = {"f64 vs host": dev(ce["f64"][:64],
+                               np.array([cond_np(i) for i in range(64)])),
+            "dd vs f64": dev(ce["dd"], ce["f64"])}
+    check(d_ce["f64 vs host"] <= F64_CEILING
+          and d_ce["dd vs f64"] <= DD_CEILING,
+          f"conditional expectations: {d_ce}")
+    check(bool((ce["f64"][:64:8] == 0).all() and (ce["dd"][:64:8] == 0)
+               .all()), "zero-measure conditional boxes did not read 0")
+    runs = {
+        f"dense partial_integrate_batch {t}, dims (0, 2), 2^17 scenarios":
+            (lambda t=t: cheb.partial_integrate_batch(
+                [0, 2], sub, cond_pts, dtype=None if t == "f64" else t))
+        for t in ("f64", "dd")}
+    for name, fn in runs.items():
+        ms[name] = cuda_ms(fn)
+    print(f"[26 conditional expectations] integrate S and T, evaluate at "
+          f"(K, sigma, r): " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in d_ce.items())
+          + "; zero-measure boxes exactly 0; "
+          + "; ".join(f"{k} {ms[k]:.4f} ms = {NB / ms[k] * 1e3:,.0f} "
+                      f"scenarios/s" for k in runs) + f" | {card}",
+          flush=True)
+
+    # 27. The six-model book: price plus five differentiate()d Greeks.
+    book = [cheb] + [cheb.differentiate(list(g)) for g in GREEKS[1:]]
+    d_book = {}
+    for tier, dtype in (("f64", None), ("f32", torch.float32),
+                        ("dd", "dd")):
+        out = checked(torch.from_numpy(integrate_book(book, boxes,
+                                                      dtype=dtype)),
+                      (len(book), NB), f"integrate_book {tier}")
+        d_book[tier] = max(
+            dev(out[k], m.integrate_batch(boxes, dtype=dtype))
+            for k, m in enumerate(book))
+        check(d_book[tier] <= (F32_CEILING if tier == "f32"
+                               else F64_CEILING),
+              f"integrate_book {tier} vs integrate_batch {d_book[tier]:.3e}")
+        name = f"integrate_book {tier}, 6 models, 2^17 boxes"
+        ms[name] = cuda_ms(lambda dtype=dtype: integrate_book(
+            book, boxes, dtype=dtype))
+    print(f"[27 book integrals] price + 5 Greeks, each row vs its model's "
+          f"integrate_batch: " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in d_book.items())
+          + "; " + "; ".join(
+              f"{k} {ms[k]:.4f} ms = {6 * NB / ms[k] * 1e3:,.0f} box "
+              f"integrals/s" for k in ms if k.startswith("integrate_book"))
+          + f" | {card}", flush=True)
+
+    # 28. The TT family: the rank-15 cross at f64 and f32, to_tt(1e-13)
+    # at dd against the dense f64 integrals, and to_slider.
+    tt_boxes = random_boxes(NB, 23, TT_DOMAIN)
+    tt_boxes[:64:8, 1, 1] = tt_boxes[:64:8, 1, 0]
+    tt_ib = {tier: checked(torch.from_numpy(tt.integrate_batch(
+        tt_boxes, dtype=dtype)), (NB,), f"TT integrate_batch {tier}")
+        for tier, dtype in (("f64", None), ("f32", torch.float32))}
+    tt_host = np.array([tt.integrate(bounds=[tuple(b) for b in box])
+                        for box in tt_boxes[:64]])
+    comp_ib = checked(torch.from_numpy(comp.integrate_batch(
+        boxes, dtype="dd")), (NB,), "to_tt integrate_batch dd")
+    d_tt = {"rank-15 f64 vs host integrate(bounds)":
+            dev(tt_ib["f64"][:64], tt_host),
+            "rank-15 f32 vs f64": dev(tt_ib["f32"], tt_ib["f64"]),
+            "to_tt dd vs dense f64": dev(comp_ib, ib["f64"])}
+    check(d_tt["rank-15 f64 vs host integrate(bounds)"] <= F64_CEILING
+          and d_tt["rank-15 f32 vs f64"] <= F32_CEILING
+          and d_tt["to_tt dd vs dense f64"] <= F64_CEILING,
+          f"TT box integrals: {d_tt}")
+    check(bool((tt_ib["f64"][:64:8] == 0).all()
+               and (tt_ib["f32"][:64:8] == 0).all()
+               and (comp_ib[:64:8] == 0).all()),
+          "zero-measure TT boxes did not read 0")
+    centre = [0.5 * (a + c) for a, c in TT_DOMAIN]
+    t0 = time.perf_counter()
+    tt_slider = tt.to_slider([[d] for d in range(5)], centre)
+    to_slider_s = time.perf_counter() - t0
+    d_pivot = abs(tt_slider.eval(centre, [0] * 5) - tt.eval(centre)) / abs(
+        tt.eval(centre))
+    lines = np.tile(np.asarray(centre), (64, 1))
+    lines[np.arange(64), np.arange(64) % 5] = sample_points(
+        64, SEED + 71, TT_DOMAIN)[np.arange(64), np.arange(64) % 5]
+    d_lines = dev(tt_slider.eval_batch(lines), tt.eval_batch(lines))
+    check(d_pivot <= F64_CEILING and d_lines <= F64_CEILING,
+          f"to_slider at the pivot {d_pivot:.3e}, along its lines "
+          f"{d_lines:.3e}")
+    runs = {
+        "TT rank-15 integrate_batch f64, 2^17 boxes":
+            lambda: tt.integrate_batch(tt_boxes),
+        "TT rank-15 integrate_batch f32, 2^17 boxes":
+            lambda: tt.integrate_batch(tt_boxes, dtype=torch.float32),
+        "to_tt integrate_batch dd, 2^17 boxes":
+            lambda: comp.integrate_batch(boxes, dtype="dd"),
+    }
+    for name, fn in runs.items():
+        ms[name] = cuda_ms(fn)
+    busy_tt = device_busy_ms(lambda: tt.integrate_batch(tt_boxes))
+    print(f"[28 TT integrals] " + ", ".join(f"{k} {v:.3e}"
+                                            for k, v in d_tt.items())
+          + f"; zero-measure boxes exactly 0; to_slider (singleton "
+          f"partition, pivot at the centre) in {to_slider_s:.3f} s: at "
+          f"the pivot {d_pivot:.3e}, on 64 points of the lines through "
+          f"it {d_lines:.3e}; "
+          + "; ".join(f"{k} {ms[k]:.4f} ms = {NB / ms[k] * 1e3:,.0f} "
+                      f"boxes/s" for k in runs)
+          + f"; kernels busy {busy_tt:.4f} ms of the rank-15 f64 call"
+          + f" | {card}", flush=True)
+
+    # 29. Config 3's spline against its closed form, boxes that straddle
+    # the knot.
+    rng = np.random.default_rng(24)
+    sp_boxes = np.stack([
+        np.stack([rng.uniform(0.0, 1.0, NB), rng.uniform(1.0, 2.0, NB)], -1),
+        np.sort(rng.uniform(0.0, 1.0, (NB, 2)), axis=1)], axis=1)
+    sp_boxes[:64:8, 1, 1] = sp_boxes[:64:8, 1, 0]
+
+    def payoff_box(b):
+        x0 = np.maximum(b[:, 0], 1.0) - 1.0
+        return (0.5 * (x0[:, 1] ** 2 - x0[:, 0] ** 2)
+                * (np.exp(-0.1 * b[:, 1, 0]) - np.exp(-0.1 * b[:, 1, 1]))
+                / 0.1)
+
+    sp_total = spline.integrate()
+    closed = 0.5 * (1.0 - np.exp(-0.1)) / 0.1
+    d_sp_total = abs(sp_total - closed) / closed
+    sp_ib = checked(torch.from_numpy(spline.integrate_batch(sp_boxes)),
+                    (NB,), "spline integrate_batch")
+    d_sp = dev(sp_ib, payoff_box(sp_boxes))
+    check(d_sp_total <= F64_CEILING and d_sp <= F64_CEILING
+          and bool((sp_ib[:64:8] == 0).all()),
+          f"spline integrals: integrate() {d_sp_total:.3e}, boxes {d_sp:.3e}")
+    sp_ms = ms["spline integrate_batch f64, 2^17 boxes"] = cuda_ms(
+        lambda: spline.integrate_batch(sp_boxes))
+    ms["spline integrate() full"] = cuda_ms(lambda: spline.integrate())
+    print(f"[29 spline integrals, config 3] integrate() {sp_total:.15g} vs "
+          f"0.5(1 - e^-0.1)/0.1 {d_sp_total:.3e}; 2^17 boxes straddling "
+          f"the knot vs max(x0 - 1, 0) e^(-0.1 x1) integrated in closed "
+          f"form {d_sp:.3e}; zero-measure boxes exactly 0; "
+          f"integrate_batch {sp_ms:.4f} ms = {NB / sp_ms * 1e3:,.0f} "
+          f"boxes/s; integrate() {ms['spline integrate() full']:.4f} ms"
+          f" | {card}", flush=True)
+
+    # 30. Config 4's slider against its slides' additive interpolant
+    # integrated per box on the host.
+    sl_boxes = random_boxes(NB, 25, [[-1.0, 1.0]] * SLIDER_D)
+    sl_boxes[:64:8, 3, 1] = sl_boxes[:64:8, 3, 0]
+    sl_ib = checked(torch.from_numpy(slider.integrate_batch(sl_boxes)),
+                    (NB,), "slider integrate_batch")
+    x9 = nodes_for_dim_np(-1.0, 1.0, 9)
+    slide_vals = []
+    for d in range(SLIDER_D):
+        grid = np.zeros((9, SLIDER_D))
+        grid[:, d] = x9
+        slide_vals.append(basket_np(grid))
+
+    def slider_box_np(box):
+        widths = box[:, 1] - box[:, 0]
+        return sum(np.prod(np.delete(widths, d))
+                   * quad_row_np(9, -1.0, 1.0, *box[d]) @ slide_vals[d]
+                   for d in range(SLIDER_D))
+
+    d_sl = dev(sl_ib[:64], np.array([slider_box_np(b)
+                                     for b in sl_boxes[:64]]))
+    check(d_sl <= F64_CEILING and bool((sl_ib[:64:8] == 0).all()),
+          f"slider box integrals vs the host {d_sl:.3e}")
+    sl_ms = ms["slider integrate_batch f64, 2^17 boxes"] = cuda_ms(
+        lambda: slider.integrate_batch(sl_boxes))
+    print(f"[30 slider integrals, config 4] 2^17 boxes vs the additive "
+          f"interpolant integrated on the host (64 boxes) {d_sl:.3e}; "
+          f"zero-measure boxes exactly 0; integrate_batch {sl_ms:.4f} ms = "
+          f"{NB / sl_ms * 1e3:,.0f} boxes/s | {card}", flush=True)
+
+    # 31. Scenario batches along S for 4,096 (K, T, sigma, r) scenarios:
+    # breakevens where Delta = 0.5 and Gamma's extrema.
+    delta = cheb.differentiate([1, 0, 0, 0, 0])
+    delta_half = ChebyshevApproximation.from_values(
+        delta.tensor_values.cpu().numpy() - 0.5, 5, DOMAIN, [11] * 5,
+        device=DEVICE)
+    gamma = cheb.differentiate([2, 0, 0, 0, 0])
+    scen = sample_points(NS, SEED + 72)
+    fixed = {d: scen[:, d] for d in range(1, 5)}
+    roots = delta_half.roots_batch(dim=0, fixed=fixed)
+    lo_g = gamma.minimize_batch(dim=0, fixed=fixed)
+    hi_g = gamma.maximize_batch(dim=0, fixed=fixed)
+    check(len(roots) == NS and all(r.shape[0] <= 10 for r in roots)
+          and all(a.shape == (NS,) and np.isfinite(a).all()
+                  for a in (*lo_g, *hi_g)), "scenario batch shapes")
+    worst = {"roots": 0.0, "min location": 0.0, "max location": 0.0,
+             "min value": 0.0, "max value": 0.0}
+    for i in range(64):
+        pin = {d: float(scen[i, d]) for d in range(1, 5)}
+        single = delta_half.roots(dim=0, fixed=pin)
+        check(single.shape == roots[i].shape,
+              f"scenario {i}: {roots[i].size} batched roots against "
+              f"{single.size}")
+        if single.size:
+            worst["roots"] = max(worst["roots"],
+                                 float(np.abs(single - roots[i]).max()))
+        for mode, batched in (("min", lo_g), ("max", hi_g)):
+            val, loc = (gamma.minimize if mode == "min"
+                        else gamma.maximize)(dim=0, fixed=pin)
+            worst[f"{mode} location"] = max(worst[f"{mode} location"],
+                                            abs(loc - batched[1][i]))
+            worst[f"{mode} value"] = max(worst[f"{mode} value"],
+                                         abs(val - batched[0][i]))
+    g_scale = float(np.abs(hi_g[0]).max())
+    check(worst["roots"] <= ROOTS_VS_SINGLE
+          and worst["min location"] <= LOCATION_VS_SINGLE
+          and worst["max location"] <= LOCATION_VS_SINGLE
+          and worst["min value"] <= F64_CEILING * g_scale
+          and worst["max value"] <= F64_CEILING * g_scale,
+          f"scenario batches vs single calls: {worst}")
+    n_roots = sum(r.size for r in roots)
+    runs = {
+        "roots_batch (Delta = 0.5 along S), 4,096 scenarios":
+            lambda: delta_half.roots_batch(dim=0, fixed=fixed),
+        "minimize_batch (Gamma along S), 4,096 scenarios":
+            lambda: gamma.minimize_batch(dim=0, fixed=fixed),
+        "maximize_batch (Gamma along S), 4,096 scenarios":
+            lambda: gamma.maximize_batch(dim=0, fixed=fixed),
+    }
+    for name, fn in runs.items():
+        ms[name] = cuda_ms(fn)
+    cols = {d: np.ascontiguousarray(scen[:, d]) for d in range(1, 5)}
+    resample_ms = ms["scenario resampling on the card (4,096 x 11, f64)"] = \
+        cuda_ms(lambda: gamma._scenario_slice_values(0, cols, NS))
+    single_ms = host_us(lambda: gamma.maximize(
+        dim=0, fixed={d: float(scen[0, d]) for d in range(1, 5)}),
+        calls=20) / 1e3
+    print(f"[31 scenario batches] 11^5 along S: {n_roots} breakevens "
+          f"(Delta = 0.5) over {NS:,} scenarios, Gamma min and max; "
+          f"against single roots/minimize/maximize on 64 scenarios: "
+          f"root counts equal, "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (absolute on S: roots <= {ROOTS_VS_SINGLE:g}, locations <= "
+          f"{LOCATION_VS_SINGLE:g}; values <= {F64_CEILING:g} of max Gamma "
+          f"{g_scale:.4g}); "
+          + "; ".join(f"{k} {ms[k]:.4f} ms = {NS / ms[k] * 1e3:,.0f} "
+                      f"scenarios/s" for k in runs)
+          + f"; of which the resampling on the card {resample_ms:.4f} ms; "
+          f"one maximize() call {single_ms:.4f} ms | {card}",
+          flush=True)
 
 
 def main() -> None:
@@ -1336,7 +1741,10 @@ def main() -> None:
           flush=True)
 
     # 21-24. The spline and slider families.
-    k3_spline_launches = spline_and_slider(card, ms)
+    k3_spline_launches, spline, slider = spline_and_slider(card, ms)
+
+    # 25-31. Calculus and scenario batches on all four families.
+    calculus(card, ms, cheb, tt, comp, spline, slider)
 
     # Bounds on the pipes each instance runs on: f32 on the TF32 tensor
     # cores in three passes, f64 on the f64 tensor cores; the SIMT pipes'

@@ -21,6 +21,11 @@ PyTorch:
   slider) and ``MultiModelEvaluator`` (books of dense or TT models).
 - Single points are answered on the host, through the C kernels of
   ``cpp/hosteval.c`` where a C compiler is present (``utils.ceval``).
+- Calculus on all four families: ``integrate``, box integrals and
+  conditional expectations in batches (f64, f32 and "dd";
+  ``ops.integrate``), roots and 1-D optima per call or for a batch of
+  scenarios, ``extrude``/``slice``, ``ChebyshevTT.to_slider``, and
+  ``serving.integrate_book`` for a dense book.
 
 Every constructor and engine takes an explicit ``device=``; nothing here
 probes for a device or falls back to another one.

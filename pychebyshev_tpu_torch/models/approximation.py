@@ -6,7 +6,10 @@ construction with a fixed grid or auto-N (``special_points`` with knots
 returns a ``ChebyshevSpline``), single-point host evaluation, batched
 f64, f32 and near-f64 device evaluation, multi-spec batches, the error
 estimate, ``differentiate``, the algebra operators, ``from_values``,
-``to_tt``, and pickle / ``.pcb`` serialization.
+``to_tt``, pickle / ``.pcb`` serialization, ``extrude``/``slice``, and
+the calculus: ``integrate``, batched box integrals and conditional
+expectations (f64, f32, near-f64; ``ops.integrate``), and roots and 1-D
+optima, per call or for a batch of scenarios.
 
 - Grid data (nodes, barycentric weights, differentiation matrices) and
   the value tensor live on ``device`` as float64 tensors.
@@ -18,6 +21,14 @@ estimate, ``differentiate``, the algebra operators, ``from_values``,
   ``ops.fused_eval`` wherever ``supports_fused`` covers the grid, and
   the near-f64 ``eval_batch_dd`` through its f64 instance
   (``ops.fused_dd``) wherever ``supports_fused_dd`` does.
+- Root finding and 1-D optimisation solve the colleague eigenproblem on
+  the host (``utils.calculus``) over slice values computed on the
+  device.
+
+Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
+the global ``minimize``/``maximize`` (``dim=None`` on a
+multi-dimensional interpolant), ``critical_points``, ``fit``, the Sobol
+family, ``hadamard``, ``compose`` and the plots.
 """
 
 from __future__ import annotations
@@ -34,14 +45,41 @@ import torch
 from pychebyshev_tpu_torch.config import DEFAULT_DTYPE, NODE_COINCIDENCE_TOL
 from pychebyshev_tpu_torch.ops import eval as eval_ops
 from pychebyshev_tpu_torch.ops import eval_dd, fused_eval
+from pychebyshev_tpu_torch.ops import integrate as integrate_ops
+from pychebyshev_tpu_torch.ops.integrate import host_array
 from pychebyshev_tpu_torch.ops.chebyshev import (
     barycentric_weights_np,
     differentiation_matrix_np,
     nodes_for_dim_np,
 )
 from pychebyshev_tpu_torch.ops.dct import _coeff_matrix_np
+from pychebyshev_tpu_torch.ops.quadrature import (
+    fejer1_weights,
+    sub_interval_weights,
+)
 from pychebyshev_tpu_torch.utils import ceval
 from pychebyshev_tpu_torch.utils.algebra import check_compatible, is_scalar
+from pychebyshev_tpu_torch.utils.calculus import (
+    normalize_bounds,
+    normalize_bounds_batch,
+    optimize_1d,
+    optimize_1d_batch,
+    roots_1d,
+    roots_1d_batch,
+    scenario_slice_points,
+    validate_calculus_args,
+    validate_calculus_args_batch,
+    validate_partial_integrate_args_batch,
+)
+from pychebyshev_tpu_torch.utils.extrude_slice import (
+    extrude_tensor,
+    normalize_extrusion_params,
+    normalize_slicing_params,
+)
+from pychebyshev_tpu_torch.utils.unported import (
+    mark_not_ported,
+    not_ported_error,
+)
 
 __all__ = ["ChebyshevApproximation"]
 
@@ -601,6 +639,18 @@ class ChebyshevApproximation:
 
     vectorized_eval = eval
 
+    def fast_eval(self, point, derivative_order=None, *, derivative_id=None):
+        """Deprecated alias for :meth:`vectorized_eval`."""
+        derivative_order = self._resolve_derivative_args(
+            derivative_order, derivative_id)
+        warnings.warn(
+            "fast_eval() is deprecated and will be removed in a future "
+            "version. Use vectorized_eval() instead.",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return self.vectorized_eval(point, derivative_order)
+
     def eval_batch_host(self, points, derivative_order=None, *,
                         derivative_id=None) -> np.ndarray:
         """Batched evaluation computed on the host: (N, d) -> (N,).
@@ -962,27 +1012,38 @@ class ChebyshevApproximation:
     @classmethod
     def _from_grid(cls, source, tensor_values):
         """New built instance on *source*'s grid and device (the operator
-        factory).  Every tensor it holds is its own copy: torch tensors
-        change in place, so sharing the source's would let an edit of
-        one interpolant change the other."""
+        factory)."""
+        return cls._from_parts(
+            source.device, tensor_values, source.nodes, source.weights,
+            source.diff_matrices, source.domain, source.n_nodes,
+            source.max_derivative_order,
+            host_grid=getattr(source, "_host_grid", None))
+
+    @classmethod
+    def _from_parts(cls, device, tensor_values, nodes, weights, diffs,
+                    domain, n_nodes, max_derivative_order, host_grid=None):
+        """New built instance from grid parts (the factory of the
+        operators, ``extrude``, ``slice`` and partial ``integrate``).
+        Every tensor it holds is its own copy: torch tensors change in
+        place, so sharing the source's would let an edit of one
+        interpolant change the other.  ``host_grid``, host NumPy that
+        nothing edits in place, may be shared."""
         obj = object.__new__(cls)
-        obj.device = source.device
+        obj.device = device
         obj.function = None
-        obj.num_dimensions = source.num_dimensions
-        obj.domain = [list(b) for b in source.domain]
-        obj.n_nodes = list(source.n_nodes)
-        obj._original_n_nodes = list(source.n_nodes)
-        obj.max_derivative_order = source.max_derivative_order
+        obj.num_dimensions = len(n_nodes)
+        obj.domain = [list(b) for b in domain]
+        obj.n_nodes = list(n_nodes)
+        obj._original_n_nodes = list(n_nodes)
+        obj.max_derivative_order = max_derivative_order
         obj.error_threshold = None
         obj.max_n = 64
-        obj.nodes = [_private_f64(a, obj.device) for a in source.nodes]
-        obj.weights = [_private_f64(a, obj.device) for a in source.weights]
-        obj.diff_matrices = [_private_f64(a, obj.device)
-                             for a in source.diff_matrices]
-        src_grid = getattr(source, "_host_grid", None)
-        if src_grid is not None:
-            obj._host_grid = src_grid  # host NumPy, never edited in place
-        obj.tensor_values = _private_f64(tensor_values, obj.device)
+        obj.nodes = [_private_f64(a, device) for a in nodes]
+        obj.weights = [_private_f64(a, device) for a in weights]
+        obj.diff_matrices = [_private_f64(a, device) for a in diffs]
+        if host_grid is not None:
+            obj._host_grid = host_grid
+        obj.tensor_values = _private_f64(tensor_values, device)
         if isinstance(tensor_values, np.ndarray):
             obj._offer_host_tensor(tensor_values)
         obj.build_time = 0.0
@@ -996,6 +1057,289 @@ class ChebyshevApproximation:
         obj._derivative_id_registry = {}
         obj._derivative_id_to_orders = []
         return obj
+
+    def _parts(self):
+        """Mutable lists of the grid parts, for the shape-changing
+        methods."""
+        return (list(self.nodes), list(self.weights),
+                list(self.diff_matrices), [list(b) for b in self.domain],
+                list(self.n_nodes))
+
+    def _assemble(self, tensor, nodes, weights, diffs, domain, n_nodes):
+        return ChebyshevApproximation._from_parts(
+            self.device, tensor, nodes, weights, diffs, domain, n_nodes,
+            self.max_derivative_order)
+
+    # ------------------------------------------------------------------
+    # Extrusion / slicing
+    # ------------------------------------------------------------------
+
+    def extrude(self, params) -> "ChebyshevApproximation":
+        """Add constant dimensions (partition-of-unity replication)."""
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        sorted_params = normalize_extrusion_params(params,
+                                                   self.num_dimensions)
+        tensor = self.tensor_values
+        nodes, weights, diffs, domain, n_nodes = self._parts()
+        for dim_idx, (lo, hi), n in sorted_params:
+            tensor = extrude_tensor(tensor, dim_idx, n)
+            new_nodes = nodes_for_dim_np(lo, hi, int(n))
+            new_weights = barycentric_weights_np(new_nodes)
+            nodes.insert(dim_idx, new_nodes)
+            weights.insert(dim_idx, new_weights)
+            diffs.insert(dim_idx, differentiation_matrix_np(new_nodes,
+                                                            new_weights))
+            domain.insert(dim_idx, [lo, hi])
+            n_nodes.insert(dim_idx, int(n))
+        return self._assemble(tensor, nodes, weights, diffs, domain, n_nodes)
+
+    def slice(self, params) -> "ChebyshevApproximation":
+        """Fix dimensions at values, contracting the tensor
+        barycentrically (an exact index select at a node)."""
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        sorted_params = normalize_slicing_params(params, self.num_dimensions)
+        for dim_idx, value in sorted_params:
+            lo, hi = self.domain[dim_idx]
+            if value < lo or value > hi:
+                raise ValueError(
+                    f"Slice value {value} for dim {dim_idx} is outside "
+                    f"domain [{lo}, {hi}]"
+                )
+        tensor = self.tensor_values
+        nodes, weights, diffs, domain, n_nodes = self._parts()
+        for dim_idx, value in sorted_params:  # descending order
+            tensor = eval_ops.contract_dim_at_value(
+                tensor, dim_idx, nodes[dim_idx], weights[dim_idx], value)
+            for part in (nodes, weights, diffs, domain, n_nodes):
+                del part[dim_idx]
+        return self._assemble(tensor, nodes, weights, diffs, domain, n_nodes)
+
+    # ------------------------------------------------------------------
+    # Calculus
+    # ------------------------------------------------------------------
+
+    def integrate(self, dims=None, bounds=None):
+        """Fejer-1 quadrature over ``dims`` (all by default), on the
+        device: a float when every dim is integrated, else the
+        interpolant of the remaining dims.  ``bounds`` gives a
+        sub-interval (or None for the whole dim) per integrated dim."""
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        if dims is None:
+            dims = list(range(self.num_dimensions))
+        elif isinstance(dims, int):
+            dims = [dims]
+        dims = sorted(set(dims))
+        for d in dims:
+            if d < 0 or d >= self.num_dimensions:
+                raise ValueError(
+                    f"dim {d} out of range [0, {self.num_dimensions - 1}]"
+                )
+        per_dim_bounds = normalize_bounds(dims, bounds, self.domain)
+        dim_to_idx = {d: i for i, d in enumerate(dims)}
+
+        tensor = self.tensor_values
+        nodes, weights, diffs, domain, n_nodes = self._parts()
+        for d in sorted(dims, reverse=True):
+            a, b = domain[d]
+            scale = (b - a) / 2.0
+            bd = per_dim_bounds[dim_to_idx[d]]
+            if bd is None:
+                quad_w = fejer1_weights(int(n_nodes[d]))
+            else:
+                t_lo = 2.0 * (bd[0] - a) / (b - a) - 1.0
+                t_hi = 2.0 * (bd[1] - a) / (b - a) - 1.0
+                quad_w = sub_interval_weights(int(n_nodes[d]), t_lo, t_hi)
+            # quad_w * scale is a new array: the cached weights stay
+            # untouched.
+            w = torch.tensor(quad_w * scale, dtype=DEFAULT_DTYPE,
+                             device=self.device)
+            tensor = torch.tensordot(tensor, w, dims=([d], [0]))
+            for part in (nodes, weights, diffs, domain, n_nodes):
+                del part[d]
+        if not n_nodes:
+            return float(tensor)
+        return self._assemble(tensor, nodes, weights, diffs, domain, n_nodes)
+
+    def integrate_batch(self, bounds, dtype=None) -> np.ndarray:
+        """Integrals over a batch of axis-aligned boxes in one pass.
+
+        The batched-evaluation contraction with per-box sub-interval
+        quadrature rows in place of barycentric rows
+        (``ops.integrate``): bucketed expected values, bucket
+        probabilities over scenario grids, CDF tables.
+
+        Parameters
+        ----------
+        bounds : (B, d, 2) array-like: per-box, per-dim (lo, hi) inside
+            the domain.  Zero-measure dims (lo == hi) are allowed and
+            contribute an exact 0.
+        dtype : None (f64, the parity tier), ``torch.float32`` (the
+            throughput tier) or ``"dd"`` (the near-f64 tier, served in
+            native f64; grids outside ``ops.eval_dd.supports_dd`` take
+            the f64 path, as in the reference).
+
+        Returns
+        -------
+        (B,) ndarray of box integrals.
+        """
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        arr = normalize_bounds_batch(host_array(bounds), self.domain)
+        tier = integrate_ops.tier(dtype)
+        domain = np.asarray(self.domain, dtype=np.float64)
+        if tier == "dd" and eval_dd.supports_dd(self.tensor_values.shape):
+            out = integrate_ops.integrate_box_batch_dd(self.tensor_values,
+                                                       domain, arr)
+        else:
+            out = integrate_ops.integrate_box_batch(
+                self.tensor_values, domain, arr,
+                dtype=DEFAULT_DTYPE if tier == "dd" else tier)
+        return out.cpu().numpy()
+
+    def partial_integrate_batch(self, dims, bounds, points,
+                                derivative_order=None,
+                                dtype=None) -> np.ndarray:
+        """Batched conditional expectations: integrate over per-scenario
+        boxes on ``dims``, evaluate at per-scenario coordinates on the
+        rest, in one pass.
+
+        Equivalent to ``self.integrate(dims, bounds=bounds[b])
+        .vectorized_eval(points[b], derivative_order)`` for every
+        scenario b, without B intermediate objects: quadrature rows on
+        ``dims``, (derivative-folded) barycentric rows on the rest.
+
+        Parameters
+        ----------
+        dims : int or sequence: dims to integrate (at least one).
+        bounds : (B, len(dims), 2) per-scenario boxes, columns in sorted
+            ``dims`` order, inside those dims' domain.
+        points : (B, d - len(dims)) coordinates for the remaining dims
+            in ascending dim order.
+        derivative_order : per-REMAINING-dim orders (ascending dim
+            order), or None.
+        dtype : None (f64), ``torch.float32`` or ``"dd"`` (native f64,
+            with the reference's fallback outside its plan).
+
+        Returns
+        -------
+        (B,) ndarray.
+        """
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        dims, arr, remaining, pts, rem_orders = \
+            validate_partial_integrate_args_batch(
+                self.num_dimensions, self.domain, dims, host_array(bounds),
+                host_array(points), derivative_order,
+                max_order=self.max_derivative_order)
+        full_orders = [0] * self.num_dimensions
+        for k, o in zip(remaining, rem_orders):
+            full_orders[k] = o
+        tier = integrate_ops.tier(dtype)
+        nodes, weights, diffs = self._grid_tuples()
+        args = (self.tensor_values, np.asarray(self.domain, np.float64),
+                nodes, weights, diffs, tuple(dims), arr, pts)
+        if tier == "dd" and eval_dd.supports_dd(self.tensor_values.shape):
+            out = integrate_ops.partial_integrate_eval_batch_dd(
+                *args, orders=tuple(full_orders))
+        else:
+            out = integrate_ops.partial_integrate_eval_batch(
+                *args, orders=tuple(full_orders),
+                dtype=DEFAULT_DTYPE if tier == "dd" else tier)
+        return out.cpu().numpy()
+
+    def _host_1d(self):
+        """(values, nodes, weights, diff matrix) of a 1-D interpolant as
+        host NumPy."""
+        return tuple(a.detach().cpu().numpy() for a in (
+            self.tensor_values, self.nodes[0], self.weights[0],
+            self.diff_matrices[0]))
+
+    def roots(self, dim=None, fixed=None) -> np.ndarray:
+        """Roots along one dimension (others fixed): the slice's
+        colleague matrix, on the host."""
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        dim, slice_params = validate_calculus_args(
+            self.num_dimensions, dim, fixed, self.domain)
+        sliced = self.slice(slice_params) if slice_params else self
+        return roots_1d(sliced._host_1d()[0], sliced.domain[0])
+
+    def minimize(self, dim=None, fixed=None, *, tol=1e-9,
+                 max_boxes=5000, polish=True):
+        """Minimum along ``dim`` with every other dim pinned by
+        ``fixed``: ``(value, location)`` floats.  On a 1-D interpolant
+        ``dim`` may be omitted.  The global form (``dim=None`` on a
+        multi-dimensional interpolant, which ``tol``, ``max_boxes`` and
+        ``polish`` steer) is not ported yet and raises
+        ``NotImplementedError``."""
+        return self._optimize(dim, fixed, "min")
+
+    def maximize(self, dim=None, fixed=None, *, tol=1e-9,
+                 max_boxes=5000, polish=True):
+        """Maximum along ``dim``: see :meth:`minimize`."""
+        return self._optimize(dim, fixed, "max")
+
+    def _optimize(self, dim, fixed, mode):
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        if dim is None and self.num_dimensions > 1:
+            raise not_ported_error(type(self).__name__, f"{mode}imize",
+                                   "with dim=None (the global form)")
+        dim, slice_params = validate_calculus_args(
+            self.num_dimensions, dim, fixed, self.domain)
+        sliced = self.slice(slice_params) if slice_params else self
+        return optimize_1d(*sliced._host_1d(), sliced.domain[0], mode=mode)
+
+    def _scenario_slice_values(self, dim, fixed_cols, batch):
+        """(B, n) values of the 1-D slice along *dim* for B scenarios:
+        one f64 batched evaluation at the dim's own nodes on the device
+        (exact: a polynomial resampled at its Type-I nodes), then to the
+        host."""
+        pts = scenario_slice_points(
+            self.num_dimensions, dim, fixed_cols, batch,
+            self._nodes_np()[dim])
+        vals = self.eval_batch_device(pts).cpu().numpy()
+        return vals.reshape(batch, -1)
+
+    def roots_batch(self, dim=None, fixed=None) -> list:
+        """Roots along *dim* for a batch of scenarios.
+
+        ``fixed`` maps every other dim to a scalar or a (B,) array of
+        scenario values; returns a list of B sorted root arrays.  One
+        batched resampling on the device plus one stacked colleague
+        eigensolve on the host replace B ``roots()`` calls: exercise
+        boundaries and breakevens across scenario grids.
+        """
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        dim, cols, batch = validate_calculus_args_batch(
+            self.num_dimensions, dim, fixed, self.domain)
+        vals = self._scenario_slice_values(dim, cols, batch)
+        return roots_1d_batch(vals, self.domain[dim])
+
+    def minimize_batch(self, dim=None, fixed=None):
+        """Batched :meth:`minimize`: ((B,) min values, (B,) locations)
+        for scenario arrays in ``fixed``."""
+        return self._optimize_batch(dim, fixed, "min")
+
+    def maximize_batch(self, dim=None, fixed=None):
+        """Batched :meth:`maximize`: ((B,) max values, (B,) locations)
+        for scenario arrays in ``fixed``."""
+        return self._optimize_batch(dim, fixed, "max")
+
+    def _optimize_batch(self, dim, fixed, mode):
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        dim, cols, batch = validate_calculus_args_batch(
+            self.num_dimensions, dim, fixed, self.domain)
+        vals = self._scenario_slice_values(dim, cols, batch)
+        nodes, weights, diff = (a.detach().cpu().numpy() for a in (
+            self.nodes[dim], self.weights[dim], self.diff_matrices[dim]))
+        return optimize_1d_batch(vals, nodes, weights, diff,
+                                 self.domain[dim], mode=mode)
 
     # ------------------------------------------------------------------
     # Arithmetic operators
@@ -1147,6 +1491,24 @@ class ChebyshevApproximation:
             )
         obj._move_to(device)
         return obj
+
+    @staticmethod
+    def peek_format_version(filename: str) -> int:
+        """Major format version from a .pcb header."""
+        from pychebyshev_tpu_torch.utils.binary import peek_format_version
+        return peek_format_version(filename)
+
+    @classmethod
+    def get_optimal_n1(cls, function, domain_1d, error_threshold,
+                       max_n: int = 64, *, device) -> int:
+        """Smallest N hitting ``error_threshold`` on a 1-D build (the
+        auto-N doubling loop, built on ``device``)."""
+        lo, hi = domain_1d
+        cheb = cls(function, 1, [[lo, hi]],
+                   error_threshold=error_threshold, max_n=max_n,
+                   device=device)
+        cheb._build_with_threshold(verbose=False)
+        return int(cheb.n_nodes[0])
 
     def _move_to(self, device) -> None:
         """Move the grid and value tensors to ``device`` (a restored
@@ -1327,3 +1689,41 @@ class ChebyshevApproximation:
         return (f"ChebyshevApproximation(dims={self.num_dimensions}, "
                 f"n_nodes={self.n_nodes}, built={built}, "
                 f"device={self.device})")
+
+    def __str__(self) -> str:
+        built = self.tensor_values is not None
+        has_none = any(n is None for n in self.n_nodes)
+        total_nodes_str = ("auto" if has_none
+                           else f"{int(np.prod(self.n_nodes)):,}")
+        status = "built" if built else "not built"
+
+        max_display = 6
+        if self.num_dimensions > max_display:
+            nodes_str = ("[" + ", ".join(str(n)
+                         for n in self.n_nodes[:max_display]) + ", ...]")
+            domain_str = (" x ".join(f"[{lo}, {hi}]" for lo, hi
+                          in self.domain[:max_display]) + " x ...")
+        else:
+            nodes_str = str(self.n_nodes)
+            domain_str = " x ".join(f"[{lo}, {hi}]"
+                                    for lo, hi in self.domain)
+
+        lines = [
+            f"ChebyshevApproximation ({self.num_dimensions}D, {status})",
+            f"  Nodes:       {nodes_str} ({total_nodes_str} total)",
+            f"  Domain:      {domain_str}",
+            f"  Device:      {self.device}",
+        ]
+        if built:
+            lines.append(f"  Build:       {self.build_time:.3f}s, "
+                         f"{self.n_evaluations:,} evaluations")
+            lines.append(f"  Error est:   {self.error_estimate():.2e}")
+        lines.append(f"  Derivatives: up to order {self.max_derivative_order}")
+        return "\n".join(lines)
+
+
+mark_not_ported(ChebyshevApproximation, (
+    "critical_points", "sobol_indices", "interaction_matrix",
+    "suggest_partition", "hadamard", "compose", "plot_1d",
+    "plot_2d_surface", "plot_2d_contour", "plot_convergence"),
+    classmethods=("fit",))

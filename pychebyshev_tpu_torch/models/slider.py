@@ -19,9 +19,14 @@ Batched results: ``eval_batch_device`` and ``eval_batch_dd`` return
 tensors on the device; ``eval_batch`` and the ``vectorized_*`` spellings
 return NumPy arrays.
 
+- Calculus follows the additive decomposition: ``integrate`` in closed
+  form, batched integrals and conditional expectations one dense batch
+  per slide, roots and 1-D optima on resampled slices.
+
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``fit``, ``extrude``/``slice``, integration, root finding and
-optimisation, the Sobol family, the plots, and ``save(format="npz")``.
+``fit``, the global ``minimize``/``maximize`` (``dim=None``),
+``critical_points``, the Sobol family, the plots, and
+``save(format="npz")``.
 """
 
 from __future__ import annotations
@@ -37,8 +42,26 @@ import torch
 
 from pychebyshev_tpu_torch.models.approximation import ChebyshevApproximation
 from pychebyshev_tpu_torch.ops import eval_dd, slider_eval
+from pychebyshev_tpu_torch.ops.chebyshev import nodes_for_dim_np
+from pychebyshev_tpu_torch.ops.integrate import host_array
 from pychebyshev_tpu_torch.utils.algebra import check_compatible, is_scalar
-from pychebyshev_tpu_torch.utils.unported import mark_not_ported
+from pychebyshev_tpu_torch.utils.calculus import (
+    normalize_bounds,
+    optimize_resampled_batch,
+    roots_1d_batch,
+    scenario_slice_points,
+    validate_calculus_args,
+    validate_calculus_args_batch,
+    validate_partial_integrate_args_batch,
+)
+from pychebyshev_tpu_torch.utils.extrude_slice import (
+    normalize_extrusion_params,
+    normalize_slicing_params,
+)
+from pychebyshev_tpu_torch.utils.unported import (
+    mark_not_ported,
+    not_ported_error,
+)
 
 __all__ = ["ChebyshevSlider"]
 
@@ -667,6 +690,396 @@ class ChebyshevSlider:
         return obj
 
     # ------------------------------------------------------------------
+    # Extrude / slice
+    # ------------------------------------------------------------------
+
+    def extrude(self, params) -> "ChebyshevSlider":
+        """Each new dim becomes a 1-dim slide whose tensor is constant at
+        the pivot value (contributes 0 to the sliding sum); existing
+        group indices are remapped."""
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        sorted_params = normalize_extrusion_params(params,
+                                                   self.num_dimensions)
+        domain = [list(b) for b in self.domain]
+        n_nodes = list(self.n_nodes)
+        pivot_point = list(self.pivot_point)
+        partition = [list(g) for g in self.partition]
+        slides = list(self.slides)
+        for dim_idx, (lo, hi), n in sorted_params:
+            for group in partition:
+                for i in range(len(group)):
+                    if group[i] >= dim_idx:
+                        group[i] += 1
+            slides.append(ChebyshevApproximation.from_values(
+                np.full(n, self.pivot_value), 1, [[lo, hi]], [n],
+                max_derivative_order=self.max_derivative_order,
+                device=self.device))
+            partition.append([dim_idx])
+            domain.insert(dim_idx, [lo, hi])
+            n_nodes.insert(dim_idx, n)
+            pivot_point.insert(dim_idx, 0.5 * (lo + hi))
+        return ChebyshevSlider._assemble(
+            num_dimensions=self.num_dimensions + len(sorted_params),
+            domain=domain, n_nodes=n_nodes, partition=partition,
+            pivot_point=pivot_point, slides=slides,
+            pivot_value=self.pivot_value,
+            max_derivative_order=self.max_derivative_order,
+            device=self.device)
+
+    def slice(self, params) -> "ChebyshevSlider":
+        """Fix dims at values.
+
+        Multi-dim groups slice the slide's tensor; a single-dim group's
+        value is absorbed as a delta into the pivot value and every other
+        slide's tensor, and the group disappears.
+        """
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        sorted_params = normalize_slicing_params(params, self.num_dimensions)
+        for dim_idx, value in sorted_params:
+            lo, hi = self.domain[dim_idx]
+            if value < lo or value > hi:
+                raise ValueError(
+                    f"Slice value {value} for dim {dim_idx} is outside "
+                    f"domain [{lo}, {hi}]"
+                )
+        domain = [list(b) for b in self.domain]
+        n_nodes = list(self.n_nodes)
+        pivot_point = list(self.pivot_point)
+        partition = [list(g) for g in self.partition]
+        slides = list(self.slides)
+        pivot_value = self.pivot_value
+        for dim_idx, value in sorted_params:  # descending
+            slide_idx = next(si for si, group in enumerate(partition)
+                             if dim_idx in group)
+            group = partition[slide_idx]
+            if len(group) > 1:
+                slides[slide_idx] = slides[slide_idx].slice(
+                    (group.index(dim_idx), value))
+                group.remove(dim_idx)
+            else:
+                s_val = slides[slide_idx].vectorized_eval([value], [0])
+                delta = s_val - pivot_value
+                for i in range(len(slides)):
+                    if i != slide_idx:
+                        slides[i] = ChebyshevApproximation._from_grid(
+                            slides[i], slides[i].tensor_values + delta)
+                pivot_value = s_val
+                del partition[slide_idx]
+                del slides[slide_idx]
+            for g in partition:
+                for i in range(len(g)):
+                    if g[i] > dim_idx:
+                        g[i] -= 1
+            del domain[dim_idx]
+            del n_nodes[dim_idx]
+            del pivot_point[dim_idx]
+        return ChebyshevSlider._assemble(
+            num_dimensions=self.num_dimensions - len(sorted_params),
+            domain=domain, n_nodes=n_nodes, partition=partition,
+            pivot_point=pivot_point, slides=slides,
+            pivot_value=pivot_value,
+            max_derivative_order=self.max_derivative_order,
+            device=self.device)
+
+    # ------------------------------------------------------------------
+    # Integration
+    # ------------------------------------------------------------------
+
+    def integrate(self, dims=None, bounds=None):
+        """Closed-form integration of the sliding sum.
+
+        With ``F = p + sum_i (s_i - p)`` and integration set ``T`` of
+        measure ``V = prod_{d in T} m_d``, each additive term integrates
+        independently::
+
+            int_T F = p*V + sum_i  V/vol_in(G_i) * (R_i - p*vol_in(G_i))
+
+        where ``vol_in(G_i)`` is the measure of the group's dims that lie
+        in ``T`` and ``R_i`` is the slide reduced over those dims (a
+        scalar when the whole group is integrated, a lower-dim tensor
+        otherwise).  Scalar terms fold into the new pivot constant;
+        tensor terms become the surviving slides, re-centred so the
+        sliding identity holds for the new pivot.
+        """
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        if dims is None:
+            integ_dims = list(range(self.num_dimensions))
+        elif isinstance(dims, int):
+            integ_dims = [dims]
+        else:
+            integ_dims = sorted(set(dims))
+        for d in integ_dims:
+            if d < 0 or d >= self.num_dimensions:
+                raise ValueError(
+                    f"dim {d} out-of-range [0, {self.num_dimensions - 1}]"
+                )
+        integ_set = frozenset(integ_dims)
+
+        # Per-dim measure of the integration range; 1.0 off the set, so
+        # products over arbitrary dim subsets are plain slicing.
+        range_by_dim = dict(zip(integ_dims,
+                                normalize_bounds(integ_dims, bounds,
+                                                 self.domain)))
+        measure = np.ones(self.num_dimensions)
+        for d in integ_dims:
+            lo, hi = range_by_dim[d] or self.domain[d]
+            measure[d] = hi - lo
+        total_vol = float(np.prod(measure[integ_dims]))
+
+        def reduce_slide(slide, group):
+            """The slide integrated over its in-set local dims, and the
+            measure of those dims."""
+            local = [i for i, d in enumerate(group) if d in integ_set]
+            sub = [range_by_dim[group[i]] for i in local]
+            if any(b is not None for b in sub):
+                reduced = slide.integrate(dims=local, bounds=sub)
+            else:
+                reduced = slide.integrate(dims=local)
+            return reduced, float(np.prod(measure[
+                [group[i] for i in local]]))
+
+        # One pass: scalars accumulate into the pivot constant, tensors
+        # become surviving slides (recorded before re-centring, since the
+        # final constant is known only when the pass completes).
+        const = self.pivot_value * total_vol
+        survivors = []  # (scaled tensor values, template, kept global dims)
+        for group, slide in zip(self.partition, self.slides):
+            n_in = sum(d in integ_set for d in group)
+            if n_in == len(group):
+                full_val, inner_vol = reduce_slide(slide, group)
+                const += (total_vol / inner_vol) * (
+                    float(full_val) - self.pivot_value * inner_vol)
+            elif n_in == 0:
+                survivors.append((total_vol * slide.tensor_values,
+                                  slide, list(group)))
+            else:
+                part, inner_vol = reduce_slide(slide, group)
+                survivors.append(((total_vol / inner_vol)
+                                  * part.tensor_values, part,
+                                  [d for d in group if d not in integ_set]))
+
+        if len(integ_dims) == self.num_dimensions:
+            return float(const)
+        if not survivors:
+            raise RuntimeError(
+                "internal error: surviving dims but every group was "
+                "integrated away")
+
+        # Renumber surviving global dims: d -> d minus integrated dims
+        # below it.
+        removed_below = np.cumsum(
+            [1 if d in integ_set else 0 for d in
+             range(self.num_dimensions)])
+        remap = [d - int(removed_below[d])
+                 for d in range(self.num_dimensions)]
+        kept_dims = [d for d in range(self.num_dimensions)
+                     if d not in integ_set]
+
+        # Re-centre: F' = const + sum_j (h_j - p*V)  ==>  slide'_j =
+        # h_j + (const - p*V), pivot' = const.
+        recentre = const - self.pivot_value * total_vol
+        return ChebyshevSlider._assemble(
+            num_dimensions=len(kept_dims),
+            domain=[list(self.domain[d]) for d in kept_dims],
+            n_nodes=[self.n_nodes[d] for d in kept_dims],
+            partition=[[remap[d] for d in kept] for _, _, kept in survivors],
+            pivot_point=[self.pivot_point[d] for d in kept_dims],
+            slides=[ChebyshevApproximation._from_grid(tmpl, vals + recentre)
+                    for vals, tmpl, _ in survivors],
+            pivot_value=const,
+            max_derivative_order=self.max_derivative_order,
+            device=self.device, descriptor=self.descriptor,
+            additional_data=self.additional_data)
+
+    def integrate_batch(self, bounds, dtype=None) -> np.ndarray:
+        """Integrals over a batch of axis-aligned boxes, one dense
+        batched integral per slide.
+
+        The additive decomposition integrates term by term,
+
+            int_box F = p*V*(1 - m) + sum_i V / V_{G_i} * int_{box_{G_i}} s_i
+
+        with V the box measure, V_{G_i} the measure of the box restricted
+        to group i, and each slide's restricted integral a dense
+        :meth:`ChebyshevApproximation.integrate_batch` over all B boxes.
+        Zero-measure boxes integrate to an exact 0.  ``bounds``:
+        (B, d, 2); ``dtype`` as in the dense class.  Returns (B,).
+        """
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        # Full-box integration is the no-remaining-dims case of the
+        # conditional-expectation decomposition (which needs no 0/0
+        # masking: off-group measures multiply instead of dividing).
+        bounds = np.asarray(host_array(bounds), dtype=np.float64)
+        return self.partial_integrate_batch(
+            list(range(self.num_dimensions)), bounds,
+            np.zeros((bounds.shape[0] if bounds.ndim else 0, 0)),
+            dtype=dtype)
+
+    def partial_integrate_batch(self, dims, bounds, points,
+                                derivative_order=None,
+                                dtype=None) -> np.ndarray:
+        """Batched conditional expectations through the additive
+        decomposition.
+
+        With box measure ``V`` over the integrated ``dims`` and
+        ``V_{S\\G_i}`` the measure over integrated dims OUTSIDE group i,
+
+            int_box f(., pts) = p*V*(1 - m)
+                                + sum_i V_{S\\G_i} * M_i(b)
+
+        where ``M_i`` integrates slide i over its in-box group dims and
+        evaluates its remaining group dims at the scenario coordinates
+        (a dense :meth:`partial_integrate_batch` / ``eval_batch``).
+        Derivatives on remaining dims route to the owning slide; a mixed
+        partial across groups is exactly 0.
+
+        ``bounds``: (B, len(dims), 2) in sorted ``dims`` order;
+        ``points``: (B, d - len(dims)) ascending remaining-dim order;
+        ``derivative_order``: per-remaining-dim orders or None.
+        Returns (B,).
+        """
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        dims, arr, remaining, pts, rem_orders = \
+            validate_partial_integrate_args_batch(
+                self.num_dimensions, self.domain, dims, host_array(bounds),
+                host_array(points), derivative_order,
+                max_order=self.max_derivative_order)
+        int_set = set(dims)
+        col_of = {k: i for i, k in enumerate(dims)}
+        pcol_of = {k: i for i, k in enumerate(remaining)}
+        order_of = {k: int(o) for k, o in zip(remaining, rem_orders)}
+        widths = arr[..., 1] - arr[..., 0]
+        vol = np.prod(widths, axis=1)
+        n_rows = arr.shape[0]
+
+        deriv_dims = {k for k, o in order_of.items() if o}
+        if deriv_dims:
+            owners = {self._dim_to_slide[k] for k in deriv_dims}
+            if len(owners) > 1:
+                # Cross-group mixed partials of an additive sum vanish.
+                return np.zeros(n_rows)
+            slide_ids = [owners.pop()]
+            total = np.zeros(n_rows)
+        else:
+            slide_ids = list(range(len(self.slides)))
+            total = self.pivot_value * vol * (1.0 - len(self.slides))
+
+        for i in slide_ids:
+            group = self.partition[i]
+            slide = self.slides[i]
+            g_int = [j for j, k in enumerate(group) if k in int_set]
+            g_eval = [j for j, k in enumerate(group) if k not in int_set]
+            off_cols = [col_of[k] for k in dims if k not in set(group)]
+            v_off = (np.prod(widths[:, off_cols], axis=1)
+                     if off_cols else np.ones(n_rows))
+            sub_pts = pts[:, [pcol_of[group[j]] for j in g_eval]]
+            sub_orders = [order_of[group[j]] for j in g_eval]
+            if g_int:
+                sub_bounds = arr[:, [col_of[group[j]] for j in g_int], :]
+                part = slide.partial_integrate_batch(
+                    g_int, sub_bounds, sub_pts,
+                    derivative_order=sub_orders, dtype=dtype)
+            else:
+                part = slide.vectorized_eval_batch(sub_pts, sub_orders)
+            total = total + v_off * part
+        return total
+
+    # ------------------------------------------------------------------
+    # 1-D reduction + roots / optimization
+    # ------------------------------------------------------------------
+
+    def _to_1d_chebyshev(self, sliced_1d: "ChebyshevSlider"):
+        """Resample a 1-D slider at its Chebyshev nodes into a dense 1-D
+        approximation on this device."""
+        assert sliced_1d.num_dimensions == 1
+        n = sliced_1d.n_nodes[0]
+        a, b = sliced_1d.domain[0]
+        cheb_nodes = nodes_for_dim_np(a, b, int(n))
+        values = sliced_1d.eval_batch(cheb_nodes[:, None])
+        return ChebyshevApproximation.from_values(
+            values, num_dimensions=1, domain=[(float(a), float(b))],
+            n_nodes=[int(n)], device=self.device)
+
+    def _sliced_1d(self, dim, fixed):
+        dim, slice_params = validate_calculus_args(
+            self.num_dimensions, dim, fixed, self.domain)
+        return self._to_1d_chebyshev(
+            self.slice(slice_params) if slice_params else self)
+
+    def roots(self, dim=None, fixed=None):
+        """Roots along *dim*: slice to 1-D, resample, colleague matrix."""
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        return self._sliced_1d(dim, fixed).roots()
+
+    def minimize(self, dim=None, fixed=None, *, tol=1e-9,
+                 max_boxes=5000, polish=True):
+        """Minimum along ``dim`` with every other dim pinned by
+        ``fixed``: ``(value, location)`` floats.  The global form
+        (``dim=None`` on a multi-dimensional slider, which ``tol``,
+        ``max_boxes`` and ``polish`` steer) is not ported yet and raises
+        ``NotImplementedError``."""
+        return self._optimize(dim, fixed, "min")
+
+    def maximize(self, dim=None, fixed=None, *, tol=1e-9,
+                 max_boxes=5000, polish=True):
+        """Maximum along ``dim``: see :meth:`minimize`."""
+        return self._optimize(dim, fixed, "max")
+
+    def _optimize(self, dim, fixed, mode):
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        if dim is None and self.num_dimensions > 1:
+            raise not_ported_error(type(self).__name__, f"{mode}imize",
+                                   "with dim=None (the global form)")
+        one_d = self._sliced_1d(dim, fixed)
+        return one_d.minimize() if mode == "min" else one_d.maximize()
+
+    def _scenario_slice_values(self, dim, fixed_cols, batch):
+        """(B, n) slice values along *dim*: one batched evaluation at the
+        dim's own nodes (exact: the sliding sum is a polynomial in
+        *dim*), then to the host."""
+        lo, hi = self.domain[dim]
+        n = int(self.n_nodes[dim])
+        nodes = nodes_for_dim_np(float(lo), float(hi), n)
+        pts = scenario_slice_points(
+            self.num_dimensions, dim, fixed_cols, batch, nodes)
+        vals = self.eval_batch(pts)
+        return vals.reshape(batch, n), nodes, (float(lo), float(hi))
+
+    def roots_batch(self, dim=None, fixed=None) -> list:
+        """Roots along *dim* for a batch of scenarios (scalar or (B,)
+        arrays in ``fixed``): a list of B sorted root arrays; one
+        batched evaluation plus one stacked colleague eigensolve."""
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        dim, cols, batch = validate_calculus_args_batch(
+            self.num_dimensions, dim, fixed, self.domain)
+        vals, _, dom = self._scenario_slice_values(dim, cols, batch)
+        return roots_1d_batch(vals, dom)
+
+    def minimize_batch(self, dim=None, fixed=None):
+        """Batched :meth:`minimize`: ((B,) values, (B,) locations)."""
+        return self._optimize_batch(dim, fixed, "min")
+
+    def maximize_batch(self, dim=None, fixed=None):
+        """Batched :meth:`maximize`: ((B,) values, (B,) locations)."""
+        return self._optimize_batch(dim, fixed, "max")
+
+    def _optimize_batch(self, dim, fixed, mode):
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        dim, cols, batch = validate_calculus_args_batch(
+            self.num_dimensions, dim, fixed, self.domain)
+        vals, nodes, dom = self._scenario_slice_values(dim, cols, batch)
+        return optimize_resampled_batch(vals, nodes, dom, mode)
+
+    # ------------------------------------------------------------------
     # Algebra
     # ------------------------------------------------------------------
 
@@ -807,8 +1220,6 @@ class ChebyshevSlider:
 
 
 mark_not_ported(ChebyshevSlider, (
-    "extrude", "slice", "integrate", "integrate_batch",
-    "partial_integrate_batch", "roots", "minimize", "maximize",
-    "critical_points", "roots_batch", "minimize_batch", "maximize_batch",
-    "sobol_indices", "interaction_matrix", "suggest_partition", "plot_1d",
-    "plot_2d_surface", "plot_2d_contour"), classmethods=("fit",))
+    "critical_points", "sobol_indices", "interaction_matrix",
+    "suggest_partition", "plot_1d", "plot_2d_surface", "plot_2d_contour"),
+    classmethods=("fit",))

@@ -18,10 +18,14 @@ Batched results: ``eval_batch_device`` and ``eval_batch_dd`` return
 tensors on the device; ``eval_batch`` and the ``vectorized_*`` spellings
 return NumPy arrays.
 
+Calculus runs piece by piece through the dense class: integrals clip
+every box to every piece, conditional expectations route the remaining
+dims as batches do, roots and 1-D optima merge the pieces' answers.
+
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``fit``, ``extrude``/``slice``, integration, root finding and
-optimisation, the Sobol family, ``compose``, ``hadamard``, the plots,
-and ``save(format="npz")``.
+``fit``, the global ``minimize``/``maximize`` (``dim=None``),
+``critical_points``, the Sobol family, ``compose``, ``hadamard``, the
+plots, and ``save(format="npz")``.
 """
 
 from __future__ import annotations
@@ -42,10 +46,43 @@ from pychebyshev_tpu_torch.models.approximation import (
     _private_f64,
 )
 from pychebyshev_tpu_torch.ops import spline_eval
+from pychebyshev_tpu_torch.ops.chebyshev import nodes_for_dim_np
+from pychebyshev_tpu_torch.ops.integrate import host_array
 from pychebyshev_tpu_torch.utils.algebra import check_compatible, is_scalar
-from pychebyshev_tpu_torch.utils.unported import mark_not_ported
+from pychebyshev_tpu_torch.utils.calculus import (
+    normalize_bounds,
+    optimize_1d,
+    optimize_resampled_batch,
+    roots_1d,
+    roots_1d_batch,
+    scenario_slice_points,
+    validate_calculus_args,
+    validate_calculus_args_batch,
+    validate_partial_integrate_args_batch,
+)
+from pychebyshev_tpu_torch.utils.extrude_slice import (
+    normalize_extrusion_params,
+    normalize_slicing_params,
+)
+from pychebyshev_tpu_torch.utils.unported import (
+    mark_not_ported,
+    not_ported_error,
+)
 
 __all__ = ["ChebyshevSpline", "is_nested_n_nodes"]
+
+
+def _merged_roots(chunks, domain) -> np.ndarray:
+    """Sorted roots of the pieces, neighbours closer than 1e-10 of the
+    dim's scale collapsed (a root on a knot is found by both pieces)."""
+    if not chunks:
+        return np.array([], dtype=float)
+    combined = np.sort(np.concatenate(chunks))
+    if len(combined) > 1:
+        scale = abs(domain[1] - domain[0]) + 1
+        combined = combined[np.concatenate(
+            [[True], np.diff(combined) > 1e-10 * scale])]
+    return combined
 
 
 def is_nested_n_nodes(n_nodes) -> bool:
@@ -795,6 +832,363 @@ class ChebyshevSpline:
         return ChebyshevSpline._from_pieces(
             self, [piece.differentiate(orders) for piece in self._pieces])
 
+    def _piece_grid(self) -> np.ndarray:
+        """The pieces as an object array of the piece-grid shape."""
+        grid = np.empty(len(self._pieces), dtype=object)
+        grid[:] = self._pieces
+        return grid.reshape(self._shape)
+
+    def _reshaped(self, pieces, domain, n_nodes, knots) -> "ChebyshevSpline":
+        """New spline of ``pieces`` on a changed grid (extrude, slice,
+        partial integrate)."""
+        return ChebyshevSpline._assemble(
+            num_dimensions=len(domain), domain=domain, n_nodes=n_nodes,
+            knots=knots, pieces=list(pieces),
+            max_derivative_order=self.max_derivative_order,
+            device=self.device)
+
+    # ------------------------------------------------------------------
+    # Extrusion / slicing
+    # ------------------------------------------------------------------
+
+    def extrude(self, params) -> "ChebyshevSpline":
+        """Add constant dims (each piece extruded; new dim has no knots)."""
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        sorted_params = normalize_extrusion_params(params,
+                                                   self.num_dimensions)
+        knots = [list(k) for k in self.knots]
+        domain = [list(b) for b in self.domain]
+        n_nodes = list(self.n_nodes)
+        for dim_idx, (lo, hi), n in sorted_params:
+            knots.insert(dim_idx, [])
+            domain.insert(dim_idx, [lo, hi])
+            n_nodes.insert(dim_idx, [n] if self._n_nodes_nested else n)
+        pieces = []
+        for piece in self._pieces:
+            for dim_idx, bounds, n in sorted_params:
+                piece = piece.extrude((dim_idx, bounds, n))
+            pieces.append(piece)
+        return self._reshaped(pieces, domain, n_nodes, knots)
+
+    def slice(self, params) -> "ChebyshevSpline":
+        """Fix dims at values; only the containing pieces survive per dim
+        (a value on a knot takes the right piece)."""
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        sorted_params = normalize_slicing_params(params, self.num_dimensions)
+        for dim_idx, value in sorted_params:
+            lo, hi = self.domain[dim_idx]
+            if value < lo or value > hi:
+                raise ValueError(
+                    f"Slice value {value} for dim {dim_idx} is outside "
+                    f"domain [{lo}, {hi}]"
+                )
+        knots = [list(k) for k in self.knots]
+        shape = list(self._shape)
+        domain = [list(b) for b in self.domain]
+        n_nodes = list(self.n_nodes)
+        pieces_arr = self._piece_grid()
+        for dim_idx, value in sorted_params:  # descending
+            interval_idx = 0
+            if knots[dim_idx]:
+                interval_idx = min(int(np.searchsorted(
+                    knots[dim_idx], value, side="right")),
+                    shape[dim_idx] - 1)
+            pieces_arr = np.take(pieces_arr, interval_idx, axis=dim_idx)
+            flat = pieces_arr.ravel()
+            for i in range(len(flat)):
+                flat[i] = flat[i].slice((dim_idx, value))
+            pieces_arr = flat.reshape(pieces_arr.shape)
+            for part in (knots, shape, domain, n_nodes):
+                del part[dim_idx]
+        return self._reshaped(pieces_arr.ravel(), domain, n_nodes, knots)
+
+    # ------------------------------------------------------------------
+    # Calculus
+    # ------------------------------------------------------------------
+
+    def integrate(self, dims=None, bounds=None):
+        """Sum of piece integrals (full) or piece-summed lower-dim spline
+        (partial), with per-piece clipped sub-bounds."""
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        if dims is None:
+            dims = list(range(self.num_dimensions))
+        elif isinstance(dims, int):
+            dims = [dims]
+        dims = sorted(set(dims))
+        for d in dims:
+            if d < 0 or d >= self.num_dimensions:
+                raise ValueError(
+                    f"dim {d} out of range [0, {self.num_dimensions - 1}]"
+                )
+        per_dim_bounds = normalize_bounds(dims, bounds, self.domain)
+        dim_to_idx = {d: i for i, d in enumerate(dims)}
+
+        def _clip(bd, piece_lo, piece_hi):
+            """Overlap of bounds with a piece interval: (skip,
+            bounds_or_None); bounds within 1e-14 of the piece's own
+            interval integrate the whole piece."""
+            if bd is None:
+                return False, None
+            overlap_lo = max(bd[0], piece_lo)
+            overlap_hi = min(bd[1], piece_hi)
+            if overlap_lo >= overlap_hi:
+                return True, None
+            if (abs(overlap_lo - piece_lo) < 1e-14
+                    and abs(overlap_hi - piece_hi) < 1e-14):
+                return False, None
+            return False, (overlap_lo, overlap_hi)
+
+        pieces_arr = self._piece_grid()
+        if len(dims) == self.num_dimensions:
+            total = 0.0
+            for idx in np.ndindex(*self._shape):
+                piece_bounds = []
+                for d in range(self.num_dimensions):
+                    skip, pb = _clip(per_dim_bounds[dim_to_idx[d]],
+                                     *self._intervals[d][idx[d]])
+                    if skip:
+                        break
+                    piece_bounds.append(pb)
+                else:
+                    piece = pieces_arr[idx]
+                    if all(b is None for b in piece_bounds):
+                        total += piece.integrate()
+                    else:
+                        total += piece.integrate(bounds=piece_bounds)
+            return total
+
+        # Partial: integrate each piece along d, sum the pieces along
+        # that axis of the piece grid.
+        knots = [list(k) for k in self.knots]
+        intervals = [list(iv) for iv in self._intervals]
+        domain = [list(b) for b in self.domain]
+        n_nodes = list(self.n_nodes)
+        for d in sorted(dims, reverse=True):
+            bd = per_dim_bounds[dim_to_idx[d]]
+
+            def _integrate_line(dim_pieces):
+                integrated = []
+                for piece_idx, p in enumerate(dim_pieces):
+                    skip, pb = _clip(bd, *intervals[d][piece_idx])
+                    if skip:
+                        continue
+                    if pb is None:
+                        integrated.append(p.integrate(dims=[d]))
+                    else:
+                        integrated.append(p.integrate(dims=[d], bounds=[pb]))
+                if not integrated:
+                    integrated.append(dim_pieces[0].integrate(dims=[d]) * 0.0)
+                result = integrated[0]
+                for other in integrated[1:]:
+                    result = result + other
+                return result
+
+            new_shape = [n for i, n in enumerate(pieces_arr.shape) if i != d]
+            new_pieces = np.empty(new_shape, dtype=object)
+            for idx in np.ndindex(*new_shape):
+                line = list(idx)
+                line.insert(d, slice(None))
+                new_pieces[idx] = _integrate_line(
+                    list(pieces_arr[tuple(line)].ravel()))
+            pieces_arr = new_pieces
+            for part in (knots, intervals, domain, n_nodes):
+                del part[d]
+        return self._reshaped(pieces_arr.ravel(), domain, n_nodes, knots)
+
+    def integrate_batch(self, bounds, dtype=None) -> np.ndarray:
+        """Integrals over a batch of axis-aligned boxes: every piece
+        clips all B boxes to its sub-box at once (disjoint dims clamp to
+        zero measure, which integrates to an exact 0) and runs a dense
+        :meth:`ChebyshevApproximation.integrate_batch` over the whole
+        batch; piece contributions sum.  Boxes may straddle knots.
+
+        ``bounds``: (B, d, 2) per-box, per-dim (lo, hi) inside the
+        domain; ``dtype`` as in the dense class.  Returns (B,).
+        """
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        # Full-box integration is the no-remaining-dims case of the
+        # conditional-expectation path.
+        bounds = np.asarray(host_array(bounds), dtype=np.float64)
+        return self.partial_integrate_batch(
+            list(range(self.num_dimensions)), bounds,
+            np.zeros((bounds.shape[0] if bounds.ndim else 0, 0)),
+            dtype=dtype)
+
+    def partial_integrate_batch(self, dims, bounds, points,
+                                derivative_order=None,
+                                dtype=None) -> np.ndarray:
+        """Batched conditional expectations across pieces.
+
+        Integrated ``dims`` clip every scenario box to every piece (as
+        in :meth:`integrate_batch`); remaining dims route each scenario
+        to its piece, in f64 on the device as :meth:`eval_batch` does (a
+        point on a knot belongs to the right piece, derivatives
+        included); each piece runs a dense
+        :meth:`~ChebyshevApproximation.partial_integrate_batch` over the
+        whole batch and contributes only to its routed scenarios.
+
+        ``bounds``: (B, len(dims), 2) in sorted ``dims`` order;
+        ``points``: (B, d - len(dims)) ascending remaining-dim order;
+        ``derivative_order``: per-remaining-dim orders or None.
+        Returns (B,).
+        """
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        dims, arr, remaining, pts, rem_orders = \
+            validate_partial_integrate_args_batch(
+                self.num_dimensions, self.domain, dims, host_array(bounds),
+                host_array(points), derivative_order,
+                max_order=self.max_derivative_order)
+        col_of = {k: i for i, k in enumerate(dims)}
+        strides = spline_eval.piece_strides([len(k) for k in self.knots])
+        routed = [k for k in remaining if self.knots[k]]
+        # One device pass and one read: the remaining dims' share of each
+        # scenario's flat piece index.
+        route = np.zeros(arr.shape[0], dtype=np.int64)
+        if routed and arr.shape[0]:
+            route = spline_eval.route_piece_indices(
+                [self.knots[k] for k in routed],
+                [strides[k] for k in routed],
+                self._points_on_device(pts[:, [remaining.index(k)
+                                               for k in routed]])
+            ).cpu().numpy()
+        total = np.zeros(arr.shape[0], dtype=np.float64)
+        pieces_arr = self._piece_grid()
+        for idx in np.ndindex(*self._shape):
+            mask = route == sum(idx[k] * strides[k] for k in routed)
+            if not mask.any():
+                continue
+            lo = arr[..., 0].copy()
+            hi = arr[..., 1].copy()
+            for k in dims:
+                p_lo, p_hi = self._intervals[k][idx[k]]
+                lo[:, col_of[k]] = np.clip(lo[:, col_of[k]], p_lo, p_hi)
+                hi[:, col_of[k]] = np.clip(hi[:, col_of[k]], p_lo, p_hi)
+            hi = np.maximum(hi, lo)
+            if not ((hi > lo).all(axis=1) & mask).any():
+                continue
+            vals = pieces_arr[idx].partial_integrate_batch(
+                dims, np.stack([lo, hi], axis=-1), pts,
+                derivative_order=rem_orders, dtype=dtype)
+            total += np.where(mask, vals, 0.0)
+        return total
+
+    def _points_on_device(self, pts: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(pts, dtype=np.float64),
+                               device=self.device)
+
+    def roots(self, dim=None, fixed=None) -> np.ndarray:
+        """Merged and deduplicated roots across the pieces of the 1-D
+        slice."""
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        dim, slice_params = validate_calculus_args(
+            self.num_dimensions, dim, fixed, self.domain)
+        sliced = self.slice(slice_params) if slice_params else self
+        all_roots = [roots_1d(p._host_1d()[0], p.domain[0])
+                     for p in sliced._pieces]
+        return _merged_roots(all_roots, self.domain[dim])
+
+    def minimize(self, dim=None, fixed=None, *, tol=1e-9,
+                 max_boxes=5000, polish=True):
+        """Minimum along ``dim`` with every other dim pinned by
+        ``fixed``, the best over the slice's pieces: ``(value,
+        location)`` floats.  The global form (``dim=None`` on a
+        multi-dimensional spline, which ``tol``, ``max_boxes`` and
+        ``polish`` steer) is not ported yet and raises
+        ``NotImplementedError``."""
+        return self._optimize(dim, fixed, "min")
+
+    def maximize(self, dim=None, fixed=None, *, tol=1e-9,
+                 max_boxes=5000, polish=True):
+        """Maximum along ``dim``: see :meth:`minimize`."""
+        return self._optimize(dim, fixed, "max")
+
+    def _optimize(self, dim, fixed, mode):
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        if dim is None and self.num_dimensions > 1:
+            raise not_ported_error(type(self).__name__, f"{mode}imize",
+                                   "with dim=None (the global form)")
+        dim, slice_params = validate_calculus_args(
+            self.num_dimensions, dim, fixed, self.domain)
+        sliced = self.slice(slice_params) if slice_params else self
+        sign = 1.0 if mode == "min" else -1.0
+        best_val, best_loc = sign * float("inf"), 0.0
+        for p in sliced._pieces:
+            val, loc = optimize_1d(*p._host_1d(), p.domain[0], mode=mode)
+            if sign * val < sign * best_val:
+                best_val, best_loc = val, loc
+        return best_val, best_loc
+
+    def _scenario_interval_values(self, dim, fixed_cols, batch):
+        """Per dim-interval (B, n) slice resamples for batched calculus.
+
+        Yields ``(values, nodes, interval)`` per interval of *dim*: the
+        slice along *dim* is piecewise-polynomial with breaks at the
+        dim's knots, so each interval resamples at its own Type-I nodes
+        (n = the most nodes among the interval's pieces: resampling a
+        lower-degree piece at more nodes stays exact, which also covers
+        nested per-piece grids).  One batched evaluation per interval
+        routes every scenario to its piece on the device.
+        """
+        pieces_arr = self._piece_grid()
+        for k, (lo, hi) in enumerate(self._intervals[dim]):
+            in_interval = np.take(pieces_arr, k, axis=dim).ravel()
+            n = max(int(p.n_nodes[dim]) for p in in_interval)
+            nodes = nodes_for_dim_np(float(lo), float(hi), n)
+            pts = scenario_slice_points(
+                self.num_dimensions, dim, fixed_cols, batch, nodes)
+            vals = self.eval_batch(pts, [0] * self.num_dimensions)
+            yield vals.reshape(batch, n), nodes, (float(lo), float(hi))
+
+    def roots_batch(self, dim=None, fixed=None) -> list:
+        """Roots along *dim* for a batch of scenarios (scalar or (B,)
+        arrays in ``fixed``): a list of B sorted root arrays, merged and
+        deduplicated across the dim's intervals as in :meth:`roots`."""
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        dim, cols, batch = validate_calculus_args_batch(
+            self.num_dimensions, dim, fixed, self.domain)
+        per_row = [[] for _ in range(batch)]
+        for vals, _, interval in self._scenario_interval_values(
+                dim, cols, batch):
+            for b, r in enumerate(roots_1d_batch(vals, interval)):
+                per_row[b].append(r)
+        return [_merged_roots(chunks, self.domain[dim])
+                for chunks in per_row]
+
+    def minimize_batch(self, dim=None, fixed=None):
+        """Batched :meth:`minimize`: ((B,) values, (B,) locations), best
+        across the dim's intervals per scenario."""
+        return self._optimize_batch(dim, fixed, "min")
+
+    def maximize_batch(self, dim=None, fixed=None):
+        """Batched :meth:`maximize`: ((B,) values, (B,) locations), best
+        across the dim's intervals per scenario."""
+        return self._optimize_batch(dim, fixed, "max")
+
+    def _optimize_batch(self, dim, fixed, mode):
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        dim, cols, batch = validate_calculus_args_batch(
+            self.num_dimensions, dim, fixed, self.domain)
+        best_val = best_loc = None
+        for vals, nodes, interval in self._scenario_interval_values(
+                dim, cols, batch):
+            v, loc = optimize_resampled_batch(vals, nodes, interval, mode)
+            if best_val is None:
+                best_val, best_loc = v, loc
+            else:
+                take = v < best_val if mode == "min" else v > best_val
+                best_val = np.where(take, v, best_val)
+                best_loc = np.where(take, loc, best_loc)
+        return best_val, best_loc
+
     # ------------------------------------------------------------------
     # Arithmetic operators
     # ------------------------------------------------------------------
@@ -989,8 +1383,6 @@ class ChebyshevSpline:
 
 
 mark_not_ported(ChebyshevSpline, (
-    "extrude", "slice", "integrate", "integrate_batch",
-    "partial_integrate_batch", "roots", "minimize", "maximize",
-    "critical_points", "roots_batch", "minimize_batch", "maximize_batch",
-    "sobol_indices", "interaction_matrix", "suggest_partition", "compose",
-    "hadamard", "plot_1d", "plot_2d_surface", "plot_2d_contour"), classmethods=("fit",))
+    "critical_points", "sobol_indices", "interaction_matrix",
+    "suggest_partition", "compose", "hadamard", "plot_1d",
+    "plot_2d_surface", "plot_2d_contour"), classmethods=("fit",))

@@ -20,9 +20,15 @@ race-free by construction.
 Batched results: ``eval_batch`` and ``eval_batch_dd`` return tensors on
 the device; the ``vectorized_*`` spellings return NumPy arrays.
 
+Calculus: ``integrate`` and ``extrude``/``slice`` work on the host
+cores; ``integrate_batch`` and ``partial_integrate_batch`` run the chain
+with moment rows on the device (``ops.integrate``); roots and 1-D optima
+resample slices on the device and solve on the host; ``to_slider``
+slices through the pivot.
+
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-integration, root finding and optimisation, ``to_slider``,
-``extrude``/``slice``, ``run_completion``, ``fit``, the Sobol family,
+the global ``minimize``/``maximize`` (``dim=None``),
+``critical_points``, ``run_completion``, ``fit``, the Sobol family,
 ``hadamard``, ``compose``, the plots, and ``save(format="npz")``.
 """
 
@@ -37,17 +43,41 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from pychebyshev_tpu_torch.config import NODE_COINCIDENCE_TOL
 from pychebyshev_tpu_torch.models import tt_algorithms as tta
+from pychebyshev_tpu_torch.ops import integrate as integrate_ops
 from pychebyshev_tpu_torch.ops import tt_eval_dd
 from pychebyshev_tpu_torch.ops.chebyshev import (
     barycentric_weights_np,
     differentiation_matrix_np,
     nodes_for_dim_np,
 )
+from pychebyshev_tpu_torch.ops.integrate import host_array
+from pychebyshev_tpu_torch.ops.quadrature import (
+    fejer1_weights,
+    sub_interval_weights,
+)
 from pychebyshev_tpu_torch.ops.tt_eval import tt_eval_batch
 from pychebyshev_tpu_torch.utils import ceval
 from pychebyshev_tpu_torch.utils.algebra import is_scalar
-from pychebyshev_tpu_torch.utils.unported import mark_not_ported
+from pychebyshev_tpu_torch.utils.calculus import (
+    normalize_bounds,
+    normalize_bounds_batch,
+    optimize_resampled_batch,
+    roots_1d_batch,
+    scenario_slice_points,
+    validate_calculus_args,
+    validate_calculus_args_batch,
+    validate_partial_integrate_args_batch,
+)
+from pychebyshev_tpu_torch.utils.extrude_slice import (
+    normalize_extrusion_params,
+    normalize_slicing_params,
+)
+from pychebyshev_tpu_torch.utils.unported import (
+    mark_not_ported,
+    not_ported_error,
+)
 
 __all__ = ["ChebyshevTT"]
 
@@ -323,6 +353,446 @@ class ChebyshevTT:
                 inv[orig_dim] = storage_pos
             result = np.transpose(result, axes=inv)
         return result
+
+    def integrate(self, dims=None, bounds=None):
+        """Fejer-1 quadrature contraction through the value cores (host
+        NumPy).
+
+        Full integration chains the contracted (r_l, r_r) matrices to a
+        scalar; partial integration absorbs pending matrices into the
+        next kept core.  ``dims``/``bounds`` are user-frame.
+        """
+        self._check_built()
+        if dims is None:
+            dims_sorted = list(range(self.num_dimensions))
+        elif isinstance(dims, int):
+            dims_sorted = [dims]
+        else:
+            dims_sorted = sorted(set(dims))
+
+        if any(d < 0 or d >= self.num_dimensions for d in dims_sorted):
+            raise ValueError(
+                f"dims contains out-of-range index "
+                f"(num_dimensions={self.num_dimensions}, dims={dims_sorted})"
+            )
+
+        storage_for = {d: self._dim_order.index(d) for d in dims_sorted}
+        integrated_storage = sorted(storage_for.values())
+        integrated_set = set(integrated_storage)
+
+        bounds_storage_dims = [storage_for[d] for d in dims_sorted]
+        normalized = normalize_bounds(
+            bounds_storage_dims, bounds, self.domain,
+            dim_labels=dims_sorted)
+
+        # Quadrature weights per storage position (physical scaling
+        # baked in; the products are new arrays, the cache stays).
+        weights_per_storage = {}
+        for sp, bd in zip(bounds_storage_dims, normalized):
+            n = self.n_nodes[sp]
+            a, b = self.domain[sp]
+            scale = (b - a) / 2.0
+            if bd is None:
+                weights_per_storage[sp] = fejer1_weights(n) * scale
+            else:
+                t_lo = 2.0 * (bd[0] - a) / (b - a) - 1.0
+                t_hi = 2.0 * (bd[1] - a) / (b - a) - 1.0
+                weights_per_storage[sp] = (
+                    sub_interval_weights(n, t_lo, t_hi) * scale)
+
+        contracted = {}
+        for sp in integrated_storage:
+            val_core = tta.coeff_core_to_value_core(self._coeff_cores[sp])
+            contracted[sp] = np.einsum("rjs,j->rs", val_core,
+                                       weights_per_storage[sp])
+
+        if len(dims_sorted) == self.num_dimensions:
+            result = contracted[integrated_storage[0]]
+            for sp in integrated_storage[1:]:
+                result = result @ contracted[sp]
+            return float(result.ravel()[0])
+
+        # Partial: absorb pending products into the next kept core.
+        new_cores = []
+        pending = None
+        for k in range(self.num_dimensions):
+            if k in integrated_set:
+                m = contracted[k]
+                pending = m if pending is None else pending @ m
+                continue
+            core = self._coeff_cores[k].copy()
+            if pending is not None:
+                core = np.einsum("lr,rjs->ljs", pending, core)
+                pending = None
+            new_cores.append(core)
+        if pending is not None and new_cores:
+            new_cores[-1] = np.einsum("ljs,sr->ljr", new_cores[-1], pending)
+
+        kept = [sp for sp in range(self.num_dimensions)
+                if sp not in integrated_set]
+        return self._assemble(
+            cores=new_cores,
+            domain=[self.domain[sp] for sp in kept],
+            n_nodes=[self.n_nodes[sp] for sp in kept],
+            dim_order=self._renumbered([self._dim_order[sp] for sp in kept],
+                                       set(dims_sorted)),
+        )
+
+    def _renumbered(self, live_dims, removed) -> List[int]:
+        """Surviving user dims renumbered ascending (removed dims out)."""
+        new_index = {}
+        for orig_d in range(self.num_dimensions):
+            if orig_d not in removed:
+                new_index[orig_d] = len(new_index)
+        return [new_index[d] for d in live_dims]
+
+    def _storage_boxes(self, bounds) -> np.ndarray:
+        """Validated user-frame (B, d, 2) boxes, columns permuted into
+        the storage frame."""
+        arr = normalize_bounds_batch(host_array(bounds),
+                                     self._user_frame_domain())
+        if self._dim_order != list(range(self.num_dimensions)):
+            arr = arr[:, self._dim_order, :]
+        return arr
+
+    def integrate_batch(self, bounds, dtype=None) -> np.ndarray:
+        """Integrals over a batch of axis-aligned boxes in one pass.
+
+        The coefficient-core rank chain runs with Chebyshev moment rows
+        instead of polynomial rows (``ops.integrate.
+        tt_integrate_box_batch``), on the device.
+
+        Parameters
+        ----------
+        bounds : (B, d, 2) array-like: per-box, per-dim (lo, hi) in the
+            USER frame, inside the domain.  Zero-measure dims integrate
+            to an exact 0.
+        dtype : None (f64), ``torch.float32``, or ``"dd"`` (native f64
+            on the ``groups="auto"`` chain; chains outside the
+            reference's dd plan take the f64 path).
+
+        Returns
+        -------
+        (B,) ndarray of box integrals.
+        """
+        self._check_built()
+        arr = self._storage_boxes(bounds)
+        tier = integrate_ops.tier(dtype)
+        domain = np.asarray(self.domain, dtype=np.float64)
+        if tier == "dd":
+            cores = self._cores_on_device(torch.float64)
+            if tt_eval_dd.tt_supports_dd([c.shape for c in cores]):
+                return integrate_ops.tt_integrate_box_batch_dd(
+                    cores, domain, arr, groups="auto").cpu().numpy()
+            tier = torch.float64
+        return integrate_ops.tt_integrate_box_batch(
+            self._cores_on_device(tier), domain, arr,
+            dtype=tier).cpu().numpy()
+
+    def partial_integrate_batch(self, dims, bounds, points,
+                                dtype=None) -> np.ndarray:
+        """Batched conditional expectations (user frame): integrate over
+        per-scenario boxes on ``dims``, evaluate the remaining dims at
+        per-scenario coordinates, in one rank chain (moment rows on
+        integrated dims, polynomial rows elsewhere; value only).
+
+        ``bounds``: (B, len(dims), 2) in sorted user-``dims`` order;
+        ``points``: (B, d - len(dims)) in ascending remaining user-dim
+        order.  ``dtype`` as in :meth:`integrate_batch`.  Returns (B,).
+        """
+        self._check_built()
+        dims, arr, remaining, pts, _ = \
+            validate_partial_integrate_args_batch(
+                self.num_dimensions, self._user_frame_domain(), dims,
+                host_array(bounds), host_array(points))
+
+        # User -> storage frame: the chain's int_dims are storage
+        # positions; its bounds/points columns follow storage order.
+        storage_int = sorted(self._dim_order.index(k) for k in dims)
+        arr_cols = [dims.index(self._dim_order[sp]) for sp in storage_int]
+        storage_rem = [sp for sp in range(self.num_dimensions)
+                       if sp not in set(storage_int)]
+        pts_cols = [remaining.index(self._dim_order[sp])
+                    for sp in storage_rem]
+        args = (np.asarray(self.domain, dtype=np.float64),
+                tuple(storage_int), arr[:, arr_cols, :], pts[:, pts_cols])
+        tier = integrate_ops.tier(dtype)
+        if tier == "dd":
+            cores = self._cores_on_device(torch.float64)
+            if tt_eval_dd.tt_supports_dd([c.shape for c in cores]):
+                return integrate_ops.tt_partial_integrate_eval_batch_dd(
+                    cores, *args, groups="auto").cpu().numpy()
+            tier = torch.float64
+        return integrate_ops.tt_partial_integrate_eval_batch(
+            self._cores_on_device(tier), *args, dtype=tier).cpu().numpy()
+
+    def _to_1d_chebyshev(self, sliced_1d: "ChebyshevTT"):
+        """1-D dense ChebyshevApproximation (on this device) from a 1-D
+        TT."""
+        from pychebyshev_tpu_torch.models.approximation import (
+            ChebyshevApproximation,
+        )
+        assert sliced_1d.num_dimensions == 1
+        values = np.asarray(sliced_1d.to_dense(), dtype=float).reshape(-1)
+        a, b = sliced_1d.domain[0]
+        return ChebyshevApproximation.from_values(
+            values, num_dimensions=1, domain=[(float(a), float(b))],
+            n_nodes=[int(sliced_1d.n_nodes[0])], device=self.device)
+
+    def _sliced_1d(self, dim, fixed) -> "ChebyshevTT":
+        dim, slice_params = validate_calculus_args(
+            self.num_dimensions, dim, fixed, self._user_frame_domain())
+        return self._to_1d_chebyshev(
+            self.slice(slice_params) if slice_params else self)
+
+    def roots(self, dim=None, fixed=None):
+        """Roots along *dim* (user frame): slice to 1-D, resample dense,
+        colleague-matrix root finding."""
+        self._check_built()
+        return self._sliced_1d(dim, fixed).roots()
+
+    def minimize(self, dim=None, fixed=None, *, tol=1e-9,
+                 max_boxes=50000, polish=True):
+        """Minimum along the user-frame ``dim`` with every other dim
+        pinned by ``fixed``: ``(value, location)`` floats.  The global
+        form (``dim=None`` on a multi-dimensional TT, which ``tol``,
+        ``max_boxes`` and ``polish`` steer) is not ported yet and
+        raises ``NotImplementedError``."""
+        return self._optimize(dim, fixed, "min")
+
+    def maximize(self, dim=None, fixed=None, *, tol=1e-9,
+                 max_boxes=50000, polish=True):
+        """Maximum along ``dim``: see :meth:`minimize`."""
+        return self._optimize(dim, fixed, "max")
+
+    def _optimize(self, dim, fixed, mode):
+        self._check_built()
+        if dim is None and self.num_dimensions > 1:
+            raise not_ported_error(type(self).__name__, f"{mode}imize",
+                                   "with dim=None (the global form)")
+        one_d = self._sliced_1d(dim, fixed)
+        return one_d.minimize() if mode == "min" else one_d.maximize()
+
+    def _scenario_slice_values(self, dim, fixed_cols, batch):
+        """(B, n) slice values along user-frame *dim*: one batched f64
+        chain at the dim's own nodes on the device (exact), then to the
+        host."""
+        lo, hi = self._user_frame_domain()[dim]
+        n = int(self.n_nodes[self._dim_order.index(dim)])
+        nodes = nodes_for_dim_np(float(lo), float(hi), n)
+        pts = scenario_slice_points(
+            self.num_dimensions, dim, fixed_cols, batch, nodes)
+        vals = self.eval_batch(pts).cpu().numpy()
+        return vals.reshape(batch, n), nodes, (float(lo), float(hi))
+
+    def roots_batch(self, dim=None, fixed=None) -> list:
+        """Roots along user-frame *dim* for a batch of scenarios (scalar
+        or (B,) arrays in ``fixed``): a list of B sorted root arrays;
+        one batched chain plus one stacked colleague eigensolve."""
+        self._check_built()
+        dim, cols, batch = validate_calculus_args_batch(
+            self.num_dimensions, dim, fixed, self._user_frame_domain())
+        vals, _, dom = self._scenario_slice_values(dim, cols, batch)
+        return roots_1d_batch(vals, dom)
+
+    def minimize_batch(self, dim=None, fixed=None):
+        """Batched :meth:`minimize`: ((B,) values, (B,) locations)."""
+        return self._optimize_batch(dim, fixed, "min")
+
+    def maximize_batch(self, dim=None, fixed=None):
+        """Batched :meth:`maximize`: ((B,) values, (B,) locations)."""
+        return self._optimize_batch(dim, fixed, "max")
+
+    def _optimize_batch(self, dim, fixed, mode):
+        self._check_built()
+        dim, cols, batch = validate_calculus_args_batch(
+            self.num_dimensions, dim, fixed, self._user_frame_domain())
+        vals, nodes, dom = self._scenario_slice_values(dim, cols, batch)
+        return optimize_resampled_batch(vals, nodes, dom, mode)
+
+    def to_slider(self, partition, pivot_point):
+        """Additive (sliding-technique) projection of this TT, with zero
+        function evaluations.
+
+        Builds ``f(z) + sum_g [f|_{off-group dims at z}(x_g) - f(z)]``
+        from the TT: every slide is an exact TT ``slice`` at the pivot,
+        densified over its few group dims.  Exact to the TT's own
+        accuracy when f is additive across ``partition``; otherwise the
+        sliding-technique approximation.  The inverse direction of
+        :meth:`ChebyshevSlider.to_tt`; the slider lives on this TT's
+        device.
+        """
+        self._check_built()
+        from pychebyshev_tpu_torch.models.approximation import (
+            ChebyshevApproximation,
+        )
+        from pychebyshev_tpu_torch.models.slider import ChebyshevSlider
+
+        groups_in = [list(g) for g in partition]
+        if any(len(g) == 0 for g in groups_in):
+            raise ValueError("Partition groups must be non-empty")
+        if any(int(d) != d for g in groups_in for d in g):
+            raise ValueError(
+                f"Partition dims must be integers; got {groups_in}")
+        partition = [[int(d) for d in g] for g in groups_in]
+        covered = sorted(d for g in partition for d in g)
+        if covered != list(range(self.num_dimensions)):
+            raise ValueError(
+                f"Partition must cover all dimensions "
+                f"0..{self.num_dimensions - 1} exactly once. "
+                f"Got dimensions: {covered}"
+            )
+        pivot_point = [float(v) for v in pivot_point]
+        if len(pivot_point) != self.num_dimensions:
+            raise ValueError(
+                f"pivot_point length {len(pivot_point)} does not match "
+                f"num_dimensions {self.num_dimensions}"
+            )
+        user_domain = self._user_frame_domain()
+        user_n = [self.n_nodes[self._dim_order.index(u)]
+                  for u in range(self.num_dimensions)]
+        for d, v in enumerate(pivot_point):
+            lo, hi = user_domain[d]
+            if v < lo or v > hi:
+                raise ValueError(
+                    f"pivot_point[{d}] = {v} is outside the domain "
+                    f"[{lo}, {hi}]"
+                )
+
+        pivot_value = float(self.eval(pivot_point))
+        slides = []
+        for group in partition:
+            off = [(d, pivot_point[d]) for d in range(self.num_dimensions)
+                   if d not in group]
+            sub = self.slice(off) if off else self
+            # slice renumbers survivors ascending; reorder the dense
+            # axes to the group's listed order.
+            values = sub.to_dense()
+            ascending = sorted(group)
+            perm = [ascending.index(d) for d in group]
+            if perm != list(range(len(group))):
+                values = np.transpose(values, axes=perm)
+            slides.append(ChebyshevApproximation.from_values(
+                values, len(group), [user_domain[d] for d in group],
+                [user_n[d] for d in group],
+                max_derivative_order=self.max_derivative_order,
+                device=self.device))
+
+        return ChebyshevSlider._assemble(
+            num_dimensions=self.num_dimensions, domain=user_domain,
+            n_nodes=user_n, partition=partition,
+            pivot_point=pivot_point, slides=slides,
+            pivot_value=pivot_value,
+            max_derivative_order=self.max_derivative_order,
+            device=self.device, descriptor=self.descriptor,
+            additional_data=self.additional_data)
+
+    # ------------------------------------------------------------------
+    # Extrude / slice
+    # ------------------------------------------------------------------
+
+    def extrude(self, params) -> "ChebyshevTT":
+        """Insert rank-preserving constant cores for the new dims.
+
+        In coefficient space the constant function 1 has only c0 = 1, so
+        the inserted core is ``core[i, 0, i] = 1``.
+        """
+        self._check_built()
+        norm_params = normalize_extrusion_params(params, self.num_dimensions)
+        identity = self._dim_order == list(range(self.num_dimensions))
+
+        new_cores = list(self._coeff_cores)
+        new_domain = list(self.domain)
+        new_n_nodes = list(self.n_nodes)
+        new_dim_order = list(self._dim_order)
+
+        def _insert_constant_core(cores, pos, n_new):
+            if pos == 0 or pos == len(cores):
+                r_at = 1
+            else:
+                r_at = cores[pos - 1].shape[2]
+            core = np.zeros((r_at, n_new, r_at))
+            core[:, 0, :] = np.eye(r_at)
+            return cores[:pos] + [core] + cores[pos:]
+
+        for dim_idx, (lo, hi), n_new in sorted(norm_params,
+                                               key=lambda p: p[0]):
+            if identity:
+                new_cores = _insert_constant_core(new_cores, dim_idx, n_new)
+                new_domain.insert(dim_idx, [lo, hi])
+                new_n_nodes.insert(dim_idx, n_new)
+                new_dim_order = list(range(len(new_cores)))
+            else:
+                storage_pos = len(new_cores)
+                new_cores = _insert_constant_core(new_cores, storage_pos,
+                                                  n_new)
+                new_domain.append([lo, hi])
+                new_n_nodes.append(n_new)
+                new_dim_order = [d if d < dim_idx else d + 1
+                                 for d in new_dim_order]
+                new_dim_order.append(dim_idx)
+
+        return self._assemble(new_cores, new_domain, new_n_nodes,
+                              new_dim_order)
+
+    def slice(self, params) -> "ChebyshevTT":
+        """Contract cores at fixed values (barycentric row in value
+        space, absorbed into a neighbor core).  ``params`` is
+        user-frame."""
+        self._check_built()
+        norm_params = normalize_slicing_params(params, self.num_dimensions)
+
+        # Validate values in user frame against storage-frame domains.
+        for dim_idx, value in norm_params:
+            storage_pos = self._dim_order.index(dim_idx)
+            lo, hi = self.domain[storage_pos]
+            if value < lo or value > hi:
+                raise ValueError(
+                    f"Slice value {value} for dim {dim_idx} is outside "
+                    f"domain [{lo}, {hi}]"
+                )
+
+        new_cores = list(self._coeff_cores)
+        new_domain = list(self.domain)
+        new_n_nodes = list(self.n_nodes)
+        live_dim_order = list(self._dim_order)
+
+        translated = [(live_dim_order.index(dim_idx), value)
+                      for dim_idx, value in norm_params]
+        for storage_pos, value in sorted(translated, key=lambda t: -t[0]):
+            lo, hi = new_domain[storage_pos]
+            nodes = nodes_for_dim_np(lo, hi, new_n_nodes[storage_pos])
+            value_core = tta.coeff_core_to_value_core(
+                new_cores[storage_pos])
+
+            diff = value - nodes
+            exact_idx = int(np.argmin(np.abs(diff)))
+            if np.abs(diff[exact_idx]) < NODE_COINCIDENCE_TOL:
+                m = value_core[:, exact_idx, :]
+            else:
+                w = barycentric_weights_np(nodes)
+                w_over_diff = w / diff
+                w_norm = w_over_diff / np.sum(w_over_diff)
+                m = np.einsum("rjs,j->rs", value_core, w_norm)
+
+            if storage_pos < len(new_cores) - 1:
+                new_cores[storage_pos + 1] = np.einsum(
+                    "lr,rjs->ljs", m, new_cores[storage_pos + 1])
+            else:
+                new_cores[storage_pos - 1] = np.einsum(
+                    "ijs,sr->ijr", new_cores[storage_pos - 1], m)
+            del new_cores[storage_pos]
+            new_domain.pop(storage_pos)
+            new_n_nodes.pop(storage_pos)
+            live_dim_order.pop(storage_pos)
+
+        if len(new_cores) == 0:
+            raise RuntimeError("internal error: cannot slice all dimensions")
+
+        return self._assemble(
+            new_cores, new_domain, new_n_nodes,
+            self._renumbered(live_dim_order,
+                             {dim_idx for dim_idx, _ in norm_params}))
 
     def _assemble(self, cores, domain, n_nodes, dim_order,
                   max_rank=None) -> "ChebyshevTT":
@@ -1284,9 +1754,6 @@ class ChebyshevTT:
 
 
 mark_not_ported(ChebyshevTT, (
-    "integrate", "integrate_batch", "partial_integrate_batch", "roots",
-    "minimize", "maximize", "critical_points", "roots_batch",
-    "minimize_batch", "maximize_batch", "to_slider", "extrude", "slice",
-    "run_completion", "sobol_indices", "interaction_matrix",
+    "critical_points", "run_completion", "sobol_indices", "interaction_matrix",
     "suggest_partition", "hadamard", "compose", "plot_1d", "plot_2d_surface",
     "plot_2d_contour"), classmethods=("fit",))

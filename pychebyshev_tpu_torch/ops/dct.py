@@ -1,6 +1,6 @@
 """Chebyshev value <-> coefficient transforms as explicit cosine matrices
-(the error estimate's transform, and the tensor-train cores' in both
-directions).
+(the error estimate's transform, the tensor-train cores' in both
+directions, and the DCT-III behind the quadrature weights).
 
 One constant matrix per n and direction bakes in the reference
 convention (reverse to descending node order, DCT-II, divide by n, halve
@@ -13,7 +13,7 @@ import functools
 
 import numpy as np
 
-__all__ = ["_coeff_matrix_np", "_synthesis_matrix_np"]
+__all__ = ["_coeff_matrix_np", "_synthesis_matrix_np", "_dct3_matrix_np"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,3 +46,16 @@ def _synthesis_matrix_np(n: int) -> np.ndarray:
     theta = (2.0 * (n - 1 - i) + 1.0) * np.pi / (2.0 * n)
     k = np.arange(n, dtype=np.float64)
     return np.ascontiguousarray(np.cos(theta[:, None] * k[None, :]))
+
+
+@functools.lru_cache(maxsize=None)
+def _dct3_matrix_np(n: int) -> np.ndarray:
+    """Unnormalized SciPy DCT-III as a matrix (used by Fejer weights).
+
+    ``y[j] = x[0] + 2 * sum_{k>=1} x[k] cos(pi k (2j+1) / (2n))``.
+    """
+    j = np.arange(n, dtype=np.float64)[:, None]
+    k = np.arange(n, dtype=np.float64)[None, :]
+    mat = 2.0 * np.cos(np.pi * k * (2.0 * j + 1.0) / (2.0 * n))
+    mat[:, 0] = 1.0
+    return np.ascontiguousarray(mat)

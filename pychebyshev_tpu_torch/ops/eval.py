@@ -34,6 +34,7 @@ __all__ = [
     "eval_batch",
     "eval_batch_models",
     "eval_batch_multi",
+    "contract_dim_at_value",
 ]
 
 
@@ -191,6 +192,19 @@ def eval_batch_models(tensors: Tuple[torch.Tensor, ...],
           for t in tensors]
     return _contract_batched(ts, _coeff_fn(nodes, weights, ts[0].dtype),
                              points)
+
+
+def contract_dim_at_value(tensor: torch.Tensor, axis: int,
+                          nodes: torch.Tensor, weights: torch.Tensor,
+                          value) -> torch.Tensor:
+    """Contract one tensor axis at a fixed coordinate (the slice
+    operation): the barycentric row at ``value`` (one-hot, hence an exact
+    index select, at a node within 1e-14) and a tensordot."""
+    x = torch.tensor([float(value)], dtype=tensor.dtype,
+                     device=tensor.device)
+    row = barycentric_coefficients(x, nodes.to(tensor.dtype),
+                                   weights.to(tensor.dtype))[0]
+    return torch.tensordot(tensor, row, dims=([axis], [0]))
 
 
 def eval_batch_multi(tensor: torch.Tensor,

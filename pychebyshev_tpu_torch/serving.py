@@ -45,8 +45,9 @@ groups is served as exact zeros without touching the device.  At
 ``dtype="dd"`` the whole sum is one f64 contraction, refusing the
 sliders the reference's plan refuses.
 
-``build_book``, ``integrate_book``, ``save_book``/``load_book`` and mesh
-sharding are not ported yet.
+``integrate_book`` integrates a same-grid dense book over a batch of
+boxes in one pass (``ops.integrate``).  ``build_book``,
+``save_book``/``load_book`` and mesh sharding are not ported yet.
 
 Example
 -------
@@ -73,7 +74,8 @@ from pychebyshev_tpu_torch.ops import (
     tt_eval_dd,
 )
 
-__all__ = ["BatchedEvaluator", "MultiSpecEvaluator", "MultiModelEvaluator"]
+__all__ = ["BatchedEvaluator", "MultiSpecEvaluator", "MultiModelEvaluator",
+           "integrate_book"]
 
 _DEFAULT_BUCKETS = (1 << 10, 1 << 14, 1 << 17, 1 << 20)
 
@@ -804,3 +806,60 @@ class MultiModelEvaluator(_Engine):
         """Evaluate every model at (N, d) points -> (M, N) tensor on the
         engine device."""
         return self._serve(points)
+
+
+def integrate_book(models, bounds, dtype=None) -> np.ndarray:
+    """Box integrals of a same-grid dense book -> (M, B) in one pass.
+
+    The book analog of :meth:`ChebyshevApproximation.integrate_batch`:
+    the per-box sub-interval quadrature rows are built once per slice and
+    contracted against every model's tensor
+    (``ops.integrate.integrate_box_batch_models``): a portfolio's bucket
+    masses or expected exposures for the cost of one row build plus M
+    GEMMs, on the first model's device.
+
+    Parameters
+    ----------
+    models : sequence of built same-grid ``ChebyshevApproximation``.
+    bounds : (B, d, 2) boxes inside the shared domain.
+    dtype : None (f64), ``torch.float32``, or ``"dd"`` (the near-f64
+        tier in native f64; grids outside ``ops.eval_dd.supports_dd``
+        take the f64 path).
+    """
+    from pychebyshev_tpu_torch.models.approximation import (
+        ChebyshevApproximation,
+    )
+    from pychebyshev_tpu_torch.ops import integrate as integrate_ops
+    from pychebyshev_tpu_torch.utils.calculus import normalize_bounds_batch
+
+    models = list(models)
+    if not models:
+        raise ValueError("models must be a non-empty sequence")
+    first = models[0]
+    for i, m in enumerate(models):
+        if not isinstance(m, ChebyshevApproximation):
+            raise TypeError(
+                f"models[{i}] is {type(m).__name__}; integrate_book "
+                f"takes a dense book")
+        if m.tensor_values is None:
+            raise RuntimeError("all models must be built")
+        if i and (list(m.n_nodes) != list(first.n_nodes)
+                  or [list(b) for b in m.domain]
+                  != [list(b) for b in first.domain]):
+            raise ValueError(
+                f"models[{i}] grid (n_nodes/domain) differs from "
+                f"models[0]; a book shares one grid")
+    arr = normalize_bounds_batch(integrate_ops.host_array(bounds),
+                                 first.domain)
+    tensors = tuple(m.tensor_values.to(first.device) for m in models)
+    domain = np.asarray(first.domain, dtype=np.float64)
+    tier = integrate_ops.tier(dtype)
+    if tier == "dd" and eval_dd.supports_dd(
+            tuple(int(n) for n in first.n_nodes)):
+        out = integrate_ops.integrate_box_batch_models_dd(tensors, domain,
+                                                          arr)
+    else:
+        out = integrate_ops.integrate_box_batch_models(
+            tensors, domain, arr,
+            dtype=torch.float64 if tier == "dd" else tier)
+    return out.cpu().numpy()

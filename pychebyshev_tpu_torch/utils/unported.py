@@ -7,14 +7,22 @@ say what waits, instead of raising ``AttributeError``.
 
 from __future__ import annotations
 
-__all__ = ["mark_not_ported"]
+__all__ = ["mark_not_ported", "not_ported_error"]
+
+
+def not_ported_error(cls_name: str, name: str,
+                     form: str = "") -> NotImplementedError:
+    """The error a method that waits raises; ``form`` names the one
+    form of it that waits, where the others are ported."""
+    form = f" {form}" if form else ""
+    return NotImplementedError(
+        f"{cls_name}.{name} is not ported yet{form}; it waits for its own "
+        f"slice of the port (see ROADMAP.md)")
 
 
 def _not_ported(cls_name: str, name: str):
     def method(*args, **kwargs):
-        raise NotImplementedError(
-            f"{cls_name}.{name} is not ported yet; it waits for its own "
-            f"slice of the port (see ROADMAP.md)")
+        raise not_ported_error(cls_name, name)
     method.__name__ = name
     method.__doc__ = ("Not ported yet: raises NotImplementedError "
                       "(see ROADMAP.md).")

@@ -37,7 +37,9 @@ def test_package_covers_the_slice():
                  "ops.fused_eval", "ops.eval_dd", "ops.fused_dd",
                  "ops._build", "ops.tt_eval", "ops.tt_eval_dd",
                  "ops.spline_eval", "ops.slider_eval",
+                 "ops.quadrature", "ops.integrate",
                  "utils.algebra", "utils.binary", "utils.ceval",
+                 "utils.calculus", "utils.extrude_slice",
                  "utils.convert", "utils.derivative_ids",
                  "utils.parallel_build", "utils.unported",
                  "models.approximation",
