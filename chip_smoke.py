@@ -49,6 +49,16 @@ cross at f64 and f32, ``to_tt(1e-13)`` at dd) and ``to_slider``, config
 integrals, and roots and 1-D optima along S over 4,096 scenarios,
 against the single-scenario calls.
 
+Then fits from scattered samples, TT completion, books and files: the
+dense least-squares fit of ``scripts/bench_fit.py`` (9^3 nodes; the
+host engine at 2^15 samples, the f32 device engine at 2^20 and the
+native-f64 device-dd engine at 2^19) with its Grams held to the host's,
+the fitted model served through K1 and K3, a gradient-enhanced fit,
+config 3's spline and config 4's slider fitted at 2^20 samples, the
+TT-ALS fit of ``scripts/bench_tt_fit.py`` (10^6 samples), config 5's
+portfolio with ``run_completion``, and a six-model ``build_book`` with
+its ``.npz`` files and Sobol indices.
+
 Run from the repository root, with one CUDA card:
 
     python3 chip_smoke.py
@@ -65,6 +75,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -99,8 +110,14 @@ from pychebyshev_tpu_torch.ops.quadrature import (
     fejer1_weights,
     sub_interval_weights,
 )
-from pychebyshev_tpu_torch.serving import integrate_book
+from pychebyshev_tpu_torch.serving import (
+    build_book,
+    integrate_book,
+    load_book,
+    save_book,
+)
 from pychebyshev_tpu_torch.utils import ceval
+from pychebyshev_tpu_torch.utils import fitting as fit_ops
 from pychebyshev_tpu_torch.utils.calculus import normalize_bounds_batch
 
 ROOT = Path(__file__).resolve().parent
@@ -149,6 +166,27 @@ SWEEP_PIECES = (2, 16, 64)      # scripts/sweep_spline_crossover.py:24-31
 # ~1.3e-10 between two f64 summation orders of the same slice values.
 ROOTS_VS_SINGLE = 1e-9
 LOCATION_VS_SINGLE = 1e-10
+# The dense fit of scripts/bench_fit.py:37-60: d = 3 on 9^3 nodes.
+FIT_DOMAIN = [[0.0, 2.0], [-1.0, 1.0], [0.0, 1.0]]
+FIT_NODES = [9, 9, 9]
+FIT_NOISE = 1e-3
+FIT_SAMPLES = (("host", 1 << 15), ("device", 1 << 20),
+               ("device-dd", 1 << 19))
+FIT_SUBSET = 1 << 15            # the shared subset the engines meet on
+TT_FIT_SAMPLES = 1_000_000      # scripts/bench_tt_fit.py's default n
+TT_FIT_HOST_CUT = 1 << 17
+# Gram against the host f64 Gram, scale-normalized: the f32 tier's and
+# the dd tier's bounds of the reference (tests/test_fit_device.py:69-70,
+# 98).  A fitted model's values, dd against host on the same samples.
+FIT_GRAM_F32 = 1e-4
+FIT_GRAM_DD = 1e-11
+FIT_DD_VS_HOST = 1e-10
+# The TT fit's device rms against the host engine's, relative.
+TT_FIT_RMS_REL = 0.1
+# Config 5's portfolio 2A + B (9 nodes, rank 8) against its closed form.
+PORTFOLIO_ERR = 1e-4
+# Phase 38's book: six dividend yields of the 5-D Black-Scholes price.
+BOOK_YIELDS = np.array([0.0, 0.01, 0.02, 0.03, 0.04, 0.05])
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W, dense): the pipes
 # each instance runs on (TF32 tensor cores, three passes for f32; f64
 # tensor cores), the SIMT pipes printed beside them, and device memory.
@@ -167,6 +205,21 @@ def bs_price_np(points, _data=None):
     d1 = (np.log(s / k) + (r + 0.5 * sigma ** 2) * t) / (sigma * sqrt_t)
     d2 = d1 - sigma * sqrt_t
     return s * norm.cdf(d1) - k * np.exp(-r * t) * norm.cdf(d2)
+
+
+def book_np(points, _data=None):
+    """Phase 38's book: the Black-Scholes call price at each dividend
+    yield of ``BOOK_YIELDS``, one column each, in one vectorized call
+    (host, float64)."""
+    points = np.asarray(points, dtype=np.float64)
+    s, k, t, sigma, r = (points[:, i:i + 1] for i in range(5))
+    q = BOOK_YIELDS[None, :]
+    sqrt_t = np.sqrt(t)
+    d1 = (np.log(s / k) + (r - q + 0.5 * sigma ** 2) * t) \
+        / (sigma * sqrt_t)
+    d2 = d1 - sigma * sqrt_t
+    return (s * np.exp(-q * t) * norm.cdf(d1)
+            - k * np.exp(-r * t) * norm.cdf(d2))
 
 
 def bs_div_np(points, _data=None):
@@ -1060,6 +1113,358 @@ def calculus(card: str, ms: dict, cheb, tt, comp, spline, slider) -> None:
           flush=True)
 
 
+def fit_f(p):
+    """The dense fit's target (scripts/bench_fit.py:41-43)."""
+    return np.sin(2 * p[:, 0]) * np.cos(p[:, 1]) + p[:, 2] ** 3
+
+
+def fit_df0(p):
+    """Its derivative along x0, the gradient-enhanced block's values."""
+    return 2 * np.cos(2 * p[:, 0]) * np.cos(p[:, 1])
+
+
+def host_gram(pts, counts, domain):
+    """The f64 normal equations of the dense fit's design, on the host."""
+    nodes = [nodes_for_dim_np(lo, hi, n) for (lo, hi), n in zip(domain,
+                                                                 counts)]
+    weights = [barycentric_weights_np(nd) for nd in nodes]
+    design = fit_ops._DimDesign(nodes, weights)
+    rows = fit_ops._khatri_rao([design.rows(pts[:, k], k)
+                                for k in range(len(counts))])
+    return rows.T @ rows, nodes, weights, design
+
+
+def timed_s(fn):
+    """(result, seconds) of one call of ``fn``, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fitting(card: str, ms: dict):
+    """Phases 32-38: scattered-data fits, TT completion, books and files
+    (the fits' Grams are plain f32/f64 products on the card; the fitted
+    dense model is served through K1 and K3).  Adds their times to ``ms``
+    and returns the K1 and K3 launches of phase 33's main-path run."""
+    import warnings
+
+    # 32. The dense fit of scripts/bench_fit.py:37-60, uncut: d = 3 on
+    # 9^3 nodes, noise N(0, 1e-3), seed 0, l2 = 1e-8; host at 2^15
+    # samples, device at 2^20, device-dd at 2^19.
+    counts, dom = FIT_NODES, FIT_DOMAIN
+    rng = np.random.default_rng(0)
+    samples = {}
+    for engine, n in FIT_SAMPLES:
+        pts = np.stack([rng.uniform(a, b, n) for a, b in dom], axis=1)
+        samples[engine] = pts, fit_f(pts) + rng.normal(0, FIT_NOISE, n)
+    fits, fit_s, busy = {}, {}, {}
+    for engine, (pts, y) in samples.items():
+        kw = dict(l2=1e-8, engine=engine, device=DEVICE)
+        ChebyshevApproximation.fit(pts[:4096], y[:4096], 3, dom, counts,
+                                   **kw)
+        fits[engine], fit_s[engine] = timed_s(
+            lambda: ChebyshevApproximation.fit(pts, y, 3, dom, counts, **kw))
+        if engine != "host":
+            busy[engine] = device_busy_ms(
+                lambda: ChebyshevApproximation.fit(pts, y, 3, dom, counts,
+                                                   **kw))
+        rms = fits[engine].fit_diagnostics["rms"]
+        check(rms <= 2 * FIT_NOISE,
+              f"dense fit {engine}: rms {rms:.3e} > 2x the noise")
+        ms[f"dense fit {engine}, {len(y):,} samples"] = fit_s[engine] * 1e3
+    # The Grams on a shared 2^15 subset, against the host's f64 Gram;
+    # the dd accumulation twice on the same input, bitwise.
+    sub_pts, sub_y = (a[:FIT_SUBSET] for a in samples["device"])
+    want, nodes, weights, design = host_gram(sub_pts, counts, dom)
+    block = [(sub_pts, (0, 0, 0), sub_y, np.ones(len(sub_y)))]
+    g32, _ = fit_ops._device_normal_accumulation(
+        block, nodes, weights, design, 729, device=DEVICE)
+    g64, _ = fit_ops._device_normal_accumulation_dd(
+        block, nodes, weights, design, 729, device=DEVICE)
+    d32, d64 = dev(g32, want), dev(g64, want)
+    check(d32 <= FIT_GRAM_F32, f"f32 Gram vs host {d32:.3e}")
+    check(d64 <= FIT_GRAM_DD, f"dd Gram vs host {d64:.3e}")
+    dd_pts, dd_y = samples["device-dd"]
+    dd_block = [(dd_pts, (0, 0, 0), dd_y, np.ones(len(dd_y)))]
+    first = fit_ops._device_normal_accumulation_dd(
+        dd_block, nodes, weights, design, 729, device=DEVICE)
+    second = fit_ops._device_normal_accumulation_dd(
+        dd_block, nodes, weights, design, 729, device=DEVICE)
+    check(all(np.array_equal(a, b) for a, b in zip(first, second)),
+          "two dd accumulations of the same 2^19 samples differ")
+    print("[32 dense fit] 9^3 (G = 729), bench_fit.py's target + N(0, "
+          "1e-3), l2 = 1e-8: " + "; ".join(
+              f"{e} {len(samples[e][1]):,} samples {fit_s[e]:.3f} s = "
+              f"{len(samples[e][1]) / fit_s[e]:,.0f} samples/s, rms "
+              f"{fits[e].fit_diagnostics['rms']:.4e}"
+              + (f", card busy {busy[e]:.1f} ms = "
+                 f"{100.0 * busy[e] / (fit_s[e] * 1e3):.1f}%"
+                 if e in busy else "")
+              for e in fits)
+          + f"; Gram vs host f64 on 2^15: f32 {d32:.3e} <= {FIT_GRAM_F32:g}, "
+          f"dd {d64:.3e} <= {FIT_GRAM_DD:g}; two dd accumulations of 2^19 "
+          f"bitwise equal | {card}", flush=True)
+
+    # 33. The fitted model served through the kernels: f32 through K1,
+    # dd through K3, counted from zero.
+    model = fits["device-dd"]
+    shape = tuple(model.n_nodes)
+    check(fused_eval.supports_fused(shape, torch.float32)
+          and fused_dd.supports_fused_dd(shape),
+          f"the fused kernels do not cover the fitted {shape} grid")
+    q = torch.tensor(sample_points(N, SEED + 60, dom), device=DEVICE)
+    q32 = q.float()
+    f64 = model.eval_batch_device(q, [0, 0, 0])
+    fused_eval.launches = 0
+    fused_dd.launches = 0
+    out32 = checked(model.eval_batch_f32(q32, [0, 0, 0]), (N,),
+                    "fitted f32")
+    out_dd = checked(model.eval_batch_dd(q, [0, 0, 0]), (N,), "fitted dd")
+    torch.cuda.synchronize()
+    k1_fit, k3_fit = fused_eval.launches, fused_dd.launches
+    check(k1_fit > 0, "the fitted model's eval_batch_f32 never launched K1")
+    check(k3_fit > 0, "the fitted model's eval_batch_dd never launched K3")
+    e32, edd = dev(out32, f64), dev(out_dd, f64)
+    check(e32 <= F32_CEILING, f"fitted f32 vs f64 {e32:.3e}")
+    check(edd <= DD_CEILING, f"fitted dd vs f64 {edd:.3e}")
+    truth = fit_f(q.cpu().numpy())
+    err_fn = dev(f64, truth)
+    ms["fitted 9^3 f32 (eval_batch_f32, K1)"] = cuda_ms(
+        lambda: model.eval_batch_f32(q32, [0, 0, 0]))
+    ms["fitted 9^3 dd (eval_batch_dd, K3)"] = cuda_ms(
+        lambda: model.eval_batch_dd(q, [0, 0, 0]))
+    print(f"[33 fitted model served] 9^3 device-dd fit at 2^20: K1 "
+          f"launches {k1_fit}, f32 vs f64 {e32:.3e} <= {F32_CEILING:g}, "
+          f"{ms['fitted 9^3 f32 (eval_batch_f32, K1)']:.4f} ms; K3 launches "
+          f"{k3_fit}, dd vs f64 {edd:.3e} <= {DD_CEILING:g}, "
+          f"{ms['fitted 9^3 dd (eval_batch_dd, K3)']:.4f} ms; f64 vs the "
+          f"noise-free target {err_fn:.3e} | {card}", flush=True)
+
+    # 34. A gradient-enhanced fit: phase 32's dd fit plus a block of
+    # d/dx0 observations, and device-dd against host on 2^15 + 2^12.
+    g_pts = np.stack([rng.uniform(a, b, FIT_SUBSET) for a, b in dom],
+                     axis=1)
+    grad = [(g_pts, (1, 0, 0), fit_df0(g_pts), 0.25)]
+    gfit, g_s = timed_s(lambda: ChebyshevApproximation.fit(
+        dd_pts, dd_y, 3, dom, counts, l2=1e-8, derivative_data=grad,
+        engine="device-dd", device=DEVICE))
+    n_small = FIT_SUBSET // 8
+    small = [(g_pts[:n_small], (1, 0, 0), fit_df0(g_pts[:n_small]), 0.25)]
+    sub = {engine: ChebyshevApproximation.fit(
+        sub_pts, sub_y, 3, dom, counts, l2=1e-8, derivative_data=small,
+        engine=engine, device=DEVICE) for engine in ("host", "device-dd")}
+    test = torch.tensor(sub_pts[:4096], device=DEVICE)
+    dg = dev(sub["device-dd"].eval_batch_device(test, [0, 0, 0]),
+             sub["host"].eval_batch_device(test, [0, 0, 0]))
+    dt = dev(sub["device-dd"].tensor_values, sub["host"].tensor_values)
+    check(dg <= FIT_DD_VS_HOST, f"gradient-enhanced dd vs host {dg:.3e}")
+    blk = gfit.fit_diagnostics["derivative_blocks"][0]
+    check(gfit.fit_diagnostics["rms"] <= 2 * FIT_NOISE,
+          "gradient-enhanced fit: rms > 2x the noise")
+    ms["dense fit device-dd + gradient block"] = g_s * 1e3
+    print(f"[34 gradient-enhanced fit] device-dd, 2^19 values + 2^15 "
+          f"d/dx0 rows (weight 0.25): {g_s:.3f} s, value rms "
+          f"{gfit.fit_diagnostics['rms']:.4e}, block rms {blk['rms']:.4e}; "
+          f"device-dd vs host on 2^15 + 2^12 rows: values {dg:.3e} <= "
+          f"{FIT_DD_VS_HOST:g} (tensors {dt:.3e}) | {card}", flush=True)
+
+    # 35. Spline and slider fits: config 3's payoff (knot at 1.0, 17^2
+    # nodes a piece) and config 4's 10-D basket (singleton groups, 9
+    # nodes), at device and device-dd on 2^20 samples; each engine
+    # against host on a 2^15 subset of them.
+    sp_pts = np.stack([rng.uniform(a, b, N) for a, b in SPLINE_DOMAIN],
+                      axis=1)
+    sl_pts = rng.uniform(-1.0, 1.0, (N, SLIDER_D))
+    cases = {
+        "spline": (lambda pts, engine: ChebyshevSpline.fit(
+            pts, payoff_np(pts), 2, SPLINE_DOMAIN, [17, 17], [[1.0], []],
+            l2=1e-12, engine=engine, device=DEVICE), sp_pts),
+        "slider": (lambda pts, engine: ChebyshevSlider.fit(
+            pts, basket_np(pts), SLIDER_D, [[-1.0, 1.0]] * SLIDER_D,
+            [9] * SLIDER_D, [[i] for i in range(SLIDER_D)],
+            [0.0] * SLIDER_D, l2=1e-12, engine=engine, device=DEVICE),
+            sl_pts),
+    }
+    parts = []
+    for family, (fit_fn, pts) in cases.items():
+        test = pts[:4096]
+        want = fit_fn(pts[:FIT_SUBSET], "host").eval_batch(test,
+                                                        [0] * pts.shape[1])
+        for engine in ("device", "device-dd"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                fit_fn(pts[:4096], engine)
+                obj, secs = timed_s(lambda: fit_fn(pts, engine))
+                on_sub = fit_fn(pts[:FIT_SUBSET], engine)
+            got = on_sub.eval_batch(test, [0] * pts.shape[1])
+            d = dev(got, want)
+            bound_dev = F32_CEILING if engine == "device" else FIT_DD_VS_HOST
+            check(d <= bound_dev, f"{family} fit {engine} vs host {d:.3e}")
+            ms[f"{family} fit {engine}, 2^20 samples"] = secs * 1e3
+            parts.append(f"{family} {engine} {secs:.3f} s = "
+                         f"{N / secs:,.0f} samples/s, rms "
+                         f"{obj.fit_diagnostics['rms']:.3e}, vs host on 2^15 "
+                         f"{d:.3e} <= {bound_dev:g}")
+    print("[35 spline and slider fits] " + "; ".join(parts) + f" | {card}",
+          flush=True)
+
+    # 36. The TT fit of scripts/bench_tt_fit.py:36-50, uncut: d = 5 on
+    # [0, 1]^5, 7 nodes, rank 5, l2 = 1e-8, 3 sweeps, 10^6 samples.
+    tt_rng = np.random.default_rng(0)
+    n_tt = TT_FIT_SAMPLES
+    t_pts = tt_rng.uniform(0.0, 1.0, (n_tt, 5))
+    t_y = (np.prod(np.cos(2 * t_pts), axis=1) + 0.1 * t_pts.sum(1)
+           + tt_rng.normal(0.0, 1e-4, n_tt))
+    tt_kw = dict(max_rank=5, sweeps=3, l2=1e-8)
+
+    def tt_fit(n, engine):
+        return ChebyshevTT.fit(t_pts[:n], t_y[:n], 5, [[0.0, 1.0]] * 5,
+                               [7] * 5, engine=engine, device=DEVICE,
+                               **tt_kw)
+
+    runs = {}
+    for tag in ("device cold", "device warm"):
+        runs[tag] = (n_tt,) + timed_s(lambda: tt_fit(n_tt, "device"))
+    n_cut = TT_FIT_HOST_CUT
+    runs["host"] = (n_cut,) + timed_s(lambda: tt_fit(n_cut, "host"))
+    predicted = runs["host"][2] * n_tt / n_cut
+    host_note = (f"host on 2^17 samples (a cut: 10^6 would take "
+                 f"~{predicted:.0f} s at this rate, past 60 s)")
+    if predicted <= 60.0:
+        runs["host"] = (n_tt,) + timed_s(lambda: tt_fit(n_tt, "host"))
+        host_note = "host on the same 10^6 samples"
+    parts = []
+    for tag, (n, obj, secs) in runs.items():
+        sweeps = len(obj.fit_diagnostics["sweep_rms"])
+        rate = n * sweeps / secs
+        ms[f"TT fit {tag}"] = secs * 1e3
+        parts.append(f"{tag} {secs:.3f} s, {sweeps} sweeps = {rate:,.0f} "
+                     f"sample-sweeps/s, rms "
+                     f"{obj.fit_diagnostics['rms']:.4e}")
+    r_dev = runs["device warm"][1].fit_diagnostics["rms"]
+    r_host = runs["host"][1].fit_diagnostics["rms"]
+    check(abs(r_dev - r_host) <= TT_FIT_RMS_REL * r_host,
+          f"TT fit device rms {r_dev:.4e} vs host {r_host:.4e}")
+    print(f"[36 TT fit] d=5, 7 nodes, rank 5, 3 sweeps, noise 1e-4; "
+          f"{host_note}: " + "; ".join(parts)
+          + f"; device rms within {TT_FIT_RMS_REL:g} of host's | {card}",
+          flush=True)
+
+    # 37. Config 5, the portfolio (scripts/run_baseline_table.py:560-611):
+    # two TT-ALS builds, run_completion, 2A + B against its closed form,
+    # the orth drift, the inner product and the slice.
+    p_dom = [[80.0, 120.0], [0.25, 2.0], [0.1, 0.5], [0.01, 0.05]]
+
+    def inst_a(points, _=None):
+        p = np.asarray(points, dtype=np.float64)
+        s, t, sg, r = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
+        return (5.0 * np.log1p(np.exp((s - 100.0) / 5.0))
+                * np.exp(-r * t) * (1 + 0.5 * sg))
+
+    def inst_b(points, _=None):
+        p = np.asarray(points, dtype=np.float64)
+        s, t, sg, r = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
+        return 100.0 * np.exp(-r * t) + 0.1 * s * sg * np.sqrt(t)
+
+    t0 = time.perf_counter()
+    tta = ChebyshevTT(inst_a, 4, p_dom, [9] * 4, max_rank=8,
+                      tolerance=1e-8, vectorized=True, device=DEVICE)
+    tta.build(verbose=False, method="als", seed=0)
+    ttb = ChebyshevTT(inst_b, 4, p_dom, [9] * 4, max_rank=8,
+                      tolerance=1e-8, vectorized=True, device=DEVICE)
+    ttb.build(verbose=False, method="als", seed=1)
+    builds_s = time.perf_counter() - t0
+    before = tta._coeff_cores[0].copy()
+    _, comp_s = timed_s(lambda: tta.run_completion(tolerance=1e-10,
+                                                   max_iter=5))
+    portfolio = tta * 2.0 + ttb
+    box = np.random.default_rng(2).uniform(0.05, 0.95, (500, 4))
+    lo = np.array([b[0] for b in p_dom])
+    hi = np.array([b[1] for b in p_dom])
+    p_pts = lo + (hi - lo) * box
+    exact = 2.0 * inst_a(p_pts) + inst_b(p_pts)
+    err = dev(portfolio.eval_batch(p_pts), exact)
+    check(err <= PORTFOLIO_ERR, f"portfolio 2A + B vs closed form {err:.3e}")
+    at = [100.0, 1.0, 0.3, 0.03]
+    v0 = portfolio.eval(at)
+    portfolio.orth_left(3)
+    portfolio.orth_right(0)
+    drift = abs(portfolio.eval(at) - v0)
+    check(drift <= 1e-12 * abs(v0), f"orth drift {drift:.3e}")
+    ip = tta.inner_product(ttb)
+    sliced = portfolio.slice((3, 0.03))
+    pts3 = p_pts[:100, :3]
+    full3 = np.column_stack([pts3, np.full(100, 0.03)])
+    err3 = dev(sliced.eval_batch(pts3), 2.0 * inst_a(full3) + inst_b(full3))
+    check(err3 <= PORTFOLIO_ERR, f"sliced portfolio {err3:.3e}")
+    moved = float(np.abs(tta._coeff_cores[0] - before).max())
+    print(f"[37 config 5 portfolio] two TT-ALS builds {builds_s:.3f} s "
+          f"(ranks {tta.tt_ranks} / {ttb.tt_ranks}); run_completion "
+          f"(1e-10, 5 iters) {comp_s:.3f} s, moved core 0 by {moved:.3e}; "
+          f"2A + B vs closed form {err:.3e} <= {PORTFOLIO_ERR:g}; orth "
+          f"drift {drift:.3e}; <A,B> {ip:.6f}; slice(r=3%) {err3:.3e} | "
+          f"{card}",
+          flush=True)
+
+    # 38. Books and files: six columns of the 5-D Black-Scholes price
+    # from one vectorized call over the 11^5 grid, each bitwise the
+    # tensor of its single build; served by MultiModelEvaluator; a
+    # save_book/load_book and an .npz round trip; Sobol indices on the
+    # card against a CPU copy.
+    book, book_s = timed_s(lambda: build_book(
+        book_np, 5, DOMAIN, [11] * 5, num_models=len(BOOK_YIELDS),
+        device=DEVICE))
+    for m, model_m in enumerate(book):
+        single = ChebyshevApproximation(
+            lambda p, _, m=m: book_np(p)[:, m], 5, DOMAIN, [11] * 5,
+            vectorized=True, device=DEVICE)
+        single.build(verbose=False)
+        check(torch.equal(model_m.tensor_values, single.tensor_values),
+              f"book column {m} is not its single build's tensor")
+    check(all(a is b for a, b in zip(book[0].nodes, book[-1].nodes)),
+          "the book's models do not share one grid")
+    b_pts = torch.tensor(sample_points(N, SEED + 61), device=DEVICE)
+    engine = MultiModelEvaluator(book, dtype=torch.float64, device=DEVICE)
+    served = checked(engine(b_pts), (len(book), N), "book engine")
+    worst_book = max(dev(served[m], book[m].eval_batch_device(
+        b_pts, [0] * 5)) for m in range(len(book)))
+    check(worst_book <= F64_CEILING, f"book engine vs single {worst_book:.3e}")
+    ms["6-model built book f64 (MultiModelEvaluator)"] = cuda_ms(
+        lambda: engine(b_pts))
+    with tempfile.TemporaryDirectory() as scratch:
+        scratch = Path(scratch)
+        save_book(scratch / "book.npz", book)
+        loaded = load_book(scratch / "book.npz", device=DEVICE)
+        check(all(torch.equal(a.eval_batch_device(b_pts, [0] * 5),
+                              b.eval_batch_device(b_pts, [0] * 5))
+                  for a, b in zip(loaded, book)),
+              "save_book/load_book round trip is not bitwise")
+        model.save(scratch / "fit.npz", format="npz")
+        back = ChebyshevApproximation.load(scratch / "fit.npz",
+                                           device=DEVICE)
+        check(torch.equal(back.eval_batch_device(q, [0, 0, 0]), f64),
+              ".npz round trip of the fitted model is not bitwise")
+    sob_card = book[0].sobol_indices()
+    cpu_copy = ChebyshevApproximation.from_values(
+        book[0].tensor_values.cpu(), 5, DOMAIN, [11] * 5, device="cpu")
+    sob_cpu = cpu_copy.sobol_indices()
+    d_sob = max(abs(sob_card[k][d] - sob_cpu[k][d])
+                for k in ("first_order", "total_order") for d in range(5))
+    check(d_sob <= F64_CEILING, f"Sobol indices card vs CPU {d_sob:.3e}")
+    print(f"[38 books and files] build_book of {len(book)} Black-Scholes "
+          f"columns over 11^5 in {book_s:.3f} s, each bitwise its single "
+          f"build, one shared grid; MultiModelEvaluator f64 at 2^20 "
+          f"{ms['6-model built book f64 (MultiModelEvaluator)']:.4f} ms, vs "
+          f"single models {worst_book:.3e}; save_book/load_book and the "
+          f"fitted model's .npz evaluate bitwise the same; Sobol indices "
+          f"card vs CPU {d_sob:.3e} <= {F64_CEILING:g} (first order "
+          + ", ".join(f"{sob_card['first_order'][d]:.4f}" for d in range(5))
+          + f") | {card}", flush=True)
+    return k1_fit, k3_fit
+
+
 def main() -> None:
     # 1. The device.
     if not torch.cuda.is_available():
@@ -1746,12 +2151,17 @@ def main() -> None:
     # 25-31. Calculus and scenario batches on all four families.
     calculus(card, ms, cheb, tt, comp, spline, slider)
 
+    # 32-38. Fits, TT completion, books and files; the fitted dense
+    # model's run through K1 and K3 counts toward their launches.
+    k1_fit_launches, k3_fit_launches = fitting(card, ms)
+
     # Bounds on the pipes each instance runs on: f32 on the TF32 tensor
     # cores in three passes, f64 on the f64 tensor cores; the SIMT pipes'
     # bound beside each.
     rows = [
         ("K1 fused f32 dense evaluator", "pychebyshev_tpu/ops/pallas_eval.py:173",
-         main_launches, max_abs, "K1 f32 (fused_eval_batch)",
+         main_launches + k1_fit_launches, max_abs,
+         "K1 f32 (fused_eval_batch)",
          "plain f32 (fused_eval_batch_reference)", "GEMM f32 11^5",
          bound((11,) * 5, N, 4, TF32_PEAK, passes=3),
          bound((11,) * 5, N, 4, F32_SIMT_PEAK)[0]),
@@ -1763,7 +2173,7 @@ def main() -> None:
          bound((19,) * 5, N, 4, F32_SIMT_PEAK)[0]),
         ("K3 fused dd dense evaluator (f64)",
          "pychebyshev_tpu/ops/pallas_dd.py:155",
-         k3_launches + k3_spline_launches, k3_abs,
+         k3_launches + k3_spline_launches + k3_fit_launches, k3_abs,
          "K3 f64 (fused_eval_batch_dd)",
          "plain f64 (fused_eval_batch_dd_reference)", "GEMM f64 11^5",
          bound((11,) * 5, N, 8, F64_TC_PEAK),

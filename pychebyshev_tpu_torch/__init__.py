@@ -26,6 +26,11 @@ PyTorch:
   ``ops.integrate``), roots and 1-D optima per call or for a batch of
   scenarios, ``extrude``/``slice``, ``ChebyshevTT.to_slider``, and
   ``serving.integrate_book`` for a dense book.
+- Fits from scattered samples on all four families (``fit``; host f64,
+  or accumulated on the device in f32 or f64, ``utils.fitting``),
+  ``ChebyshevTT.run_completion``, ``hadamard``/``compose``, the Sobol
+  indices, the plots, the pickle-free ``.npz`` format, and dense books
+  (``serving.build_book``, ``save_book``/``load_book``).
 
 Every constructor and engine takes an explicit ``device=``; nothing here
 probes for a device or falls back to another one.

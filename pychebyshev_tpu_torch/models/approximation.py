@@ -9,7 +9,10 @@ estimate, ``differentiate``, the algebra operators, ``from_values``,
 ``to_tt``, pickle / ``.pcb`` serialization, ``extrude``/``slice``, and
 the calculus: ``integrate``, batched box integrals and conditional
 expectations (f64, f32, near-f64; ``ops.integrate``), and roots and 1-D
-optima, per call or for a batch of scenarios.
+optima, per call or for a batch of scenarios; ``fit`` from scattered
+samples (``utils.fitting``: host, ``device`` and ``device-dd``
+engines), the Sobol family (``utils.sensitivity``), ``hadamard``,
+``compose``, the plots and the pickle-free ``.npz`` format.
 
 - Grid data (nodes, barycentric weights, differentiation matrices) and
   the value tensor live on ``device`` as float64 tensors.
@@ -27,8 +30,7 @@ optima, per call or for a batch of scenarios.
 
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
 the global ``minimize``/``maximize`` (``dim=None`` on a
-multi-dimensional interpolant), ``critical_points``, ``fit``, the Sobol
-family, ``hadamard``, ``compose`` and the plots.
+multi-dimensional interpolant), ``critical_points``, and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -1010,24 +1012,29 @@ class ChebyshevApproximation:
         return ChebyshevApproximation._from_grid(self, new_tensor)
 
     @classmethod
-    def _from_grid(cls, source, tensor_values):
+    def _from_grid(cls, source, tensor_values, share_grid=False):
         """New built instance on *source*'s grid and device (the operator
-        factory)."""
+        factory).  ``share_grid`` makes it hold *source*'s node, weight
+        and differentiation tensors themselves (a book's models share
+        one grid; nothing edits those in place)."""
         return cls._from_parts(
             source.device, tensor_values, source.nodes, source.weights,
             source.diff_matrices, source.domain, source.n_nodes,
             source.max_derivative_order,
-            host_grid=getattr(source, "_host_grid", None))
+            host_grid=getattr(source, "_host_grid", None),
+            share_grid=share_grid)
 
     @classmethod
     def _from_parts(cls, device, tensor_values, nodes, weights, diffs,
-                    domain, n_nodes, max_derivative_order, host_grid=None):
+                    domain, n_nodes, max_derivative_order, host_grid=None,
+                    share_grid=False):
         """New built instance from grid parts (the factory of the
         operators, ``extrude``, ``slice`` and partial ``integrate``).
-        Every tensor it holds is its own copy: torch tensors change in
-        place, so sharing the source's would let an edit of one
-        interpolant change the other.  ``host_grid``, host NumPy that
-        nothing edits in place, may be shared."""
+        Every tensor it holds is its own copy, unless ``share_grid``
+        (then the grid tensors are the caller's): torch tensors change
+        in place, so sharing the source's value tensor would let an edit
+        of one interpolant change the other.  ``host_grid``, host NumPy
+        that nothing edits in place, may be shared."""
         obj = object.__new__(cls)
         obj.device = device
         obj.function = None
@@ -1038,9 +1045,13 @@ class ChebyshevApproximation:
         obj.max_derivative_order = max_derivative_order
         obj.error_threshold = None
         obj.max_n = 64
-        obj.nodes = [_private_f64(a, device) for a in nodes]
-        obj.weights = [_private_f64(a, device) for a in weights]
-        obj.diff_matrices = [_private_f64(a, device) for a in diffs]
+        if share_grid:
+            obj.nodes, obj.weights = list(nodes), list(weights)
+            obj.diff_matrices = list(diffs)
+        else:
+            obj.nodes = [_private_f64(a, device) for a in nodes]
+            obj.weights = [_private_f64(a, device) for a in weights]
+            obj.diff_matrices = [_private_f64(a, device) for a in diffs]
         if host_grid is not None:
             obj._host_grid = host_grid
         obj.tensor_values = _private_f64(tensor_values, device)
@@ -1453,7 +1464,8 @@ class ChebyshevApproximation:
                                               self.device)
 
     def save(self, path: str | os.PathLike, format: str = "pickle") -> None:
-        """Save to pickle (default) or the portable ``.pcb`` binary."""
+        """Save to pickle (default), the portable ``.pcb`` binary, or the
+        pickle-free ``.npz``."""
         if self.tensor_values is None:
             raise RuntimeError(
                 "Cannot save an unbuilt ChebyshevApproximation. Call "
@@ -1466,22 +1478,36 @@ class ChebyshevApproximation:
             from pychebyshev_tpu_torch.utils import binary
             with open(path, "wb") as f:
                 binary.write_approx(f, self)
+        elif format == "npz":
+            from pychebyshev_tpu_torch.utils.native_save import write_npz
+            write_npz(path, self)
         else:
             raise ValueError(
-                f"format must be 'pickle' or 'binary'; got {format!r}")
+                f"format must be 'pickle', 'binary', or 'npz'; "
+                f"got {format!r}"
+            )
 
     @classmethod
     def load(cls, path: str | os.PathLike, *,
              device) -> "ChebyshevApproximation":
-        """Load from pickle or ``.pcb`` (magic-sniffed) onto ``device``.
+        """Load from pickle, ``.pcb`` or ``.npz`` (magic-sniffed) onto
+        ``device``.
 
         A pickle is first restored onto the device it was saved from,
         then moved; only unpickle files this program wrote.
         """
-        from pychebyshev_tpu_torch.utils import binary
+        from pychebyshev_tpu_torch.utils import binary, native_save
         if binary.detect_format(path) == "binary":
             with open(path, "rb") as f:
                 return binary.read_approx(f, device=device)
+        if native_save.detect_npz(path):
+            obj = native_save.read_npz(path, device=device)
+            if not isinstance(obj, cls):
+                raise TypeError(
+                    f"Expected a {cls.__name__} checkpoint, got "
+                    f"{type(obj).__name__}"
+                )
+            return obj
         with open(path, "rb") as f:
             obj = pickle.load(f)  # noqa: S301
         if not isinstance(obj, cls):
@@ -1684,6 +1710,203 @@ class ChebyshevApproximation:
             obj.compression_diagnostics = diagnostics
         return obj
 
+    @classmethod
+    def fit(cls, points, values, num_dimensions, domain, n_nodes, *,
+            l2: float = 0.0, sample_weight=None, rcond=None,
+            derivative_data=None, engine: str = "host",
+            mesh=None, data_axis: str = "dp",
+            max_derivative_order: int = 2, additional_data=None,
+            device) -> "ChebyshevApproximation":
+        """Least-squares interpolant from SCATTERED samples.
+
+        Solves for the nodal-value tensor that best explains arbitrary
+        in-domain samples ``(points, values)`` in the (optionally
+        weighted, optionally ``l2``-regularized) least-squares sense:
+        the model is linear in its tensor, so the fit is one linear
+        solve (``utils/fitting.py``).  The result is an ordinary,
+        fully-built interpolant on ``device``.
+
+        Parameters
+        ----------
+        points : (N, num_dimensions) in-domain sample coordinates.
+        values : (N,) sample values.
+        l2 : Tikhonov penalty on the nodal values (required > 0 when
+            N < prod(n_nodes); recommended for noisy data).
+        sample_weight : optional (N,) non-negative weights.
+        rcond : pseudoinverse cutoff for the unregularized path.
+        derivative_data : optional gradient-enhanced observation blocks
+            ``[(points_b, orders_b, values_b[, weight_b]), ...]``
+            (``utils/fitting.py::normalize_derivative_data``).
+        engine : ``"host"`` (default; exact f64 normal equations),
+            ``"device"`` (``A^T A`` accumulated on ``device`` in IEEE
+            f32, the throughput tier for millions of noisy samples) or
+            ``"device-dd"`` (accumulated on ``device`` in native f64).
+            The solve and the residual diagnostics stay host f64.
+        mesh : not ported; a value other than ``None`` raises
+            ``NotImplementedError``.
+        device : where the device engines run and the result lives.
+
+        Returns
+        -------
+        A built ``ChebyshevApproximation``; ``fit_diagnostics`` records
+        ``rms`` / ``max_abs_residual`` (training residuals),
+        ``n_samples``, ``grid_points``, ``l2``, ``rank`` (plus per-block
+        ``derivative_blocks`` when derivative data was given).
+        """
+        from pychebyshev_tpu_torch.utils.fitting import fit_dense_tensor
+
+        if len(n_nodes) != num_dimensions or len(domain) != num_dimensions:
+            raise ValueError(
+                f"len(domain)={len(domain)} and len(n_nodes)="
+                f"{len(n_nodes)} must both equal num_dimensions="
+                f"{num_dimensions}"
+            )
+        tensor, diagnostics = fit_dense_tensor(
+            points, values, domain, n_nodes, l2=l2,
+            sample_weight=sample_weight, rcond=rcond,
+            derivative_data=derivative_data, engine=engine,
+            mesh=mesh, data_axis=data_axis, device=device)
+        obj = cls.from_values(tensor, num_dimensions, domain,
+                              list(n_nodes),
+                              max_derivative_order=max_derivative_order,
+                              device=device)
+        obj.additional_data = additional_data
+        obj.fit_diagnostics = diagnostics
+        obj.n_evaluations = int(diagnostics["n_samples"])
+        return obj
+
+    # ------------------------------------------------------------------
+    # Sensitivity
+    # ------------------------------------------------------------------
+
+    def sobol_indices(self) -> dict:
+        """Analytic first/total-order Sobol indices from the spectral
+        expansion."""
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            chebyshev_coefficient_tensor,
+            sobol_from_coeffs,
+        )
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        coeffs = chebyshev_coefficient_tensor(self.tensor_values)
+        return sobol_from_coeffs(coeffs, self.num_dimensions)
+
+    def interaction_matrix(self) -> np.ndarray:
+        """(d, d) pure pairwise Sobol interaction shares.  Zero (to
+        roundoff) exactly where the function separates additively;
+        threshold it with :meth:`suggest_partition` to pick a slider
+        partition."""
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            chebyshev_coefficient_tensor,
+            pair_interactions_from_coeffs,
+        )
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        coeffs = chebyshev_coefficient_tensor(self.tensor_values)
+        return pair_interactions_from_coeffs(coeffs,
+                                             self.num_dimensions)
+
+    def suggest_partition(self, threshold: float = 1e-8) -> list:
+        """Additive partition implied by :meth:`interaction_matrix`
+        (union-find over above-threshold pairs)."""
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            partition_from_interactions,
+        )
+        return partition_from_interactions(self.interaction_matrix(),
+                                           threshold)
+
+    # ------------------------------------------------------------------
+    # Node-wise products
+    # ------------------------------------------------------------------
+
+    def compose(self, g) -> "ChebyshevApproximation":
+        """Scalar-function composition ``g(f(x))`` as a new interpolant:
+        ``g`` applied elementwise to the value tensor (a float64 torch
+        tensor on this interpolant's device; ``g`` may return a tensor
+        or an array of the same shape) -- the interpolant of ``g∘f``
+        sampled at this grid.  Accurate when the grid resolves ``g∘f``;
+        check ``result.error_estimate()``."""
+        vals = g(self.tensor_values)
+        if tuple(np.shape(vals)) != tuple(self.tensor_values.shape):
+            raise ValueError(
+                f"g must map values elementwise; output shape "
+                f"{tuple(np.shape(vals))} != "
+                f"{tuple(self.tensor_values.shape)}"
+            )
+        return ChebyshevApproximation._from_grid(self, vals)
+
+    def hadamard(self, other) -> "ChebyshevApproximation":
+        """Node-wise product surrogate: interpolant of ``f·g`` sampled
+        at the shared grid.  The product roughly doubles the polynomial
+        degree, so it is accurate only when the shared grid resolves it
+        (check ``result.error_estimate()``)."""
+        if type(self) is not type(other):
+            raise TypeError(
+                f"hadamard requires another {type(self).__name__}, got "
+                f"{type(other).__name__}"
+            )
+        check_compatible(self, other)
+        return ChebyshevApproximation._from_grid(
+            self, self.tensor_values * other.tensor_values)
+
+    # ------------------------------------------------------------------
+    # Plotting (optional host-side extras)
+    # ------------------------------------------------------------------
+
+    def plot_convergence(self, target_error=None, max_n=64, ax=None):
+        """Error-decay sweep over increasing N (requires matplotlib);
+        each build runs on this interpolant's device."""
+        try:
+            import matplotlib.pyplot as plt
+        except ImportError:
+            raise ImportError(
+                "plot_convergence requires matplotlib"
+            )
+        if self.function is None:
+            raise RuntimeError(
+                "plot_convergence requires a function-bound interpolant "
+                "(this object has function=None)"
+            )
+        ns = list(range(4, max_n + 1, 2))
+        errors = []
+        for n in ns:
+            cheb = ChebyshevApproximation(
+                self.function, self.num_dimensions, self.domain,
+                n_nodes=[n] * self.num_dimensions,
+                additional_data=self.additional_data,
+                vectorized=self.vectorized, device=self.device,
+            )
+            cheb.build(verbose=False)
+            errors.append(cheb.error_estimate())
+        if ax is None:
+            _, ax = plt.subplots()
+        ax.semilogy(ns, errors, marker="o")
+        ax.set_xlabel("Number of nodes per dimension (N)")
+        ax.set_ylabel("Error estimate (log scale)")
+        ax.set_title(f"Convergence — {self.num_dimensions}-D Chebyshev")
+        if target_error is not None:
+            ax.axhline(target_error, linestyle="--", color="red",
+                       label=f"target={target_error}")
+            ax.legend()
+        return ax
+
+    def plot_1d(self, ax=None, n_points=200, fixed=None):
+        """1-D slice plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_1d_impl
+        return plot_1d_impl(self, ax=ax, n_points=n_points, fixed=fixed)
+
+    def plot_2d_surface(self, ax=None, n_points=50, fixed=None):
+        """2-D surface plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_2d_surface_impl
+        return plot_2d_surface_impl(self, ax=ax, n_points=n_points,
+                                    fixed=fixed)
+
+    def plot_2d_contour(self, ax=None, n_points=50, n_levels=20, fixed=None):
+        """2-D contour plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_2d_contour_impl
+        return plot_2d_contour_impl(self, ax=ax, n_points=n_points,
+                                    n_levels=n_levels, fixed=fixed)
+
     def __repr__(self) -> str:
         built = self.tensor_values is not None
         return (f"ChebyshevApproximation(dims={self.num_dimensions}, "
@@ -1722,8 +1945,4 @@ class ChebyshevApproximation:
         return "\n".join(lines)
 
 
-mark_not_ported(ChebyshevApproximation, (
-    "critical_points", "sobol_indices", "interaction_matrix",
-    "suggest_partition", "hadamard", "compose", "plot_1d",
-    "plot_2d_surface", "plot_2d_contour", "plot_convergence"),
-    classmethods=("fit",))
+mark_not_ported(ChebyshevApproximation, ("critical_points",))

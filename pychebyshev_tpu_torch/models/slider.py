@@ -23,10 +23,14 @@ return NumPy arrays.
   form, batched integrals and conditional expectations one dense batch
   per slide, roots and 1-D optima on resampled slices.
 
+- ``fit`` solves the additive least-squares design from scattered
+  samples in one solve (``utils.fitting.fit_additive_tensors``) and
+  re-gauges every slide to the pivot.  The Sobol family follows the
+  additive form (cross-group interactions are exactly zero).
+
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``fit``, the global ``minimize``/``maximize`` (``dim=None``),
-``critical_points``, the Sobol family, the plots, and
-``save(format="npz")``.
+the global ``minimize``/``maximize`` (``dim=None``),
+``critical_points``, and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -617,7 +621,8 @@ class ChebyshevSlider:
 
     def save(self, path: str | os.PathLike,
              format: str = "pickle") -> None:
-        """Save to pickle (the function is not saved)."""
+        """Save to pickle (default) or the pickle-free ``.npz`` (slide
+        tensors and metadata); the function is not saved."""
         if not self._built:
             raise RuntimeError(
                 "Cannot save an unbuilt slider. Call build() first."
@@ -626,9 +631,8 @@ class ChebyshevSlider:
             with open(os.fspath(path), "wb") as f:
                 pickle.dump(self, f, protocol=pickle.HIGHEST_PROTOCOL)
         elif format == "npz":
-            raise NotImplementedError(
-                "save(format='npz') is not ported yet; it waits for "
-                "utils/native_save.py (see ROADMAP.md)")
+            from pychebyshev_tpu_torch.utils.native_save import write_npz
+            write_npz(path, self)
         else:
             raise ValueError(
                 f"format must be 'pickle' or 'npz', got {format!r}"
@@ -636,8 +640,17 @@ class ChebyshevSlider:
 
     @classmethod
     def load(cls, path: str | os.PathLike, *, device) -> "ChebyshevSlider":
-        """Load a pickle onto ``device``; only unpickle files this
-        program wrote."""
+        """Load from pickle or ``.npz`` (magic-sniffed) onto ``device``;
+        only unpickle files this program wrote."""
+        from pychebyshev_tpu_torch.utils import native_save
+        if native_save.detect_npz(path):
+            obj = native_save.read_npz(path, device=device)
+            if not isinstance(obj, cls):
+                raise TypeError(
+                    f"Expected a {cls.__name__} checkpoint, got "
+                    f"{type(obj).__name__}"
+                )
+            return obj
         with open(os.fspath(path), "rb") as f:
             obj = pickle.load(f)  # noqa: S301
         if not isinstance(obj, cls):
@@ -648,6 +661,95 @@ class ChebyshevSlider:
         obj.device = torch.device(device)
         for slide in obj.slides:
             slide._move_to(device)
+        return obj
+
+    @classmethod
+    def fit(cls, points, values, num_dimensions, domain, n_nodes,
+            partition, pivot_point, *, l2: float = 0.0,
+            sample_weight=None, rcond=None, derivative_data=None,
+            engine: str = "host", mesh=None, data_axis: str = "dp",
+            max_derivative_order: int = 2, device) -> "ChebyshevSlider":
+        """Least-squares slider from SCATTERED high-dimensional samples.
+
+        The additive model ``c0 + sum_i h_i(x_{G_i})`` is jointly linear
+        in the intercept and every slide's nodal tensor, so a 10-D fit
+        is ONE small solve with ``1 + sum_i prod(n[G_i])`` columns
+        (``utils/fitting.py::fit_additive_tensors``).  The k constant
+        redundancies of the additive form are resolved by re-gauging
+        every slide to the pivot (``g_i(z_{G_i}) = f_hat(z)``), so the
+        assembled slider satisfies the sliding identity exactly.
+
+        ``derivative_data`` blocks must differentiate dims of at most
+        one partition group.  ``engine`` / ``mesh`` / ``device`` as in
+        :meth:`ChebyshevApproximation.fit`.  Returns a fully-built
+        slider on ``device``; ``fit_diagnostics`` as in the dense fit
+        (plus ``columns``).
+        """
+        from pychebyshev_tpu_torch.ops.chebyshev import (
+            barycentric_weights_np,
+        )
+        from pychebyshev_tpu_torch.utils.fitting import (
+            barycentric_rows_np,
+            fit_additive_tensors,
+        )
+
+        if any(len(g) == 0 for g in partition):
+            raise ValueError("Partition groups must be non-empty")
+        all_dims = sorted(d for group in partition for d in group)
+        if all_dims != list(range(num_dimensions)):
+            raise ValueError(
+                f"Partition must cover all dimensions "
+                f"0..{num_dimensions - 1} exactly once. "
+                f"Got dimensions: {all_dims}"
+            )
+        if len(pivot_point) != num_dimensions:
+            raise ValueError(
+                f"pivot_point length {len(pivot_point)} does not match "
+                f"num_dimensions {num_dimensions}")
+        if len(domain) != num_dimensions or len(n_nodes) != num_dimensions:
+            raise ValueError(
+                f"len(domain)={len(domain)} and len(n_nodes)="
+                f"{len(n_nodes)} must both equal num_dimensions="
+                f"{num_dimensions}")
+
+        tensors, c0, diagnostics = fit_additive_tensors(
+            points, values, domain, n_nodes, partition, l2=l2,
+            sample_weight=sample_weight, rcond=rcond,
+            derivative_data=derivative_data, engine=engine,
+            mesh=mesh, data_axis=data_axis, device=device)
+
+        # Re-gauge: pin every slide to the pivot.  With b_i = h_i(z_i)
+        # and p = c0 + sum b_i, the slides g_i = h_i + (p - b_i) give
+        # p + sum(g_i - p) = c0 + sum h_i -- the same predictions, now
+        # in slider form with g_i(z_i) = p = f_hat(z).
+        pivot_vals = []
+        for group, tensor in zip(partition, tensors):
+            v = tensor
+            for dim in group:
+                nd = nodes_for_dim_np(float(domain[dim][0]),
+                                      float(domain[dim][1]),
+                                      int(n_nodes[dim]))
+                row = barycentric_rows_np(
+                    np.asarray([float(pivot_point[dim])]), nd,
+                    barycentric_weights_np(nd))[0]
+                v = np.tensordot(row, v, axes=(0, 0))
+            pivot_vals.append(float(v))
+        p = c0 + float(np.sum(pivot_vals))
+
+        slides = [
+            ChebyshevApproximation.from_values(
+                tensor + (p - b), len(group),
+                [list(domain[dim]) for dim in group],
+                [int(n_nodes[dim]) for dim in group],
+                max_derivative_order=max_derivative_order, device=device)
+            for group, tensor, b in zip(partition, tensors, pivot_vals)
+        ]
+        obj = cls._assemble(
+            num_dimensions=num_dimensions, domain=domain,
+            n_nodes=list(n_nodes), partition=partition,
+            pivot_point=list(pivot_point), slides=slides, pivot_value=p,
+            max_derivative_order=max_derivative_order, device=device)
+        obj.fit_diagnostics = diagnostics
         return obj
 
     @classmethod
@@ -1172,6 +1274,109 @@ class ChebyshevSlider:
     # Printing
     # ------------------------------------------------------------------
 
+    # ------------------------------------------------------------------
+    # Sensitivity and plots
+    # ------------------------------------------------------------------
+
+    def sobol_indices(self) -> dict:
+        """Analytic Sobol indices from the additive decomposition.
+
+        The slider form f ~ const + sum_G g_G(x_G) with independent
+        inputs makes cross-group interactions exactly zero, so the
+        global variance is the sum of per-slide variances and each
+        slide's internal Sobol structure (``utils.sensitivity``) scales
+        by V_G / V_total.  Indices are keyed by original dim index.
+        """
+        if not self._built:
+            raise RuntimeError("Call build() before sobol_indices().")
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            chebyshev_coefficient_tensor,
+            sobol_from_coeffs,
+        )
+        per_slide = [
+            sobol_from_coeffs(
+                chebyshev_coefficient_tensor(slide.tensor_values),
+                len(group))
+            for group, slide in zip(self.partition, self.slides)
+        ]
+        # sobol_from_coeffs variances carry the unnormalized Chebyshev
+        # measure mass pi^{ndim of that tensor}; divide it out so slides
+        # over different group sizes combine consistently.
+        v_norm = [res["variance"] / np.pi ** len(group)
+                  for group, res in zip(self.partition, per_slide)]
+        v_total_norm = sum(v_norm)
+        first = {}
+        total = {}
+        for group, res, v in zip(self.partition, per_slide, v_norm):
+            scale = v / v_total_norm if v_total_norm > 0 else 0.0
+            for j, d in enumerate(group):
+                first[d] = res["first_order"][j] * scale
+                total[d] = res["total_order"][j] * scale
+        return {
+            "first_order": dict(sorted(first.items())),
+            "total_order": dict(sorted(total.items())),
+            # report in the dense convention (mass pi^num_dimensions)
+            "variance": v_total_norm * np.pi ** self.num_dimensions,
+        }
+
+    def interaction_matrix(self) -> np.ndarray:
+        """(d, d) pure pairwise Sobol interaction shares.  Cross-group
+        entries are EXACTLY zero by the additive form; within a
+        multi-dim group the slide's own pair shares scale by its
+        variance fraction."""
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            chebyshev_coefficient_tensor,
+            pair_interactions_from_coeffs,
+        )
+        out = np.zeros((self.num_dimensions, self.num_dimensions))
+        v_norm = []
+        slide_pairs = []
+        for group, slide in zip(self.partition, self.slides):
+            coeffs = chebyshev_coefficient_tensor(slide.tensor_values)
+            pairs, variance = pair_interactions_from_coeffs(
+                coeffs, len(group), return_variance=True)
+            v_norm.append(variance / np.pi ** len(group))
+            slide_pairs.append(pairs)
+        v_total = sum(v_norm)
+        if v_total <= 0:
+            return out
+        for group, pairs, v in zip(self.partition, slide_pairs, v_norm):
+            scale = v / v_total
+            for a, da in enumerate(group):
+                for b, db in enumerate(group):
+                    out[da, db] = pairs[a, b] * scale
+        return out
+
+    def suggest_partition(self, threshold: float = 1e-8) -> list:
+        """Additive partition implied by :meth:`interaction_matrix`.
+        Never coarser than the slider's own partition, but it can be
+        FINER, when a multi-dim group's dims turn out not to interact
+        within the slide."""
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            partition_from_interactions,
+        )
+        return partition_from_interactions(self.interaction_matrix(),
+                                           threshold)
+
+    def plot_1d(self, ax=None, n_points=200, fixed=None):
+        """1-D slice plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_1d_impl
+        return plot_1d_impl(self, ax=ax, n_points=n_points, fixed=fixed)
+
+    def plot_2d_surface(self, ax=None, n_points=50, fixed=None):
+        """2-D surface plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_2d_surface_impl
+        return plot_2d_surface_impl(self, ax=ax, n_points=n_points,
+                                    fixed=fixed)
+
+    def plot_2d_contour(self, ax=None, n_points=50, n_levels=20, fixed=None):
+        """2-D contour plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_2d_contour_impl
+        return plot_2d_contour_impl(self, ax=ax, n_points=n_points,
+                                    n_levels=n_levels, fixed=fixed)
+
     def __repr__(self) -> str:
         return (f"ChebyshevSlider(dims={self.num_dimensions}, "
                 f"slides={len(self.partition)}, "
@@ -1219,7 +1424,4 @@ class ChebyshevSlider:
 
 
 
-mark_not_ported(ChebyshevSlider, (
-    "critical_points", "sobol_indices", "interaction_matrix",
-    "suggest_partition", "plot_1d", "plot_2d_surface", "plot_2d_contour"),
-    classmethods=("fit",))
+mark_not_ported(ChebyshevSlider, ("critical_points",))

@@ -22,10 +22,16 @@ Calculus runs piece by piece through the dense class: integrals clip
 every box to every piece, conditional expectations route the remaining
 dims as batches do, roots and 1-D optima merge the pieces' answers.
 
+``fit`` routes scattered samples to their pieces on the host (with
+``ops.spline_eval``'s routing: a point on a knot belongs to the right
+piece) and fits
+each piece through ``utils.fitting``.  The Sobol family aggregates the
+pieces by volume x variance; ``compose`` and ``hadamard`` work piece by
+piece; the plots and the ``.npz`` format are the dense class's.
+
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``fit``, the global ``minimize``/``maximize`` (``dim=None``),
-``critical_points``, the Sobol family, ``compose``, ``hadamard``, the
-plots, and ``save(format="npz")``.
+the global ``minimize``/``maximize`` (``dim=None``),
+``critical_points``, and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -637,9 +643,8 @@ class ChebyshevSpline:
             with open(path, "wb") as f:
                 binary.write_spline(f, self)
         elif format == "npz":
-            raise NotImplementedError(
-                "save(format='npz') is not ported yet; it waits for "
-                "utils/native_save.py (see ROADMAP.md)")
+            from pychebyshev_tpu_torch.utils.native_save import write_npz
+            write_npz(path, self)
         else:
             raise ValueError(
                 f"format must be 'pickle', 'binary', or 'npz'; "
@@ -648,12 +653,20 @@ class ChebyshevSpline:
 
     @classmethod
     def load(cls, path: str | os.PathLike, *, device) -> "ChebyshevSpline":
-        """Load from pickle or ``.pcb`` (magic-sniffed) onto ``device``;
-        only unpickle files this program wrote."""
-        from pychebyshev_tpu_torch.utils import binary
+        """Load from pickle, ``.pcb`` or ``.npz`` (magic-sniffed) onto
+        ``device``; only unpickle files this program wrote."""
+        from pychebyshev_tpu_torch.utils import binary, native_save
         if binary.detect_format(path) == "binary":
             with open(path, "rb") as f:
                 return binary.read_spline(f, device=device)
+        if native_save.detect_npz(path):
+            obj = native_save.read_npz(path, device=device)
+            if not isinstance(obj, cls):
+                raise TypeError(
+                    f"Expected a {cls.__name__} checkpoint, got "
+                    f"{type(obj).__name__}"
+                )
+            return obj
         with open(path, "rb") as f:
             obj = pickle.load(f)  # noqa: S301
         if not isinstance(obj, cls):
@@ -774,6 +787,137 @@ class ChebyshevSpline:
                              pieces=pieces,
                              max_derivative_order=max_derivative_order,
                              device=device)
+
+    @classmethod
+    def fit(cls, points, values, num_dimensions, domain, n_nodes, knots,
+            *, l2: float = 0.0, sample_weight=None, rcond=None,
+            derivative_data=None, engine: str = "host",
+            mesh=None, data_axis: str = "dp",
+            max_derivative_order: int = 2, device) -> "ChebyshevSpline":
+        """Least-squares spline from SCATTERED samples (kinked data).
+
+        Points route to their pieces exactly like ``eval_batch`` (a
+        point on a knot belongs to the right piece) and each piece
+        solves its own linear least-squares fit over its sub-domain
+        (``utils/fitting.py``): pieces never see each other's samples,
+        which is what lets the result capture a kink the samples
+        straddle.  Flat ``n_nodes`` only (as ``from_values``).
+
+        Every piece must contain samples (and at least
+        ``prod(n_nodes)`` of them when ``l2 == 0``); a ``ValueError``
+        names the starved piece otherwise.  ``derivative_data`` blocks
+        route like the value samples.  ``engine`` / ``mesh`` /
+        ``device`` forward to every piece's dense solve (see
+        :meth:`ChebyshevApproximation.fit`).
+
+        Returns a fully-built spline on ``device``; ``fit_diagnostics``
+        aggregates the overall training rms plus one per-piece
+        diagnostics dict.
+        """
+        from pychebyshev_tpu_torch.utils.fitting import (
+            fit_dense_tensor,
+            normalize_derivative_data,
+        )
+
+        if is_nested_n_nodes(n_nodes):
+            raise NotImplementedError(
+                "ChebyshevSpline.fit() accepts only flat n_nodes (one "
+                "int per dim, shared across pieces), like from_values()."
+            )
+        cls._validate_domain_knots(num_dimensions, domain, knots)
+        points = np.asarray(points, dtype=np.float64)
+        values = np.asarray(values, dtype=np.float64)
+        if points.ndim != 2 or points.shape[1] != num_dimensions:
+            raise ValueError(
+                f"points must be (N, {num_dimensions}), got "
+                f"{points.shape}")
+        if values.shape != (points.shape[0],):
+            raise ValueError(
+                f"values must be ({points.shape[0]},), got "
+                f"{values.shape}")
+        if sample_weight is not None:
+            sample_weight = np.asarray(sample_weight, dtype=np.float64)
+            if sample_weight.shape != (points.shape[0],):
+                raise ValueError(
+                    f"sample_weight must be ({points.shape[0]},), got "
+                    f"{sample_weight.shape}")
+
+        deriv_blocks = normalize_derivative_data(
+            derivative_data, num_dimensions, domain, n_nodes)
+
+        intervals = cls._compute_intervals(num_dimensions, domain, knots)
+        piece_shape = tuple(len(iv) for iv in intervals)
+        strides = spline_eval.piece_strides([len(k) for k in knots])
+
+        def route(pts):
+            return spline_eval.route_piece_indices(knots, strides,
+                                                   pts).numpy()
+
+        flat_idx = route(points)
+        block_idx = [route(pts) for pts, _, _, _ in deriv_blocks]
+
+        piece_values, per_piece = [], []
+        sse, w_total = 0.0, 0.0
+        for p, multi_idx in enumerate(np.ndindex(*piece_shape)):
+            mask = flat_idx == p
+            if not mask.any():
+                sub = [list(intervals[d][multi_idx[d]])
+                       for d in range(num_dimensions)]
+                raise ValueError(
+                    f"piece {p} (sub-domain {sub}) received no "
+                    f"samples; add samples there or move the knots"
+                )
+            sub_domain = [list(intervals[d][multi_idx[d]])
+                          for d in range(num_dimensions)]
+            piece_blocks = []
+            for (pts, orders, vals, weight), b_idx in zip(deriv_blocks,
+                                                          block_idx):
+                b_mask = b_idx == p
+                if b_mask.any():
+                    piece_blocks.append(
+                        (pts[b_mask], orders, vals[b_mask], weight))
+            try:
+                tensor, diag = fit_dense_tensor(
+                    points[mask], values[mask], sub_domain, n_nodes,
+                    l2=l2, rcond=rcond,
+                    derivative_data=piece_blocks or None,
+                    sample_weight=(None if sample_weight is None
+                                   else sample_weight[mask]),
+                    engine=engine, mesh=mesh, data_axis=data_axis,
+                    device=device)
+            except ValueError as e:
+                # Per-piece failures (underdetermined, all-zero weights
+                # within the piece, ...) name the piece: the global
+                # inputs may look fine while one piece starves.
+                raise ValueError(
+                    f"piece {p} (sub-domain {sub_domain}): {e}"
+                ) from None
+            piece_values.append(tensor)
+            per_piece.append(diag)
+            sse += diag["sse"]
+            w_total += (float(np.sum(sample_weight[mask]))
+                        if sample_weight is not None
+                        else float(diag["n_samples"]))
+
+        obj = cls.from_values(piece_values, num_dimensions, domain,
+                              list(n_nodes), knots,
+                              max_derivative_order=max_derivative_order,
+                              device=device)
+        obj.fit_diagnostics = {
+            "rms": float(np.sqrt(sse / w_total)) if w_total > 0 else 0.0,
+            "sse": sse,
+            "n_samples": int(points.shape[0]),
+            "l2": float(l2),
+            "per_piece": per_piece,
+            "max_abs_residual": max(
+                d["max_abs_residual"] for d in per_piece),
+        }
+        if deriv_blocks:
+            obj.fit_diagnostics["n_derivative_rows"] = int(
+                sum(b[0].shape[0] for b in deriv_blocks))
+            obj.fit_diagnostics["objective_sse"] = float(
+                sum(d.get("objective_sse", d["sse"]) for d in per_piece))
+        return obj
 
     @classmethod
     def _assemble(cls, *, num_dimensions, domain, n_nodes, knots, pieces,
@@ -1270,6 +1414,124 @@ class ChebyshevSpline:
     # Printing
     # ------------------------------------------------------------------
 
+    # ------------------------------------------------------------------
+    # Sensitivity
+    # ------------------------------------------------------------------
+
+    def sobol_indices(self) -> dict:
+        """Per-piece Sobol indices aggregated by volume x variance."""
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            chebyshev_coefficient_tensor,
+            sobol_from_coeffs,
+        )
+        if not self._built:
+            raise RuntimeError("Call build() first")
+
+        total_variance = 0.0
+        first_energy = {d: 0.0 for d in range(self.num_dimensions)}
+        total_energy = {d: 0.0 for d in range(self.num_dimensions)}
+
+        for piece in self._pieces:
+            if piece is None:
+                continue
+            vol = 1.0
+            for d in range(self.num_dimensions):
+                lo, hi = piece.domain[d]
+                vol *= (hi - lo)
+            coeffs = chebyshev_coefficient_tensor(piece.tensor_values)
+            res = sobol_from_coeffs(coeffs, self.num_dimensions)
+            total_variance += vol * res["variance"]
+            for d in range(self.num_dimensions):
+                first_energy[d] += vol * res["first_order"][d] * res["variance"]
+                total_energy[d] += vol * res["total_order"][d] * res["variance"]
+
+        if total_variance == 0:
+            zeros = {d: 0.0 for d in range(self.num_dimensions)}
+            return {"first_order": dict(zeros), "total_order": dict(zeros),
+                    "variance": 0.0}
+        return {
+            "first_order": {d: first_energy[d] / total_variance
+                            for d in range(self.num_dimensions)},
+            "total_order": {d: total_energy[d] / total_variance
+                            for d in range(self.num_dimensions)},
+            "variance": total_variance,
+        }
+
+    def interaction_matrix(self) -> np.ndarray:
+        """(d, d) pure pairwise Sobol interaction shares, aggregated
+        over pieces by volume x variance like :meth:`sobol_indices`."""
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            chebyshev_coefficient_tensor,
+            pair_interactions_from_coeffs,
+        )
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        d = self.num_dimensions
+        out = np.zeros((d, d))
+        total_variance = 0.0
+        for piece in self._pieces:
+            if piece is None:
+                continue
+            vol = float(np.prod([hi - lo for lo, hi in piece.domain]))
+            coeffs = chebyshev_coefficient_tensor(piece.tensor_values)
+            pairs, variance = pair_interactions_from_coeffs(
+                coeffs, d, return_variance=True)
+            total_variance += vol * variance
+            out += vol * variance * pairs
+        if total_variance <= 0:
+            return np.zeros((d, d))
+        return out / total_variance
+
+    def suggest_partition(self, threshold: float = 1e-8) -> list:
+        """Additive partition implied by :meth:`interaction_matrix`
+        (union-find over above-threshold pairs)."""
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            partition_from_interactions,
+        )
+        return partition_from_interactions(self.interaction_matrix(),
+                                           threshold)
+
+    # ------------------------------------------------------------------
+    # Node-wise products and plots
+    # ------------------------------------------------------------------
+
+    def compose(self, g) -> "ChebyshevSpline":
+        """Scalar-function composition per piece (see
+        ``ChebyshevApproximation.compose``); each piece's grid must
+        resolve ``g∘f`` on its sub-domain."""
+        return ChebyshevSpline._from_pieces(
+            self, [p.compose(g) for p in self._pieces])
+
+    def hadamard(self, other) -> "ChebyshevSpline":
+        """Node-wise product spline (per-piece ``hadamard``; see
+        ``ChebyshevApproximation.hadamard`` for the accuracy caveat)."""
+        if type(self) is not type(other):
+            raise TypeError(
+                f"hadamard requires another {type(self).__name__}, got "
+                f"{type(other).__name__}"
+            )
+        self._check_spline_compatible(other)
+        return ChebyshevSpline._from_pieces(
+            self, [ps.hadamard(po)
+                   for ps, po in zip(self._pieces, other._pieces)])
+
+    def plot_1d(self, ax=None, n_points=200, fixed=None):
+        """1-D slice plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_1d_impl
+        return plot_1d_impl(self, ax=ax, n_points=n_points, fixed=fixed)
+
+    def plot_2d_surface(self, ax=None, n_points=50, fixed=None):
+        """2-D surface plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_2d_surface_impl
+        return plot_2d_surface_impl(self, ax=ax, n_points=n_points,
+                                    fixed=fixed)
+
+    def plot_2d_contour(self, ax=None, n_points=50, n_levels=20, fixed=None):
+        """2-D contour plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_2d_contour_impl
+        return plot_2d_contour_impl(self, ax=ax, n_points=n_points,
+                                    n_levels=n_levels, fixed=fixed)
+
     def __repr__(self) -> str:
         return (f"ChebyshevSpline(dims={self.num_dimensions}, "
                 f"pieces={self.num_pieces}, shape={self._shape}, "
@@ -1382,7 +1644,4 @@ class ChebyshevSpline:
 
 
 
-mark_not_ported(ChebyshevSpline, (
-    "critical_points", "sobol_indices", "interaction_matrix",
-    "suggest_partition", "compose", "hadamard", "plot_1d",
-    "plot_2d_surface", "plot_2d_contour"), classmethods=("fit",))
+mark_not_ported(ChebyshevSpline, ("critical_points",))

@@ -26,10 +26,18 @@ with moment rows on the device (``ops.integrate``); roots and 1-D optima
 resample slices on the device and solve on the host; ``to_slider``
 slices through the pivot.
 
+``fit`` completes a TT from scattered samples by alternating least
+squares (``utils.fitting.fit_tt_cores``: host f64, or the ``device``
+engine with rows, interfaces and Grams on the device in f32);
+``run_completion`` refines a built TT against the full grid
+(``tt_algorithms.als_fixed_rank_sweeps``).  The Sobol family runs on the
+coefficient cores (``utils.sensitivity``); ``hadamard`` and ``compose``
+work in value space with TT rounding; the plots and the ``.npz`` format
+are shared with the other classes.
+
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
 the global ``minimize``/``maximize`` (``dim=None``),
-``critical_points``, ``run_completion``, ``fit``, the Sobol family,
-``hadamard``, ``compose``, the plots, and ``save(format="npz")``.
+``critical_points``, and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -296,6 +304,35 @@ class ChebyshevTT:
             self._coeff_cores[k - 1], self._coeff_cores[k] = (
                 tta.orth_right_core(self._coeff_cores[k - 1],
                                     self._coeff_cores[k]))
+
+    def run_completion(self, tolerance: float = 1e-8, max_iter: int = 50,
+                       verbose: bool = False, mesh=None,
+                       data_axis: str = "dp") -> None:
+        """Refine the TT at its current rank via fixed-rank ALS sweeps
+        against fresh grid samples (re-evaluates the function on the full
+        grid; rank does not grow).  ``mesh`` is not ported."""
+        if mesh is not None:
+            raise not_ported_error(type(self).__name__, "run_completion",
+                                   form="with mesh=")
+        self._check_built()
+        if self.function is None:
+            raise RuntimeError(
+                "run_completion requires self.function to be callable; "
+                "the TT was loaded from a source without the original "
+                "function."
+            )
+        value_cores = [tta.coeff_core_to_value_core(c)
+                       for c in self._coeff_cores]
+        oracle = tta.GridOracle(self.function, self._storage_grids(),
+                                additional_data=self.additional_data,
+                                vectorized=self.vectorized)
+        target = oracle.full_tensor(list(self.n_nodes))
+        refined = tta.als_fixed_rank_sweeps(
+            value_cores, target, tolerance=tolerance, max_iter=max_iter,
+            verbose=verbose)
+        self._coeff_cores = [tta.value_core_to_coeff_core(c)
+                             for c in refined]
+        self._cached_error_estimate = None
 
     # ------------------------------------------------------------------
     # Inner product / integration / calculus
@@ -1429,6 +1466,55 @@ class ChebyshevTT:
             method="svd", device=device)
 
     @classmethod
+    def fit(cls, points, values, num_dimensions: int, domain, n_nodes,
+            *, max_rank: int = 5, l2: float = 1e-10, sweeps: int = 10,
+            seed: int = 0, sample_weight=None, derivative_data=None,
+            max_derivative_order: int = 2, additional_data=None,
+            descriptor: str = "", engine: str = "host", mesh=None,
+            data_axis: str = "dp", device) -> "ChebyshevTT":
+        """TT completion from SCATTERED samples.
+
+        Alternating least squares over the sample set: holding all
+        cores but one fixed, the model is linear in that core, so each
+        sweep is d small regularized solves with per-sample TT interface
+        vectors (``utils/fitting.py::fit_tt_cores``).  NONCONVEX: the
+        result is a local optimum dependent on ``seed``'s random init;
+        check ``fit_diagnostics['rms']`` (and its per-sweep history)
+        against the noise level.
+
+        ``engine="device"`` runs the per-core designs, the Gram products
+        and both interface chains on ``device`` in IEEE f32 (for
+        noise-dominated huge-N fits); solves, QR and the residual
+        diagnostics stay host f64.  ``mesh`` is not ported.  The result
+        lives on ``device``.
+        """
+        from pychebyshev_tpu_torch.utils.fitting import fit_tt_cores
+        domain, n_nodes = _unwrap_typed(domain, n_nodes)
+        if len(domain) != num_dimensions or len(n_nodes) != num_dimensions:
+            raise ValueError(
+                f"len(domain)={len(domain)} and len(n_nodes)="
+                f"{len(n_nodes)} must both equal num_dimensions="
+                f"{num_dimensions}")
+
+        value_cores, diagnostics = fit_tt_cores(
+            points, values, domain, n_nodes, max_rank=max_rank, l2=l2,
+            sweeps=sweeps, seed=seed, sample_weight=sample_weight,
+            derivative_data=derivative_data, engine=engine, mesh=mesh,
+            data_axis=data_axis, device=device)
+        coeff_cores = [tta.value_core_to_coeff_core(c)
+                       for c in value_cores]
+        # tolerance feeds downstream algebra's TT-rounding; 1e-12 keeps
+        # the fitted structure (the fit itself has no grid tolerance).
+        obj = cls._from_coeff_cores(
+            coeff_cores, domain, n_nodes,
+            dim_order=list(range(num_dimensions)), max_rank=max_rank,
+            tolerance=1e-12, max_derivative_order=max_derivative_order,
+            additional_data=additional_data, descriptor=descriptor,
+            method="als", device=device)
+        obj.fit_diagnostics = diagnostics
+        return obj
+
+    @classmethod
     def _from_coeff_cores(cls, coeff_cores, domain, n_nodes, *,
                           dim_order, max_rank, tolerance,
                           max_derivative_order=2, additional_data=None,
@@ -1566,16 +1652,15 @@ class ChebyshevTT:
 
     def save(self, path: str | os.PathLike,
              format: str = "pickle") -> None:
-        """Save to pickle (the function is excluded).  The pickle-free
-        ``.npz`` format is not ported yet."""
+        """Save to pickle (default) or the pickle-free ``.npz`` (cores and
+        metadata); the function is excluded either way."""
         self._check_built()
         if format == "pickle":
             with open(os.fspath(path), "wb") as f:
                 pickle.dump(self, f, protocol=pickle.HIGHEST_PROTOCOL)
         elif format == "npz":
-            raise NotImplementedError(
-                "ChebyshevTT.save(format='npz') is not ported yet (it "
-                "comes with utils/native_save.py, see ROADMAP.md)")
+            from pychebyshev_tpu_torch.utils.native_save import write_npz
+            write_npz(path, self)
         else:
             raise ValueError(
                 f"format must be 'pickle' or 'npz', got {format!r}"
@@ -1583,14 +1668,18 @@ class ChebyshevTT:
 
     @classmethod
     def load(cls, path: str | os.PathLike, *, device) -> "ChebyshevTT":
-        """Load a pickle this class wrote, onto ``device``; only load
-        trusted pickle files.  ``.npz`` checkpoints are not ported yet."""
+        """Load from pickle or ``.npz`` (magic-sniffed) onto ``device``;
+        only load trusted pickle files."""
+        from pychebyshev_tpu_torch.utils import native_save
+        if native_save.detect_npz(path):
+            obj = native_save.read_npz(path, device=device)
+            if not isinstance(obj, cls):
+                raise TypeError(
+                    f"Expected a {cls.__name__} checkpoint, got "
+                    f"{type(obj).__name__}"
+                )
+            return obj
         with open(os.fspath(path), "rb") as f:
-            if f.read(2) == b"PK":
-                raise NotImplementedError(
-                    "loading an .npz checkpoint is not ported yet (it "
-                    "comes with utils/native_save.py, see ROADMAP.md)")
-            f.seek(0)
             obj = pickle.load(f)  # noqa: S301
         if not isinstance(obj, cls):
             raise TypeError(
@@ -1679,6 +1768,135 @@ class ChebyshevTT:
                 f"domain mismatch: {self.domain} vs {other.domain}"
             )
 
+    def hadamard(self, other: "ChebyshevTT", *,
+                 max_rank: Optional[int] = None,
+                 tolerance: Optional[float] = None) -> "ChebyshevTT":
+        """Node-wise product TT: interpolant of ``f·g`` at the shared
+        grid.
+
+        Exact construction in VALUE space (per-core Kronecker products
+        give the elementwise product of the two value tensors with bond
+        ranks ``r_a·r_b``), then TT-SVD rounding to ``max_rank``
+        (default ``max(self.max_rank, other.max_rank)``).  The product
+        roughly doubles the polynomial degree: accurate only when the
+        shared grid resolves it (check ``result.error_estimate()``).
+        """
+        self._check_compatible_tt(other)
+        target_rank = (max_rank if max_rank is not None
+                       else max(self.max_rank, other.max_rank))
+        prod_cores = []
+        for ca, cb in zip(self._coeff_cores, other._coeff_cores):
+            va = tta.coeff_core_to_value_core(ca)
+            vb = tta.coeff_core_to_value_core(cb)
+            ra_l, n, ra_r = va.shape
+            rb_l, _, rb_r = vb.shape
+            merged = np.einsum("anb,cnd->acnbd", va, vb)
+            prod_cores.append(
+                merged.reshape(ra_l * rb_l, n, ra_r * rb_r))
+        tol = self.tolerance if tolerance is None else float(tolerance)
+        rounded = tta.tt_round_cores(prod_cores, max_rank=target_rank,
+                                     tolerance=tol)
+        coeff = [tta.value_core_to_coeff_core(c) for c in rounded]
+        return self._assemble(coeff, self.domain, self.n_nodes,
+                              self._dim_order, max_rank=target_rank)
+
+    def _constant_like(self, value: float,
+                       max_rank: Optional[int] = None) -> "ChebyshevTT":
+        """Rank-1 constant TT on this grid/frame (algebra helper) whose
+        cap is ``max_rank`` (default this TT's)."""
+        cores = []
+        for n in self.n_nodes:
+            vcore = np.full((1, int(n), 1), 1.0)
+            cores.append(tta.value_core_to_coeff_core(vcore))
+        cores[0] = cores[0] * float(value)
+        return self._assemble(
+            cores, self.domain, self.n_nodes, self._dim_order,
+            max_rank=self.max_rank if max_rank is None else max_rank)
+
+    def compose(self, g, *, degree: int = 16, f_range=None,
+                max_rank: Optional[int] = None,
+                tolerance: float = 1e-12,
+                n_range_samples: int = 2048,
+                seed: int = 0) -> "ChebyshevTT":
+        """Scalar-function composition ``g(f(x))`` as a new TT.
+
+        Chebyshev-expands ``g`` (vectorized over a 1-D NumPy array) to
+        ``degree`` on the range of this interpolant and evaluates the
+        expansion in TT arithmetic by the Clenshaw recurrence, each
+        Chebyshev power built from rounded ``hadamard`` products, so the
+        original function is not sampled again.  ``f_range`` is the
+        (lo, hi) interval the expansion targets; by default it is the
+        range of ``n_range_samples`` random evaluations (on the device)
+        padded by 5%.  ``max_rank`` caps every intermediate (default:
+        this TT's cap); ``tolerance`` is the intermediates' rounding
+        threshold.  The result converges to the grid's interpolant of
+        ``g∘f``; check ``result.error_estimate()``.
+        """
+        self._check_built()
+        if degree < 1:
+            raise ValueError(f"degree must be >= 1, got {degree}")
+        cap = int(max_rank) if max_rank is not None else self.max_rank
+
+        if f_range is None:
+            rng = np.random.default_rng(seed)
+            dom = np.asarray(self._user_frame_domain(), dtype=np.float64)
+            pts = dom[:, 0] + (dom[:, 1] - dom[:, 0]) * rng.uniform(
+                0.0, 1.0, size=(n_range_samples, self.num_dimensions))
+            vals = self.eval_batch(pts)
+            lo, hi = float(vals.min()), float(vals.max())
+            pad = 0.05 * max(hi - lo, 1e-12)
+            lo, hi = lo - pad, hi + pad
+        else:
+            lo, hi = float(f_range[0]), float(f_range[1])
+            if not lo < hi:
+                raise ValueError(
+                    f"f_range must satisfy lo < hi, got ({lo}, {hi})")
+
+        # Chebyshev coefficients of h(t) = g(mid + half*t) on [-1, 1].
+        from numpy.polynomial.chebyshev import Chebyshev
+        mid, half = 0.5 * (hi + lo), 0.5 * (hi - lo)
+        series = Chebyshev.interpolate(
+            lambda t: np.asarray(g(mid + half * t), dtype=np.float64),
+            degree)
+        coeffs = series.coef  # length degree+1
+        if not np.isfinite(coeffs).all():
+            raise ValueError(
+                f"g returned non-finite values on the expansion range "
+                f"({lo:.6g}, {hi:.6g}) — pass f_range explicitly to "
+                f"restrict it to g's domain (the default pads the "
+                f"sampled range of f by 5%)"
+            )
+
+        # Every intermediate carries the TIGHT rounding tolerance: the
+        # operand's build tolerance would floor the whole composition at
+        # that level, while the rank cap is the intended accuracy
+        # control here.
+        tol = float(tolerance)
+
+        def _tight(tt):
+            tt.tolerance = tol
+            return tt
+
+        t_tt = _tight(_tight(self * (1.0 / half))
+                      + self._constant_like(-mid / half, max_rank=cap))
+
+        # Clenshaw: b_k = c_k + 2 t⊙b_{k+1} - b_{k+2}.
+        b1 = _tight(self._constant_like(0.0, max_rank=cap))
+        b2 = _tight(self._constant_like(0.0, max_rank=cap))
+        for k in range(degree, 0, -1):
+            nxt = t_tt.hadamard(b1, max_rank=cap, tolerance=tol) * 2.0
+            nxt = _tight(nxt - b2
+                         + self._constant_like(float(coeffs[k]),
+                                               max_rank=cap))
+            b2, b1 = b1, nxt
+        out = (t_tt.hadamard(b1, max_rank=cap, tolerance=tol) - b2
+               + self._constant_like(float(coeffs[0]), max_rank=cap))
+        rounded = tta.tt_round_cores(
+            [c.copy() for c in out._coeff_cores], max_rank=cap,
+            tolerance=tol)
+        return self._assemble(rounded, self.domain, self.n_nodes,
+                              self._dim_order, max_rank=cap)
+
     def __add__(self, other: "ChebyshevTT") -> "ChebyshevTT":
         """Block-diagonal core stacking + TT-SVD rounding to
         ``max(self.max_rank, other.max_rank)``."""
@@ -1752,8 +1970,65 @@ class ChebyshevTT:
         return self.eval_batch(points).cpu().numpy()
 
 
+    def sobol_indices(self) -> dict:
+        """First/total-order Sobol indices from coefficient cores,
+        O(d n r^2); keys are user-frame dims."""
+        self._check_built()
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            sobol_from_tt_cores,
+        )
+        storage = sobol_from_tt_cores(self._coeff_cores)
+        user_first, user_total = {}, {}
+        for s in range(self.num_dimensions):
+            user_d = self._dim_order[s]
+            user_first[user_d] = storage["first_order"][s]
+            user_total[user_d] = storage["total_order"][s]
+        return {"first_order": user_first, "total_order": user_total,
+                "variance": storage["variance"]}
 
-mark_not_ported(ChebyshevTT, (
-    "critical_points", "run_completion", "sobol_indices", "interaction_matrix",
-    "suggest_partition", "hadamard", "compose", "plot_1d", "plot_2d_surface",
-    "plot_2d_contour"), classmethods=("fit",))
+    def interaction_matrix(self) -> np.ndarray:
+        """(d, d) pure pairwise Sobol interaction shares, user-frame
+        dims: entry (i, j) is ``S^closed_{ij} - S_i - S_j``, computed
+        from the coefficient cores in O(d^3 n r^2).  Zero (to roundoff)
+        exactly where the function is additively separable."""
+        self._check_built()
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            tt_pair_interactions,
+        )
+        storage = tt_pair_interactions(self._coeff_cores)
+        d = self.num_dimensions
+        out = np.zeros((d, d))
+        for si in range(d):
+            for sj in range(d):
+                out[self._dim_order[si], self._dim_order[sj]] = \
+                    storage[si, sj]
+        return out
+
+    def suggest_partition(self, threshold: float = 1e-8) -> list:
+        """Additive partition from the interaction matrix (user frame);
+        feed it to :meth:`to_slider`."""
+        from pychebyshev_tpu_torch.utils.sensitivity import (
+            partition_from_interactions,
+        )
+        return partition_from_interactions(self.interaction_matrix(),
+                                           threshold)
+
+    def plot_1d(self, ax=None, n_points=200, fixed=None):
+        """1-D slice plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_1d_impl
+        return plot_1d_impl(self, ax=ax, n_points=n_points, fixed=fixed)
+
+    def plot_2d_surface(self, ax=None, n_points=50, fixed=None):
+        """2-D surface plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_2d_surface_impl
+        return plot_2d_surface_impl(self, ax=ax, n_points=n_points,
+                                    fixed=fixed)
+
+    def plot_2d_contour(self, ax=None, n_points=50, n_levels=20, fixed=None):
+        """2-D contour plot (requires matplotlib)."""
+        from pychebyshev_tpu_torch.utils.viz import plot_2d_contour_impl
+        return plot_2d_contour_impl(self, ax=ax, n_points=n_points,
+                                    n_levels=n_levels, fixed=fixed)
+
+
+mark_not_ported(ChebyshevTT, ("critical_points",))

@@ -1,6 +1,7 @@
 """Chebyshev value <-> coefficient transforms as explicit cosine matrices
 (the error estimate's transform, the tensor-train cores' in both
-directions, and the DCT-III behind the quadrature weights).
+directions, the DCT-III behind the quadrature weights, and
+``values_to_coeffs`` on a torch tensor for the Sobol indices).
 
 One constant matrix per n and direction bakes in the reference
 convention (reverse to descending node order, DCT-II, divide by n, halve
@@ -12,8 +13,10 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
-__all__ = ["_coeff_matrix_np", "_synthesis_matrix_np", "_dct3_matrix_np"]
+__all__ = ["_coeff_matrix_np", "_synthesis_matrix_np", "_dct3_matrix_np",
+           "values_to_coeffs"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,3 +62,13 @@ def _dct3_matrix_np(n: int) -> np.ndarray:
     mat = 2.0 * np.cos(np.pi * k * (2.0 * j + 1.0) / (2.0 * n))
     mat[:, 0] = 1.0
     return np.ascontiguousarray(mat)
+
+
+def values_to_coeffs(values: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Chebyshev coefficients along ``axis`` from values at ascending
+    nodes, on the tensor's device and in its dtype."""
+    n = values.shape[axis]
+    mat = torch.as_tensor(_coeff_matrix_np(n), dtype=values.dtype,
+                          device=values.device)
+    out = torch.tensordot(values, mat, dims=([axis], [1]))
+    return torch.movedim(out, -1, axis)

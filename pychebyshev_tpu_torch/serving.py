@@ -45,9 +45,11 @@ groups is served as exact zeros without touching the device.  At
 ``dtype="dd"`` the whole sum is one f64 contraction, refusing the
 sliders the reference's plan refuses.
 
-``integrate_book`` integrates a same-grid dense book over a batch of
-boxes in one pass (``ops.integrate``).  ``build_book``,
-``save_book``/``load_book`` and mesh sharding are not ported yet.
+``build_book`` builds a same-grid dense book from one vectorized call
+over the grid (its models share one set of grid tensors),
+``integrate_book`` integrates such a book over a batch of boxes in one
+pass (``ops.integrate``), and ``save_book``/``load_book`` keep it as one
+pickle-free ``.npz``.  Mesh sharding is not ported yet.
 
 Example
 -------
@@ -75,7 +77,7 @@ from pychebyshev_tpu_torch.ops import (
 )
 
 __all__ = ["BatchedEvaluator", "MultiSpecEvaluator", "MultiModelEvaluator",
-           "integrate_book"]
+           "build_book", "integrate_book", "save_book", "load_book"]
 
 _DEFAULT_BUCKETS = (1 << 10, 1 << 14, 1 << 17, 1 << 20)
 
@@ -806,6 +808,138 @@ class MultiModelEvaluator(_Engine):
         """Evaluate every model at (N, d) points -> (M, N) tensor on the
         engine device."""
         return self._serve(points)
+
+
+def build_book(function, num_dimensions, domain, n_nodes, *,
+               additional_data=None, num_models=None,
+               max_derivative_order: int = 2, verbose: bool = False,
+               mesh=None, data_axis: str = "dp", device):
+    """Build M same-grid dense interpolants from ONE vectorized call.
+
+    The build-side counterpart of :class:`MultiModelEvaluator`: a book
+    of M products priced over one shared grid evaluates every (grid
+    point, model) pair in a single batched call to *function*, instead
+    of M sequential ``build()`` loops.
+
+    Parameters
+    ----------
+    function : callable ``f(points, additional_data) -> (G, M)``,
+        vectorized over both grid points and models: ``points`` is the
+        full ``(G, num_dimensions)`` Chebyshev grid in C order (host
+        NumPy) and the return carries one column per model.  A NumPy
+        result is built on the host and moved to ``device``; a torch
+        tensor goes to ``device`` without passing through the host.
+    num_dimensions, domain, n_nodes : as in
+        :class:`~pychebyshev_tpu_torch.ChebyshevApproximation`;
+        ``n_nodes`` must be explicit positive ints.
+    num_models : optional expected M; validates the output width.
+    max_derivative_order : forwarded to every model.
+    mesh : not ported; a value other than ``None`` raises
+        ``NotImplementedError``.
+    device : where the models live.
+
+    Returns
+    -------
+    list[ChebyshevApproximation] -- M fully-built models SHARING one set
+    of node/weight/differentiation tensors.  Each model reports the
+    book's wall time as its ``build_time`` and the shared grid size G as
+    ``n_evaluations``.
+    """
+    import time as _time
+
+    from pychebyshev_tpu_torch.models.approximation import (
+        ChebyshevApproximation,
+        _unwrap_typed,
+    )
+    from pychebyshev_tpu_torch.utils.unported import not_ported_error
+
+    if mesh is not None:
+        raise not_ported_error("serving", "build_book", form="with mesh=")
+    domain, n_nodes, _ = _unwrap_typed(domain, n_nodes, None)
+    if n_nodes is None or any(
+        not isinstance(n, (int, np.integer)) or n <= 0
+        for n in list(n_nodes)
+    ):
+        raise ValueError(
+            "build_book requires explicit positive int n_nodes; "
+            "error-threshold auto-N calibrates one model's error and "
+            "does not extend to a shared book grid"
+        )
+    if num_models is not None and int(num_models) < 1:
+        raise ValueError(f"num_models must be >= 1, got {num_models}")
+
+    start = _time.time()
+    # The template owns the grid tensors every model shares (and runs
+    # the full ctor validation on domain / n_nodes).
+    template = ChebyshevApproximation(
+        None, num_dimensions, domain, n_nodes,
+        max_derivative_order=max_derivative_order, defer_build=True,
+        device=device)
+    grid = ChebyshevApproximation.nodes(num_dimensions, domain, n_nodes)
+    points = grid["full_grid"]
+    shape = grid["shape"]
+    n_grid = int(points.shape[0])
+
+    values = function(points, additional_data)
+    on_host = not isinstance(values, torch.Tensor)
+    values = (np.asarray(values, dtype=np.float64) if on_host
+              else values.detach().to(device=template.device,
+                                      dtype=torch.float64))
+    if values.ndim != 2 or int(values.shape[0]) != n_grid:
+        raise ValueError(
+            f"book function must return shape (G, M) = ({n_grid}, "
+            f"num_models); got {tuple(values.shape)}"
+        )
+    n_models = int(values.shape[1])
+    if num_models is not None and n_models != int(num_models):
+        raise ValueError(
+            f"book function returned {n_models} model columns, "
+            f"expected num_models={int(num_models)}"
+        )
+
+    col_finite = (np.isfinite(values).all(axis=0) if on_host
+                  else torch.isfinite(values).all(dim=0).cpu().numpy())
+    if not col_finite.all():
+        bad = np.nonzero(~col_finite)[0].tolist()
+        raise ValueError(
+            f"book function returned non-finite values in model "
+            f"column(s) {bad}; build cannot proceed with NaN/Inf in "
+            f"tensor_values"
+        )
+
+    # (G, M) -> (M, *shape): one transpose+reshape, where the values are.
+    stacked = values.T.reshape((n_models,) + tuple(shape))
+    elapsed = _time.time() - start
+
+    models = []
+    for m in range(n_models):
+        model = ChebyshevApproximation._from_grid(template, stacked[m],
+                                                  share_grid=True)
+        model.build_time = elapsed
+        model.n_evaluations = n_grid
+        models.append(model)
+    if verbose:
+        where = "host" if on_host else "device"
+        print(f"Built a {n_models}-model book in {elapsed:.3f}s "
+              f"({n_grid:,} grid points x {n_models} models, one "
+              f"{where} call)")
+    return models
+
+
+def save_book(path, models) -> None:
+    """Checkpoint a same-grid dense book to ONE pickle-free ``.npz``
+    (the shared grid once, the M tensors stacked); :func:`load_book`
+    reconstructs M grid-sharing models.  The file is the JAX package's
+    format (``utils.native_save.write_book_npz``)."""
+    from pychebyshev_tpu_torch.utils.native_save import write_book_npz
+    write_book_npz(path, models)
+
+
+def load_book(path, *, device):
+    """Load a dense book saved by :func:`save_book` onto ``device``
+    (grid-sharing models, validated through ``from_values``)."""
+    from pychebyshev_tpu_torch.utils.native_save import read_book_npz
+    return read_book_npz(path, device=device)
 
 
 def integrate_book(models, bounds, dtype=None) -> np.ndarray:

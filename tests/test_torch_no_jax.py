@@ -42,6 +42,8 @@ def test_package_covers_the_slice():
                  "utils.calculus", "utils.extrude_slice",
                  "utils.convert", "utils.derivative_ids",
                  "utils.parallel_build", "utils.unported",
+                 "utils.fitting", "utils.sensitivity",
+                 "utils.native_save", "utils.viz",
                  "models.approximation",
                  "models.spline", "models.slider",
                  "models.tensor_train", "models.tt_algorithms", "serving"):

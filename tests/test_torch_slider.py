@@ -258,8 +258,12 @@ class TestSerialization:
                              [[0], [1], [2]], [0.0] * 3, device="cpu")
         with pytest.raises(RuntimeError, match="unbuilt"):
             sl.save(tmp_path / "x.pkl")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            slider_3d[1].save(tmp_path / "x.npz", format="npz")
+        path = tmp_path / "x.npz"
+        slider_3d[1].save(path, format="npz")
+        loaded = ChebyshevSlider.load(path, device="cpu")
+        point = [0.3, 0.2, 0.1]
+        assert (loaded.eval(point, [0, 0, 0])
+                == slider_3d[1].eval(point, [0, 0, 0]))
 
     def test_clone(self, slider_3d):
         port = slider_3d[1]
@@ -309,14 +313,15 @@ class TestSurface:
                                       "plot_1d"])
     def test_unported_methods_name_the_roadmap(self, slider_3d, name):
         ref, port = slider_3d
-        if name in CALCULUS and (name != "minimize"
-                                 or port.num_dimensions == 1):
+        if name in CALCULUS + HOST_TAIL and (name != "minimize"
+                                             or port.num_dimensions == 1):
             _bare_call_as_reference(ref, port, name)
         else:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 getattr(port, name)()
+        _bare_call_as_reference(ref, port, "fit")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ChebyshevSlider.fit()
+            port.critical_points()
 
 
 class TestBatchValidation:
@@ -395,10 +400,12 @@ class TestSliderToTT:
 # Ported with the calculus slice (a bare minimize on more than one dim
 # is the global form, which still waits).
 CALCULUS = ["integrate", "roots", "minimize", "extrude", "slice"]
+# Ported with the host-tail and fit slice.
+HOST_TAIL = ["sobol_indices", "plot_1d", "fit"]
 
 
 def _bare_call_as_reference(ref, port, name):
-    """Called with no arguments, a method ported with the calculus slice
+    """Called with no arguments, a method ported by an earlier slice
     returns what the reference's returns, or raises its error."""
     try:
         want = getattr(ref, name)()
@@ -407,6 +414,24 @@ def _bare_call_as_reference(ref, port, name):
             getattr(port, name)()
         assert str(got.value) == str(exc)
         return
-    np.testing.assert_allclose(np.asarray(getattr(port, name)(), float),
-                               np.asarray(want, float), rtol=1e-12,
-                               atol=1e-10)
+    np.testing.assert_allclose(_flat(getattr(port, name)()), _flat(want),
+                               rtol=1e-12, atol=1e-10)
+
+
+def _flat(result):
+    """A bare call's result as a flat list of floats: dict values in key
+    order, nested lists in order, a plot's line data; nothing for
+    None."""
+    if result is None:
+        return []
+    if isinstance(result, dict):
+        return [v for k in sorted(result) for v in _flat(result[k])]
+    if isinstance(result, (list, tuple)):
+        return [v for item in result for v in _flat(item)]
+    if hasattr(result, "get_lines"):
+        import matplotlib.pyplot as plt
+        data = [v for line in result.get_lines()
+                for v in np.ravel(line.get_xydata())]
+        plt.close(result.figure)
+        return data
+    return np.ravel(np.asarray(result, float)).tolist()
