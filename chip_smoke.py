@@ -59,6 +59,19 @@ TT-ALS fit of ``scripts/bench_tt_fit.py`` (10^6 samples), config 5's
 portfolio with ``run_completion``, and a six-model ``build_book`` with
 its ``.npz`` files and Sobol indices.
 
+Then global calculus (a host branch-and-bound whose dense box
+statistics run as f64 GEMMs on the card; no kernel of its own): the
+statistics held to the NumPy route and swept against it across sizes
+(on the card and in PyTorch on the host), the certified minimum and
+maximum of the 11^5 interpolant over its box and with K pinned, each
+witnessed by 2^20 points through K3 and each certified one held to the
+same search on the NumPy route, the rows of
+``scripts/bench_global_calculus.py`` (2-D to 5-D dense, a kinked spline,
+a 10-D slider, a TT, critical points, ``solve_system``) against the same
+calls on CPU builds of the same models, at the card's threshold and with
+every box statistic forced onto the card, and the main path's two
+busiest searches end to end at several card thresholds.
+
 Run from the repository root, with one CUDA card:
 
     python3 chip_smoke.py
@@ -70,13 +83,16 @@ without the package beside this file) it exits non-zero.
 
 from __future__ import annotations
 
+import cProfile
 import json
+import pstats
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -91,12 +107,14 @@ from pychebyshev_tpu_torch import (
     ChebyshevTT,
     MultiModelEvaluator,
     MultiSpecEvaluator,
+    solve_system,
 )
 from pychebyshev_tpu_torch.ops import (
     _build,
     fused_dd,
     fused_eval,
     spline_eval,
+    subdivision,
     tt_eval,
     tt_eval_dd,
 )
@@ -118,6 +136,7 @@ from pychebyshev_tpu_torch.serving import (
 )
 from pychebyshev_tpu_torch.utils import ceval
 from pychebyshev_tpu_torch.utils import fitting as fit_ops
+from pychebyshev_tpu_torch.utils import globalcalc
 from pychebyshev_tpu_torch.utils.calculus import normalize_bounds_batch
 
 ROOT = Path(__file__).resolve().parent
@@ -187,6 +206,25 @@ TT_FIT_RMS_REL = 0.1
 PORTFOLIO_ERR = 1e-4
 # Phase 38's book: six dividend yields of the 5-D Black-Scholes price.
 BOOK_YIELDS = np.array([0.0, 0.01, 0.02, 0.03, 0.04, 0.05])
+# Global calculus (phases 39-42): the box stats' routes agree per
+# quantity within 1e-13 of the box's |c| mass; phase 39 sweeps these
+# sizes at 16 and 512 boxes.  The main path's searches run at tol =
+# 1e-9 x the price scale; a witness may undercut a certified bound by
+# 1e-10 x scale of f64 roundoff; the value at the returned point, the
+# same search on the NumPy route and a CPU build of the same model agree
+# within 1e-12 x scale.  Phase 42 runs the main path's two busiest
+# searches at each card threshold of STATS_THRESHOLDS, in the order
+# A B C D D C B A, and a CPU build's K-pinned search at each
+# CPU_STATS_THRESHOLDS, A B B A.
+STATS_VS_NUMPY = 1e-13
+STATS_BOXES = 512
+STATS_SWEEP = ((9, 3), (7, 4), (9, 4), (11, 4), (13, 4), (21, 4), (11, 5))
+GLOBAL_TOL = 1e-9
+WITNESS_EPS = 1e-10
+GLOBAL_VS_HOST = 1e-12
+GLOBAL_VS_CPU = 1e-12
+STATS_THRESHOLDS = (729, 2401, 6561, 20000)
+CPU_STATS_THRESHOLDS = (2401, 20000)
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W, dense): the pipes
 # each instance runs on (TF32 tensor cores, three passes for f32; f64
 # tensor cores), the SIMT pipes printed beside them, and device memory.
@@ -1465,6 +1503,611 @@ def fitting(card: str, ms: dict):
     return k1_fit, k3_fit
 
 
+def waves_np(p, _data=None):
+    """scripts/bench_global_calculus.py's 2-D "waves" row (host f64)."""
+    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
+    return (np.sin(3 * p[:, 0]) + np.cos(4 * p[:, 1])
+            + 0.5 * p[:, 0] * p[:, 1])
+
+
+def bowl3_np(p, _data=None):
+    """The bench's 3-D "bowl3" row: minima at x0 = +-1/sqrt(2)."""
+    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
+    return ((p[:, 0] ** 2 - 0.5) ** 2 + (p[:, 1] - 0.2) ** 2
+            + np.exp(0.5 * p[:, 2]) * 0.1)
+
+
+def osc5_np(p, _data=None):
+    """The bench's oscillatory 5-D row, built on 21^5 nodes."""
+    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
+    return (np.sin(3 * p[:, 0]) * np.cos(2 * p[:, 1])
+            + np.sin(2 * p[:, 2] + p[:, 3]) + 0.5 * np.cos(4 * p[:, 4])
+            + 0.2 * np.sin(p[:, 0] * p[:, 4] * 2)
+            + 0.1 * np.cos(p[:, 1] + p[:, 2] * p[:, 3]))
+
+
+def kinked_np(p, _data=None):
+    """The bench's 2-piece spline row: a kink minimum on the knot."""
+    p = np.asarray(p, dtype=np.float64)
+    return np.abs(p[:, 0]) + (p[:, 1] - 0.2) ** 2
+
+
+def bowl10_np(p, _data=None):
+    """The bench's 10-D additive slider row."""
+    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
+    return sum((p[:, i] - 0.05 * i) ** 2 for i in range(10))
+
+
+def q3_np(p, _data=None):
+    """The bench's 3-D TT row (rank <= 8)."""
+    p = np.asarray(p, dtype=np.float64)
+    return ((p[:, 0] ** 2 - 0.25) ** 2 + (p[:, 1] - 0.3) ** 2
+            + (p[:, 2] + 0.4) ** 2)
+
+
+def circle_np(p, _data=None):
+    return p[:, 0] ** 2 + p[:, 1] ** 2 - 0.64
+
+
+def line_np(p, _data=None):
+    return p[:, 0] - p[:, 1]
+
+
+def dyadic_boxes(n, d, seed):
+    """``n`` sub-boxes of [-1, 1]^d shaped as a search makes them: per
+    dim a dyadic interval of depth 0-6, one dim in eight collapsed to a
+    face (a monotonicity pin)."""
+    rng = np.random.default_rng(seed)
+    level = rng.integers(0, 7, (n, d))
+    j = np.floor(rng.random((n, d)) * 2.0 ** level)
+    lo = -1.0 + 2.0 * j / 2.0 ** level
+    hi = np.where(rng.random((n, d)) < 0.125, lo, lo + 2.0 / 2.0 ** level)
+    return np.stack([lo, hi], axis=-1)
+
+
+def decaying_tensor(shape, rng):
+    """A random coefficient tensor whose |c_k| decays like 0.7^|k|: the
+    profile of a smooth interpolant's coefficients."""
+    k = sum(np.ix_(*[np.arange(n) for n in shape]))
+    return rng.standard_normal(shape) * 0.7 ** k
+
+
+def wall_ms(fn, reps):
+    """Median wall milliseconds of ``fn`` (a call that ends on the host)
+    over ``reps`` calls, after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def recorded(fn, profiled=False):
+    """Run ``fn`` once: (result, seconds, the ``GlobalResult`` of every
+    search it ran, the text of its RuntimeWarnings, boxes whose stats
+    ran on the device route, card busy ms or None).  The searches are
+    read through ``utils.globalcalc``'s two search entry points."""
+    from torch.profiler import ProfilerActivity, profile
+
+    results, device_boxes = [], [0]
+    saved = {name: getattr(globalcalc, name)
+             for name in ("minimize_coeff_tensor", "minimize_tt_cores")}
+    raw = subdivision._device_raw_stats
+
+    def keep(search):
+        def run(*args, **kwargs):
+            out = search(*args, **kwargs)
+            results.append(out)
+            return out
+        return run
+
+    def counted(coeffs, boxes, *args):
+        device_boxes[0] += boxes.shape[0]
+        return raw(coeffs, boxes, *args)
+
+    for name, search in saved.items():
+        setattr(globalcalc, name, keep(search))
+    subdivision._device_raw_stats = counted
+    busy = None
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            t0 = time.perf_counter()
+            if profiled:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = fn()
+                    torch.cuda.synchronize()
+                busy = sum(e.device_time_total
+                           for e in prof.key_averages()) / 1e3
+            else:
+                out = fn()
+            seconds = time.perf_counter() - t0
+    finally:
+        for name, search in saved.items():
+            setattr(globalcalc, name, search)
+        subdivision._device_raw_stats = raw
+    texts = [str(w.message) for w in caught
+             if issubclass(w.category, RuntimeWarning)]
+    return out, seconds, results, texts, device_boxes[0], busy
+
+
+def value_scale(model) -> float:
+    """A bound on |f| over the model's box, from its node values: the
+    scale of the values-within tolerances."""
+    if isinstance(model, ChebyshevTT):
+        return float(np.abs(model.to_dense()).max())
+    if isinstance(model, ChebyshevSpline):
+        return max(value_scale(p) for p in model._pieces)
+    if isinstance(model, ChebyshevSlider):
+        pivot = float(model.pivot_value)
+        return abs(pivot) + sum(value_scale(s) + abs(pivot)
+                                for s in model.slides)
+    return float(model.tensor_values.abs().max())
+
+
+def check_witness(what, value, gap, witness, mode, slack):
+    """The certificate against a sampled witness ``witness`` (the min,
+    or for ``mode == "max"`` the max, over many points): both
+    inequalities, mirrored for a maximum."""
+    sign = 1.0 if mode == "min" else -1.0
+    v, s = sign * value, sign * witness
+    check(s >= v - gap - slack,
+          f"{what}: witness {witness!r} beats the certified bound "
+          f"{value!r} by more than gap {gap:.3e} + {slack:.1e}")
+    check(v <= s + gap + slack,
+          f"{what}: value {value!r} is worse than the witness {witness!r} "
+          f"by more than gap {gap:.3e} + {slack:.1e}")
+
+
+def from_on(sweep, route):
+    """The smallest swept size from which ``route`` ("card" or "cpu")
+    beats NumPy at both batch sizes at that size and every larger one,
+    or None."""
+    sizes = sorted({size for size, _ in sweep})
+    wins = [all(t[route] < t["numpy"] for (s, _), t in sweep.items()
+                if s == size) for size in sizes]
+    for i, size in enumerate(sizes):
+        if all(wins[i:]):
+            return size
+    return None
+
+
+def global_calculus(card: str, ms: dict, cheb) -> int:
+    """Phases 39-42: certified global calculus (host branch-and-bound
+    with the box statistics of large dense tensors in f64 on the card).
+    Returns K3's launches in phase 40's witness run."""
+    # 39. The box-stats route: the card's against the NumPy route on
+    # the host, on the main path's 11^5 coefficient tensor and a 21^4
+    # one (both routes forced, at every size), then the sweep of the
+    # card, NumPy and PyTorch on the host that bears on
+    # ops/subdivision.py's two thresholds.
+    rng = np.random.default_rng(SEED + 39)
+    main_coeffs = globalcalc.dense_coeff_tensor(cheb.tensor_values)
+    thresholds = (subdivision._DEVICE_STATS_MIN_SIZE,
+                  subdivision._CPU_STATS_MIN_SIZE)
+    subdivision._DEVICE_STATS_MIN_SIZE = 1
+    subdivision._CPU_STATS_MIN_SIZE = 1
+    try:
+        agree = []
+        for name, coeffs in (("11^5 main path", main_coeffs),
+                             ("21^4", decaying_tensor((21,) * 4, rng))):
+            boxes = dyadic_boxes(STATS_BOXES, coeffs.ndim, SEED + 390)
+            host = subdivision._make_full_stats(coeffs).raw_stats(boxes)
+            on_card = subdivision._make_full_stats(
+                coeffs, DEVICE).raw_stats(boxes)
+            total = host[1]
+            worst = max(
+                float(np.max(np.abs(a - b) / total.reshape(
+                    (-1,) + (1,) * (np.ndim(a) - 1))))
+                for a, b in zip(host[:4] + tuple(host[4]) + tuple(host[5]),
+                                on_card[:4] + tuple(on_card[4])
+                                + tuple(on_card[5])))
+            check(worst <= STATS_VS_NUMPY,
+                  f"box stats {name}: card vs NumPy {worst:.3e} of the "
+                  f"box's |c| mass > {STATS_VS_NUMPY:g}")
+            agree.append(f"{name} {worst:.3e}")
+        sweep = {}
+        for n, d in STATS_SWEEP:
+            coeffs = decaying_tensor((n,) * d, rng)
+            routes = {"numpy": subdivision._make_full_stats(coeffs),
+                      "card": subdivision._make_full_stats(coeffs, DEVICE),
+                      "cpu": subdivision._make_full_stats(coeffs, "cpu")}
+            for bsz in (16, STATS_BOXES):
+                boxes = dyadic_boxes(bsz, d, SEED + 391)
+                reps = 1 if coeffs.size * bsz > 2e7 else 5
+                t = {route: wall_ms(lambda fs=fs: fs.raw_stats(boxes),
+                                    5 if route == "card" else reps)
+                     for route, fs in routes.items()}
+                sweep[n ** d, bsz] = t
+                for route, ms_call in t.items():
+                    ms[f"box stats {n}^{d} x{bsz} {route}"] = ms_call
+                print(f"[39 box stats sweep] {n}^{d} = {n ** d:,} "
+                      f"coefficients, {bsz} boxes: NumPy {t['numpy']:.3f} "
+                      f"ms, card {t['card']:.3f} ms "
+                      f"({t['numpy'] / t['card']:.2f}x), PyTorch on the "
+                      f"host {t['cpu']:.3f} ms "
+                      f"({t['numpy'] / t['cpu']:.2f}x) | {card}",
+                      flush=True)
+    finally:
+        (subdivision._DEVICE_STATS_MIN_SIZE,
+         subdivision._CPU_STATS_MIN_SIZE) = thresholds
+    print(f"[39 box stats] card vs NumPy route, {STATS_BOXES} dyadic "
+          f"boxes, max deviation per quantity over the box's |c| mass: "
+          + ", ".join(agree) + f" <= {STATS_VS_NUMPY:g}; of the sizes "
+          f"swept, faster than NumPy at both batch sizes from "
+          f"{from_on(sweep, 'card')} coefficients on: the card; from "
+          f"{from_on(sweep, 'cpu')} on: PyTorch on the host; the module's "
+          f"_DEVICE_STATS_MIN_SIZE = {thresholds[0]:,} and "
+          f"_CPU_STATS_MIN_SIZE = {thresholds[1]:,} (both chosen with "
+          f"phase 42's end-to-end searches) | {card}",
+          flush=True)
+
+    # 40. The main path: certified optima of the 11^5 Black-Scholes
+    # interpolant over its box, and with K pinned, each witnessed by
+    # 2^20 points through K3 (eval_batch_dd); each certified one is
+    # also run with every box statistic on the NumPy route (the
+    # reference's) and held to it.
+    scale = float(cheb.tensor_values.abs().max())
+    tol = GLOBAL_TOL * scale
+    slack = WITNESS_EPS * scale
+    k3_launches = 0
+    main_values = {}
+    for fixed in (None, {1: 100.0}):
+        for mode in ("min", "max"):
+            what = f"{mode}imize(fixed={fixed})"
+
+            def search():
+                return getattr(cheb, f"{mode}imize")(fixed=fixed, tol=tol)
+
+            (value, point), secs, res, texts, on_card, _ = recorded(search)
+            *_, busy = recorded(search, profiled=True)
+            certified = all(r.certified for r in res)
+            check(certified == (not texts),
+                  f"{what}: the RuntimeWarning does not match the "
+                  f"certificate ({texts})")
+            gap = tol if certified else max(r.gap for r in res)
+            main_values[mode, bool(fixed)] = (value, gap, certified)
+            pts = sample_points(N, SEED + 40)
+            if fixed:
+                pts[:, 1] = fixed[1]
+            pts = torch.tensor(pts, device=DEVICE)
+            fused_dd.launches = 0
+            vals = checked(cheb.eval_batch_dd(pts), (N,), f"{what} witness")
+            k3_launches += fused_dd.launches
+            check(fused_dd.launches > 0, f"{what}: the witness never "
+                                         f"launched K3")
+            witness = float(vals.min() if mode == "min" else vals.max())
+            check_witness(what, value, gap, witness, mode, slack)
+            host_v = float(cheb.eval_batch_host(point[None], [0] * 5)[0])
+            check(abs(host_v - value) <= GLOBAL_VS_HOST * scale,
+                  f"{what}: value {value!r} vs eval_batch_host at its "
+                  f"point {host_v!r}")
+            if certified:
+                subdivision._DEVICE_STATS_MIN_SIZE = sys.maxsize
+                try:
+                    (np_value, _), np_secs, np_res, _, np_card, _ = (
+                        recorded(search))
+                finally:
+                    subdivision._DEVICE_STATS_MIN_SIZE = thresholds[0]
+                d_np = abs(np_value - value)
+                check(np_card == 0 and all(r.certified for r in np_res)
+                      and d_np <= GLOBAL_VS_CPU * scale,
+                      f"{what}: NumPy route {np_value!r} ({np_card} box "
+                      f"stats on the card, certified "
+                      f"{[r.certified for r in np_res]}) vs card {value!r}")
+                numpy_route = (f"the NumPy route: {np_value!r} (certified, "
+                               f"{np_secs:.3f} s), {d_np:.3e} <= "
+                               f"{GLOBAL_VS_CPU:g} x scale")
+            else:
+                numpy_route = ("not run on the NumPy route (uncertified: "
+                               "only the witness holds it)")
+            ms[f"global {what} 11^5"] = secs * 1e3
+            print(f"[40 global {mode}] 11^5 Black-Scholes, fixed={fixed}, "
+                  f"tol {tol:.3e} (1e-9 x scale {scale:.4f}): value "
+                  f"{value!r} at {np.array2string(point, precision=6)}; "
+                  f"{'certified' if certified else 'NOT certified'}, gap "
+                  f"{max(r.gap for r in res):.3e}, {sum(r.boxes for r in res)}"
+                  f" boxes ({on_card} box stats on the card), {secs:.3f} s, "
+                  f"card busy {busy:.1f} ms = "
+                  f"{100.0 * busy / (secs * 1e3):.2f}% of the unprofiled "
+                  f"time; K3 witness over 2^20 points {witness!r} "
+                  f"({fused_dd.launches} launches), both inequalities hold "
+                  f"within {slack:.1e}; eval_batch_host at the point "
+                  f"{abs(host_v - value):.3e}; {numpy_route} | {card}",
+                  flush=True)
+            if texts:
+                print(f"[40 global {mode}] warning: {texts[0]}", flush=True)
+
+    # 41. scripts/bench_global_calculus.py's rows, uncut, each against
+    # the same call on a CPU build of the same model; the rows that
+    # search a dense tensor once more with every box statistic forced
+    # onto the card.
+    def models(device):
+        built = {
+            "waves": ChebyshevApproximation(
+                waves_np, 2, [[-1.5, 1.5], [-1, 2]], [21, 21],
+                vectorized=True, device=device),
+            "bowl3": ChebyshevApproximation(
+                bowl3_np, 3, [[-1, 1]] * 3, [9, 9, 9], vectorized=True,
+                device=device),
+            "spline": ChebyshevSpline(
+                kinked_np, 2, [[-1, 1], [-1, 1]], [[9, 9], [9]],
+                knots=[[0.0], []], vectorized=True, device=device),
+            "slider": ChebyshevSlider(
+                bowl10_np, 10, [[-1, 1]] * 10, [9] * 10,
+                partition=[[i] for i in range(10)], pivot_point=[0.0] * 10,
+                vectorized=True, device=device),
+            "circle": ChebyshevApproximation(
+                circle_np, 2, [[-1, 1]] * 2, [7, 7], vectorized=True,
+                device=device),
+            "line": ChebyshevApproximation(
+                line_np, 2, [[-1, 1]] * 2, [7, 7], vectorized=True,
+                device=device),
+        }
+        for model in built.values():
+            model.build(verbose=False)
+        built["tt"] = ChebyshevTT(q3_np, 3, [[-1, 1]] * 3, [9, 9, 9],
+                                  tolerance=1e-12, max_rank=8,
+                                  vectorized=True, device=device)
+        built["tt"].build(verbose=False, seed=42)
+        return built
+
+    def held(name, got, res, want, want_res, scale):
+        """``got`` against the CPU build's ``want``; the result's text."""
+        if isinstance(got, tuple):
+            d_val = abs(got[0] - want[0])
+            check(d_val <= GLOBAL_VS_CPU * scale,
+                  f"{name}: card {got[0]!r} vs CPU {want[0]!r}")
+            certified = all(r.certified for r in res)
+            check(certified == all(r.certified for r in want_res),
+                  f"{name}: certified on the card {certified}, on the CPU "
+                  f"{not certified}")
+            return (f"value {got[0]!r} at "
+                    f"{np.array2string(np.asarray(got[1]), precision=6)}"
+                    f", vs CPU {d_val:.3e}")
+        if isinstance(got, list):
+            check(len(got) == len(want) and [c.kind for c in got]
+                  == [c.kind for c in want],
+                  f"{name}: card {[c.kind for c in got]} vs CPU "
+                  f"{[c.kind for c in want]}")
+            d_pt = max((float(np.abs(a.point - b.point).max())
+                        for a, b in zip(got, want)), default=0.0)
+            return (f"{len(got)} points (" + ", ".join(c.kind for c in got)
+                    + f"), points vs CPU {d_pt:.3e}")
+        check(got.shape == want.shape,
+              f"{name}: {got.shape[0]} roots on the card, "
+              f"{want.shape[0]} on the CPU")
+        return (f"{got.shape[0]} roots {np.array2string(got, precision=6)}"
+                f", vs CPU {float(np.abs(got - want).max()):.3e}")
+
+    def forced(call, anchored):
+        """``call`` on the card with every box statistic forced onto it
+        and, with ``anchored``, every tensor anchored (the CPU build's
+        search too): (result, seconds, its searches, box stats on the
+        card, of them in per-box batches, the CPU build's result and
+        searches)."""
+        saved = (subdivision._DEVICE_STATS_MIN_SIZE,
+                 subdivision._ANCHOR_MIN_SIZE, subdivision._device_raw_stats)
+        batched_boxes = [0]
+
+        def count(coeffs, boxes, shape, batched):
+            batched_boxes[0] += boxes.shape[0] if batched else 0
+            return saved[2](coeffs, boxes, shape, batched)
+
+        if anchored:
+            subdivision._ANCHOR_MIN_SIZE = 1
+        try:
+            subdivision._DEVICE_STATS_MIN_SIZE = 1
+            subdivision._device_raw_stats = count
+            got, secs, res, _, boxes, _ = recorded(lambda: call(on_card))
+            subdivision._DEVICE_STATS_MIN_SIZE = saved[0]
+            subdivision._device_raw_stats = saved[2]
+            want, _, want_res, _, _, _ = recorded(lambda: call(on_cpu))
+        finally:
+            (subdivision._DEVICE_STATS_MIN_SIZE,
+             subdivision._ANCHOR_MIN_SIZE,
+             subdivision._device_raw_stats) = saved
+        return got, secs, res, boxes, batched_boxes[0], want, want_res
+
+    on_card, on_cpu = models(DEVICE), models("cpu")
+    rows = [
+        ("dense 2-D 21^2 waves, tol 1e-9", "waves",
+         lambda m: m["waves"].minimize(tol=1e-9)),
+        ("dense 3-D 9^3 bowl3, tol 1e-9", "bowl3",
+         lambda m: m["bowl3"].minimize(tol=1e-9)),
+        ("spline 2 pieces (kink minimum on the knot), tol 1e-9", "spline",
+         lambda m: m["spline"].minimize(tol=1e-9)),
+        ("slider 10-D (10 groups), exact", "slider",
+         lambda m: m["slider"].minimize(tol=1e-9)),
+        ("TT 3-D rank <= 8, tol 1e-9", "tt",
+         lambda m: m["tt"].minimize(tol=1e-9)),
+        ("critical_points dense 3-D 9^3", "bowl3",
+         lambda m: m["bowl3"].critical_points()),
+        ("critical_points TT 3-D", "tt",
+         lambda m: m["tt"].critical_points()),
+        ("solve_system 2x2 (circle x line)", "circle",
+         lambda m: solve_system([m["circle"], m["line"]])),
+    ]
+    for name, key, call in rows:
+        got, secs, res, texts, stats_boxes, _ = recorded(
+            lambda: call(on_card))
+        want, _, want_res, _, _, _ = recorded(lambda: call(on_cpu))
+        scale = value_scale(on_card[key])
+        result = held(name, got, res, want, want_res, scale)
+        ms[f"global row {name}"] = secs * 1e3
+        state = ("certified" if all(r.certified for r in res)
+                 else "NOT certified")
+        searched = (f"{sum(r.boxes for r in res)} boxes in {len(res)} "
+                    f"searches ({stats_boxes} box stats on the card), "
+                    f"{state}" if res
+                    else "no optimum search (zero isolation)")
+        # The spline's 9^2 pieces make no per-box batches even when
+        # anchored; the two dense rows do.
+        anchorings = {"waves": (False, True), "bowl3": (False, True),
+                      "spline": (False,)}.get(key, ()) if res else ()
+        for anchored in anchorings:
+            got, f_secs, f_res, boxes, batched, want, want_res = (
+                forced(call, anchored))
+            how = (" and every tensor anchored (on the CPU build too)"
+                   if anchored else "")
+            check(boxes > 0 and (batched > 0 or not anchored),
+                  f"{name}: every box statistic forced onto the card"
+                  f"{how}, yet {boxes} ran there, {batched} of them in "
+                  f"per-box batches")
+            result += (f"; every box statistic forced onto the card"
+                       f"{how}: {f_secs * 1e3:.1f} ms, {boxes} box "
+                       f"stats on the card ({batched} in per-box "
+                       f"batches), "
+                       + held(name + " (forced)", got, f_res, want,
+                              want_res, scale))
+        print(f"[41 global rows] {name}: {secs * 1e3:.1f} ms, {searched}; "
+              f"{result} | {card}", flush=True)
+
+    # The 21^5 oscillatory row, once, witnessed by 2^20 points through
+    # the model's f64 batched path.
+    osc = ChebyshevApproximation(osc5_np, 5, [[-1, 1]] * 5, [21] * 5,
+                                 vectorized=True, device=DEVICE)
+    osc.build(verbose=False)
+    (value, point), secs, res, texts, stats_boxes, busy = recorded(
+        lambda: osc.minimize(tol=1e-7, max_boxes=5000), profiled=True)
+    scale = float(osc.tensor_values.abs().max())
+    certified = all(r.certified for r in res)
+    gap = 1e-7 if certified else max(r.gap for r in res)
+    pts = torch.tensor(sample_points(N, SEED + 41, [[-1.0, 1.0]] * 5),
+                       device=DEVICE)
+    vals = checked(osc.eval_batch_device(pts), (N,), "21^5 witness")
+    witness = float(vals.min())
+    check_witness("21^5 osc5 minimize", value, gap, witness, "min",
+                  WITNESS_EPS * scale)
+    host_v = float(osc.eval_batch_host(point[None], [0] * 5)[0])
+    check(abs(host_v - value) <= GLOBAL_VS_HOST * scale,
+          f"21^5 minimize: value {value!r} vs eval_batch_host {host_v!r}")
+    ms["global row dense 5-D 21^5 osc5"] = secs * 1e3
+    print(f"[41 global rows] dense 5-D 21^5 oscillatory, tol 1e-7, 5,000 "
+          f"boxes (once, under the profiler): {secs:.3f} s, "
+          f"{sum(r.boxes for r in res)} boxes ({stats_boxes} box stats on "
+          f"the card), card busy {busy:.1f} ms = "
+          f"{100.0 * busy / (secs * 1e3):.2f}%; "
+          f"{'certified' if certified else 'NOT certified'}, gap "
+          f"{max(r.gap for r in res):.3e}; value {value!r} at "
+          f"{np.array2string(point, precision=6)}; f64 witness over 2^20 "
+          f"points {witness!r}, both inequalities hold | {card}",
+          flush=True)
+
+    # 42. The card's threshold end to end: phase 40's two searches that
+    # call the box statistics most (the whole-box minimum and the
+    # K-pinned one) at each _DEVICE_STATS_MIN_SIZE of STATS_THRESHOLDS,
+    # in the order A B C D D C B A, each held to its phase-40 value.
+    scale = float(cheb.tensor_values.abs().max())
+    runs = {t: [] for t in STATS_THRESHOLDS}
+    try:
+        for t in STATS_THRESHOLDS + STATS_THRESHOLDS[::-1]:
+            subdivision._DEVICE_STATS_MIN_SIZE = t
+            parts, total = [], 0.0
+            for fixed in (None, {1: 100.0}):
+                (value, _), secs, res, _, stats_boxes, _ = recorded(
+                    lambda: cheb.minimize(fixed=fixed, tol=tol))
+                ref, ref_gap, ref_certified = main_values["min", bool(fixed)]
+                certified = all(r.certified for r in res)
+                gap = tol if certified else max(r.gap for r in res)
+                # Two certified values agree to roundoff; otherwise each
+                # lies within its own gap of the true minimum.
+                bound = (GLOBAL_VS_CPU * scale
+                         if certified and ref_certified
+                         else gap + ref_gap + slack)
+                check(abs(value - ref) <= bound,
+                      f"threshold {t:,}, minimize(fixed={fixed}): value "
+                      f"{value!r} vs phase 40's {ref!r} (bound {bound:.3e})")
+                total += secs
+                state = ("certified" if certified
+                         else f"NOT certified, gap {gap:.3e}")
+                parts.append(f"fixed={fixed} {secs:.3f} s, value {value!r}"
+                             f" ({state}; {stats_boxes} box stats on the "
+                             f"card)")
+            runs[t].append(total)
+            print(f"[42 threshold] _DEVICE_STATS_MIN_SIZE = {t:,}: "
+                  + "; ".join(parts) + f"; together {total:.3f} s "
+                  f"| {card}", flush=True)
+    finally:
+        subdivision._DEVICE_STATS_MIN_SIZE = thresholds[0]
+    medians = {t: float(np.median(v)) for t, v in runs.items()}
+    for t, secs in medians.items():
+        ms[f"global min + pinned min at threshold {t}"] = secs * 1e3
+    # Where the whole-box minimum's time goes, at the module's threshold:
+    # ops/subdivision.py's functions by cumulative time under cProfile.
+    prof = cProfile.Profile()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        t0 = time.perf_counter()
+        prof.enable()
+        value, _ = cheb.minimize(tol=tol)
+        prof.disable()
+        secs = time.perf_counter() - t0
+    ref, ref_gap, _ = main_values["min", False]
+    check(abs(value - ref) <= 2.0 * ref_gap + slack,
+          f"whole-box minimum under cProfile {value!r} vs phase 40's "
+          f"{ref!r}")
+    parts = ("_promote", "restrict_box_coeffs", "truncate_coeff_tensor",
+             "_device_raw_stats", "_box_stats_torch", "_restriction_mats",
+             "_sub_raw_stats", "_assemble_bounds", "_best_exact_in_box")
+    top = sorted(((ct, nc, func) for (path, _, func), (_, nc, _, ct, _)
+                  in pstats.Stats(prof).stats.items()
+                  if path.endswith("subdivision.py") and func in parts),
+                 reverse=True)
+    print(f"[42 profile] whole-box minimum under cProfile at "
+          f"_DEVICE_STATS_MIN_SIZE = {thresholds[0]:,}: {secs:.3f} s, value "
+          f"{value!r} ({abs(value - ref):.3e} from phase 40's); "
+          f"ops/subdivision.py's parts by cumulative time (they nest): "
+          + ", ".join(f"{func} {ct:.3f} s ({nc} calls)"
+                      for ct, nc, func in top) + f" | {card}", flush=True)
+    print("[42 threshold] the two searches together, median of 2 runs: "
+          + ", ".join(f"{t:,} {medians[t]:.3f} s ("
+                      + " / ".join(f"{x:.3f}" for x in runs[t]) + ")"
+                      for t in STATS_THRESHOLDS)
+          + f"; fastest {min(medians, key=medians.get):,}; the module's "
+          f"_DEVICE_STATS_MIN_SIZE = {thresholds[0]:,} | {card}",
+          flush=True)
+
+    # The same question for a search on the CPU: a CPU build's K-pinned
+    # minimum (an 11^4 tensor, between the thresholds) at each
+    # _CPU_STATS_MIN_SIZE of CPU_STATS_THRESHOLDS, in the order A B B A.
+    host = ChebyshevApproximation(bs_price_np, 5, DOMAIN, [11] * 5,
+                                  vectorized=True, device="cpu")
+    host.build(verbose=False)
+    ref = main_values["min", True][0]
+    runs = {t: [] for t in CPU_STATS_THRESHOLDS}
+    try:
+        for t in CPU_STATS_THRESHOLDS + CPU_STATS_THRESHOLDS[::-1]:
+            subdivision._CPU_STATS_MIN_SIZE = t
+            (value, _), secs, res, _, stats_boxes, _ = recorded(
+                lambda: host.minimize(fixed={1: 100.0}, tol=tol))
+            check(all(r.certified for r in res)
+                  and abs(value - ref) <= GLOBAL_VS_CPU * scale,
+                  f"CPU build, _CPU_STATS_MIN_SIZE = {t:,}: value "
+                  f"{value!r} (certified {[r.certified for r in res]}) vs "
+                  f"phase 40's {ref!r}")
+            runs[t].append(secs)
+            print(f"[42 threshold] CPU build, _CPU_STATS_MIN_SIZE = {t:,}:"
+                  f" minimize(fixed={{1: 100.0}}) {secs:.3f} s, value "
+                  f"{value!r} (certified; {stats_boxes} box stats through "
+                  f"PyTorch on the host) | {card}", flush=True)
+    finally:
+        subdivision._CPU_STATS_MIN_SIZE = thresholds[1]
+    for t, secs in runs.items():
+        ms[f"CPU build pinned min at threshold {t}"] = (
+            float(np.median(secs)) * 1e3)
+    print("[42 threshold] the CPU build's K-pinned minimum, median of 2 "
+          "runs: " + ", ".join(
+              f"{t:,} {float(np.median(v)):.3f} s ("
+              + " / ".join(f"{x:.3f}" for x in v) + ")"
+              for t, v in runs.items())
+          + f"; the module's _CPU_STATS_MIN_SIZE = {thresholds[1]:,} "
+          f"| {card}", flush=True)
+    return k3_launches
+
+
 def main() -> None:
     # 1. The device.
     if not torch.cuda.is_available():
@@ -2155,6 +2798,10 @@ def main() -> None:
     # model's run through K1 and K3 counts toward their launches.
     k1_fit_launches, k3_fit_launches = fitting(card, ms)
 
+    # 39-41. Global calculus: the box-stats route, the main path's
+    # certified optima witnessed through K3, the reference's rows.
+    k3_global_launches = global_calculus(card, ms, cheb)
+
     # Bounds on the pipes each instance runs on: f32 on the TF32 tensor
     # cores in three passes, f64 on the f64 tensor cores; the SIMT pipes'
     # bound beside each.
@@ -2173,7 +2820,8 @@ def main() -> None:
          bound((19,) * 5, N, 4, F32_SIMT_PEAK)[0]),
         ("K3 fused dd dense evaluator (f64)",
          "pychebyshev_tpu/ops/pallas_dd.py:155",
-         k3_launches + k3_spline_launches + k3_fit_launches, k3_abs,
+         k3_launches + k3_spline_launches + k3_fit_launches
+         + k3_global_launches, k3_abs,
          "K3 f64 (fused_eval_batch_dd)",
          "plain f64 (fused_eval_batch_dd_reference)", "GEMM f64 11^5",
          bound((11,) * 5, N, 8, F64_TC_PEAK),

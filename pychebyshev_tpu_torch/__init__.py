@@ -31,6 +31,14 @@ PyTorch:
   ``ChebyshevTT.run_completion``, ``hadamard``/``compose``, the Sobol
   indices, the plots, the pickle-free ``.npz`` format, and dense books
   (``serving.build_book``, ``save_book``/``load_book``).
+- Global calculus on all four families: the certified global
+  ``minimize``/``maximize`` (``dim=None``), ``critical_points`` and
+  ``solve_system`` (coefficient-space branch-and-bound,
+  ``ops.subdivision``, with the box statistics of large dense tensors
+  computed in f64 on the model's device; ``utils.globalcalc``).
+
+``mesh=`` (multi-device) is not ported yet and raises
+``NotImplementedError``.
 
 Every constructor and engine takes an explicit ``device=``; nothing here
 probes for a device or falls back to another one.
@@ -94,6 +102,10 @@ from pychebyshev_tpu_torch.serving import (  # noqa: E402
     MultiModelEvaluator,
     MultiSpecEvaluator,
 )
+from pychebyshev_tpu_torch.utils.globalcalc import (  # noqa: E402
+    CriticalPoint,
+    solve_system,
+)
 
 __all__ = [
     "BatchedEvaluator",
@@ -101,10 +113,12 @@ __all__ = [
     "ChebyshevSlider",
     "ChebyshevSpline",
     "ChebyshevTT",
+    "CriticalPoint",
     "Domain",
     "MultiModelEvaluator",
     "MultiSpecEvaluator",
     "Ns",
     "SpecialPoints",
     "__version__",
+    "solve_system",
 ]

@@ -27,10 +27,13 @@ engines), the Sobol family (``utils.sensitivity``), ``hadamard``,
 - Root finding and 1-D optimisation solve the colleague eigenproblem on
   the host (``utils.calculus``) over slice values computed on the
   device.
+- The certified global ``minimize``/``maximize`` (``dim=None``),
+  ``critical_points`` and ``solve_system`` run the coefficient-space
+  branch-and-bound of ``ops.subdivision`` on the host, with the box
+  statistics of large tensors on the device (``utils.globalcalc``).
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-the global ``minimize``/``maximize`` (``dim=None`` on a
-multi-dimensional interpolant), ``critical_points``, and ``mesh=``.
+Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
+``mesh=``.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ from pychebyshev_tpu_torch.ops.quadrature import (
     fejer1_weights,
     sub_interval_weights,
 )
-from pychebyshev_tpu_torch.utils import ceval
+from pychebyshev_tpu_torch.utils import ceval, globalcalc
 from pychebyshev_tpu_torch.utils.algebra import check_compatible, is_scalar
 from pychebyshev_tpu_torch.utils.calculus import (
     normalize_bounds,
@@ -77,10 +80,6 @@ from pychebyshev_tpu_torch.utils.extrude_slice import (
     extrude_tensor,
     normalize_extrusion_params,
     normalize_slicing_params,
-)
-from pychebyshev_tpu_torch.utils.unported import (
-    mark_not_ported,
-    not_ported_error,
 )
 
 __all__ = ["ChebyshevApproximation"]
@@ -1280,25 +1279,55 @@ class ChebyshevApproximation:
 
     def minimize(self, dim=None, fixed=None, *, tol=1e-9,
                  max_boxes=5000, polish=True):
-        """Minimum along ``dim`` with every other dim pinned by
-        ``fixed``: ``(value, location)`` floats.  On a 1-D interpolant
-        ``dim`` may be omitted.  The global form (``dim=None`` on a
-        multi-dimensional interpolant, which ``tol``, ``max_boxes`` and
-        ``polish`` steer) is not ported yet and raises
-        ``NotImplementedError``."""
-        return self._optimize(dim, fixed, "min")
+        """Minimum of the interpolant.
+
+        With ``dim`` given: the 1-D minimum along that dim with every
+        other dim pinned by ``fixed`` — ``(value, location)`` floats (on
+        a 1-D interpolant ``dim`` may be omitted).
+
+        With ``dim=None`` on a multi-dimensional interpolant: the
+        CERTIFIED GLOBAL minimum over the whole box (``fixed`` may pin
+        any subset of dims) — ``(value, point)`` with ``point`` an
+        ``(ndim,)`` array.  Branch-and-bound over Chebyshev enclosures
+        in coefficient space (``ops.subdivision``, box statistics of
+        large tensors on ``device``), certified to ``tol`` unless a
+        RuntimeWarning reports the remaining gap; ``polish`` runs exact
+        line searches through the winner afterwards.
+        """
+        return self._optimize(dim, fixed, "min", tol=tol,
+                              max_boxes=max_boxes, polish=polish)
 
     def maximize(self, dim=None, fixed=None, *, tol=1e-9,
                  max_boxes=5000, polish=True):
-        """Maximum along ``dim``: see :meth:`minimize`."""
-        return self._optimize(dim, fixed, "max")
+        """Maximum of the interpolant — see :meth:`minimize` for the
+        1-D (``dim`` given) vs certified-global (``dim=None``) forms."""
+        return self._optimize(dim, fixed, "max", tol=tol,
+                              max_boxes=max_boxes, polish=polish)
 
-    def _optimize(self, dim, fixed, mode):
+    def critical_points(self, fixed=None, *, grad_tol=1e-8, delta=5e-3,
+                        max_boxes=50000, separation=1e-6):
+        """All interior stationary points, classified.
+
+        Subdivision isolation on the spectral gradient system plus one
+        batched Newton polish; each result is a
+        ``CriticalPoint(point, value, kind)`` with kind one of
+        ``"minimum" | "maximum" | "saddle" | "degenerate"`` (Hessian
+        eigenvalue test).  ``fixed`` pins a subset of dims first.
+        """
+        if self.tensor_values is None:
+            raise RuntimeError("Call build() first")
+        return globalcalc.critical_points_dense(
+            self, fixed=fixed, grad_tol=grad_tol, delta=delta,
+            max_boxes=max_boxes, separation=separation)
+
+    def _optimize(self, dim, fixed, mode, *, tol=1e-9, max_boxes=5000,
+                  polish=True):
         if self.tensor_values is None:
             raise RuntimeError("Call build() first")
         if dim is None and self.num_dimensions > 1:
-            raise not_ported_error(type(self).__name__, f"{mode}imize",
-                                   "with dim=None (the global form)")
+            return globalcalc.global_optimize_dense(
+                self, mode, fixed, tol=tol, max_boxes=max_boxes,
+                polish=polish)
         dim, slice_params = validate_calculus_args(
             self.num_dimensions, dim, fixed, self.domain)
         sliced = self.slice(slice_params) if slice_params else self
@@ -1944,5 +1973,3 @@ class ChebyshevApproximation:
         lines.append(f"  Derivatives: up to order {self.max_derivative_order}")
         return "\n".join(lines)
 
-
-mark_not_ported(ChebyshevApproximation, ("critical_points",))

@@ -27,10 +27,13 @@ return NumPy arrays.
   samples in one solve (``utils.fitting.fit_additive_tensors``) and
   re-gauges every slide to the pivot.  The Sobol family follows the
   additive form (cross-group interactions are exactly zero).
+The global ``minimize``/``maximize`` (``dim=None``) and
+``critical_points`` are exact under the additive decomposition: one
+certified search, or one stationary set, per slide
+(``utils.globalcalc``).
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-the global ``minimize``/``maximize`` (``dim=None``),
-``critical_points``, and ``mesh=``.
+Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
+``mesh=``.
 """
 
 from __future__ import annotations
@@ -62,10 +65,7 @@ from pychebyshev_tpu_torch.utils.extrude_slice import (
     normalize_extrusion_params,
     normalize_slicing_params,
 )
-from pychebyshev_tpu_torch.utils.unported import (
-    mark_not_ported,
-    not_ported_error,
-)
+from pychebyshev_tpu_torch.utils import globalcalc
 
 __all__ = ["ChebyshevSlider"]
 
@@ -1121,24 +1121,49 @@ class ChebyshevSlider:
 
     def minimize(self, dim=None, fixed=None, *, tol=1e-9,
                  max_boxes=5000, polish=True):
-        """Minimum along ``dim`` with every other dim pinned by
-        ``fixed``: ``(value, location)`` floats.  The global form
-        (``dim=None`` on a multi-dimensional slider, which ``tol``,
-        ``max_boxes`` and ``polish`` steer) is not ported yet and raises
-        ``NotImplementedError``."""
-        return self._optimize(dim, fixed, "min")
+        """Minimum of the slider.
+
+        With ``dim``: the 1-D minimum along that dim — ``(value,
+        location)`` floats.  With ``dim=None`` on a multi-dimensional
+        slider: the GLOBAL minimum over the whole box — EXACT under the
+        additive decomposition (the sum of per-slide global minima;
+        cross-group curvature is zero), each slide solved by the
+        certified branch-and-bound of ``ops.subdivision``.  Returns
+        ``(value, point)`` with an ``(ndim,)`` point; ``fixed`` may pin
+        a subset of dims.
+        """
+        return self._optimize(dim, fixed, "min", tol=tol,
+                              max_boxes=max_boxes, polish=polish)
 
     def maximize(self, dim=None, fixed=None, *, tol=1e-9,
                  max_boxes=5000, polish=True):
-        """Maximum along ``dim``: see :meth:`minimize`."""
-        return self._optimize(dim, fixed, "max")
+        """Maximum of the slider — see :meth:`minimize` for the 1-D
+        (``dim`` given) vs exact-global (``dim=None``) forms."""
+        return self._optimize(dim, fixed, "max", tol=tol,
+                              max_boxes=max_boxes, polish=polish)
 
-    def _optimize(self, dim, fixed, mode):
+    def critical_points(self, fixed=None, *, grad_tol=1e-8, delta=5e-3,
+                        max_boxes=50000, separation=1e-6,
+                        max_points=10000):
+        """All interior stationary points — EXACT under the additive
+        decomposition: the cartesian product of per-slide stationary
+        sets, classified from the block-diagonal Hessian.  See
+        ``ChebyshevApproximation.critical_points``."""
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        return globalcalc.critical_points_slider(
+            self, fixed=fixed, grad_tol=grad_tol, delta=delta,
+            max_boxes=max_boxes, separation=separation,
+            max_points=max_points)
+
+    def _optimize(self, dim, fixed, mode, *, tol=1e-9, max_boxes=5000,
+                  polish=True):
         if not self._built:
             raise RuntimeError("Call build() first")
         if dim is None and self.num_dimensions > 1:
-            raise not_ported_error(type(self).__name__, f"{mode}imize",
-                                   "with dim=None (the global form)")
+            return globalcalc.global_optimize_slider(
+                self, mode, fixed, tol=tol, max_boxes=max_boxes,
+                polish=polish)
         one_d = self._sliced_1d(dim, fixed)
         return one_d.minimize() if mode == "min" else one_d.maximize()
 
@@ -1422,6 +1447,3 @@ class ChebyshevSlider:
                              f"evals, built in {slide.build_time:.3f}s")
         return "\n".join(lines)
 
-
-
-mark_not_ported(ChebyshevSlider, ("critical_points",))

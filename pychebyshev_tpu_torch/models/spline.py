@@ -28,10 +28,12 @@ piece) and fits
 each piece through ``utils.fitting``.  The Sobol family aggregates the
 pieces by volume x variance; ``compose`` and ``hadamard`` work piece by
 piece; the plots and the ``.npz`` format are the dense class's.
+The certified global ``minimize``/``maximize`` (``dim=None``) search
+each piece with one shared incumbent, and ``critical_points`` merges
+the pieces' stationary points (``utils.globalcalc``).
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-the global ``minimize``/``maximize`` (``dim=None``),
-``critical_points``, and ``mesh=``.
+Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
+``mesh=``.
 """
 
 from __future__ import annotations
@@ -70,10 +72,7 @@ from pychebyshev_tpu_torch.utils.extrude_slice import (
     normalize_extrusion_params,
     normalize_slicing_params,
 )
-from pychebyshev_tpu_torch.utils.unported import (
-    mark_not_ported,
-    not_ported_error,
-)
+from pychebyshev_tpu_torch.utils import globalcalc
 
 __all__ = ["ChebyshevSpline", "is_nested_n_nodes"]
 
@@ -1239,25 +1238,46 @@ class ChebyshevSpline:
 
     def minimize(self, dim=None, fixed=None, *, tol=1e-9,
                  max_boxes=5000, polish=True):
-        """Minimum along ``dim`` with every other dim pinned by
-        ``fixed``, the best over the slice's pieces: ``(value,
-        location)`` floats.  The global form (``dim=None`` on a
-        multi-dimensional spline, which ``tol``, ``max_boxes`` and
-        ``polish`` steer) is not ported yet and raises
-        ``NotImplementedError``."""
-        return self._optimize(dim, fixed, "min")
+        """Minimum of the spline.
+
+        With ``dim``: the 1-D minimum along that dim, best over pieces
+        — ``(value, location)`` floats.  With ``dim=None`` on a
+        multi-dimensional spline: the CERTIFIED GLOBAL minimum over the
+        whole domain (``fixed`` may pin a subset of dims) — ``(value,
+        point)`` with an ``(ndim,)`` point.  Each piece runs the
+        coefficient-space branch-and-bound of ``ops.subdivision``;
+        kinks are handled exactly because every knot plane belongs to
+        both neighboring pieces' closed boxes.
+        """
+        return self._optimize(dim, fixed, "min", tol=tol,
+                              max_boxes=max_boxes, polish=polish)
 
     def maximize(self, dim=None, fixed=None, *, tol=1e-9,
                  max_boxes=5000, polish=True):
-        """Maximum along ``dim``: see :meth:`minimize`."""
-        return self._optimize(dim, fixed, "max")
+        """Maximum of the spline — see :meth:`minimize` for the 1-D
+        (``dim`` given) vs certified-global (``dim=None``) forms."""
+        return self._optimize(dim, fixed, "max", tol=tol,
+                              max_boxes=max_boxes, polish=polish)
 
-    def _optimize(self, dim, fixed, mode):
+    def critical_points(self, fixed=None, *, grad_tol=1e-8, delta=5e-3,
+                        max_boxes=50000, separation=1e-6):
+        """Stationary points per piece (one-sided at knot planes),
+        merged and classified — see
+        ``ChebyshevApproximation.critical_points``."""
+        if not self._built:
+            raise RuntimeError("Call build() first")
+        return globalcalc.critical_points_spline(
+            self, fixed=fixed, grad_tol=grad_tol, delta=delta,
+            max_boxes=max_boxes, separation=separation)
+
+    def _optimize(self, dim, fixed, mode, *, tol=1e-9, max_boxes=5000,
+                  polish=True):
         if not self._built:
             raise RuntimeError("Call build() first")
         if dim is None and self.num_dimensions > 1:
-            raise not_ported_error(type(self).__name__, f"{mode}imize",
-                                   "with dim=None (the global form)")
+            return globalcalc.global_optimize_spline(
+                self, mode, fixed, tol=tol, max_boxes=max_boxes,
+                polish=polish)
         dim, slice_params = validate_calculus_args(
             self.num_dimensions, dim, fixed, self.domain)
         sliced = self.slice(slice_params) if slice_params else self
@@ -1642,6 +1662,3 @@ class ChebyshevSpline:
         spl.build(verbose=False)
         return spl
 
-
-
-mark_not_ported(ChebyshevSpline, ("critical_points",))

@@ -34,10 +34,12 @@ engine with rows, interfaces and Grams on the device in f32);
 coefficient cores (``utils.sensitivity``); ``hadamard`` and ``compose``
 work in value space with TT rounding; the plots and the ``.npz`` format
 are shared with the other classes.
+The global ``minimize``/``maximize`` (``dim=None``) and
+``critical_points`` search through the coefficient cores with the
+interval transfer-matrix bound, on the host (``utils.globalcalc``).
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-the global ``minimize``/``maximize`` (``dim=None``),
-``critical_points``, and ``mesh=``.
+Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
+``mesh=``.
 """
 
 from __future__ import annotations
@@ -82,10 +84,8 @@ from pychebyshev_tpu_torch.utils.extrude_slice import (
     normalize_extrusion_params,
     normalize_slicing_params,
 )
-from pychebyshev_tpu_torch.utils.unported import (
-    mark_not_ported,
-    not_ported_error,
-)
+from pychebyshev_tpu_torch.utils import globalcalc
+from pychebyshev_tpu_torch.utils.unported import not_ported_error
 
 __all__ = ["ChebyshevTT"]
 
@@ -590,23 +590,47 @@ class ChebyshevTT:
 
     def minimize(self, dim=None, fixed=None, *, tol=1e-9,
                  max_boxes=50000, polish=True):
-        """Minimum along the user-frame ``dim`` with every other dim
-        pinned by ``fixed``: ``(value, location)`` floats.  The global
-        form (``dim=None`` on a multi-dimensional TT, which ``tol``,
-        ``max_boxes`` and ``polish`` steer) is not ported yet and
-        raises ``NotImplementedError``."""
-        return self._optimize(dim, fixed, "min")
+        """Minimum of the TT.
+
+        With ``dim``: the 1-D minimum along that user-frame dim —
+        ``(value, location)`` floats.  With ``dim=None`` on a
+        multi-dimensional TT: the GLOBAL minimum over the whole box via
+        branch-and-bound directly through the coefficient cores
+        (``ops.subdivision.minimize_tt_cores`` — no ``n^d``
+        materialization; the enclosure is the interval transfer-matrix
+        bound, so certification can need more boxes than the dense
+        path).  Returns ``(value, point)`` with an ``(ndim,)``
+        user-frame point; ``fixed`` may pin a subset.
+        """
+        return self._optimize(dim, fixed, "min", tol=tol,
+                              max_boxes=max_boxes, polish=polish)
 
     def maximize(self, dim=None, fixed=None, *, tol=1e-9,
                  max_boxes=50000, polish=True):
-        """Maximum along ``dim``: see :meth:`minimize`."""
-        return self._optimize(dim, fixed, "max")
+        """Maximum of the TT — see :meth:`minimize` for the 1-D
+        (``dim`` given) vs global (``dim=None``) forms."""
+        return self._optimize(dim, fixed, "max", tol=tol,
+                              max_boxes=max_boxes, polish=polish)
 
-    def _optimize(self, dim, fixed, mode):
+    def critical_points(self, fixed=None, *, grad_tol=1e-8, delta=5e-3,
+                        max_boxes=50000, separation=1e-6):
+        """All interior stationary points: interval-transfer-chain
+        isolation on the d analytic gradient TTs (no ``n^d``
+        materialization), Newton polish through gradient/Hessian TTs,
+        Hessian classification.  See
+        ``ChebyshevApproximation.critical_points``."""
+        self._check_built()
+        return globalcalc.critical_points_tt(
+            self, fixed=fixed, grad_tol=grad_tol, delta=delta,
+            max_boxes=max_boxes, separation=separation)
+
+    def _optimize(self, dim, fixed, mode, *, tol=1e-9, max_boxes=50000,
+                  polish=True):
         self._check_built()
         if dim is None and self.num_dimensions > 1:
-            raise not_ported_error(type(self).__name__, f"{mode}imize",
-                                   "with dim=None (the global form)")
+            return globalcalc.global_optimize_tt(
+                self, mode, fixed, tol=tol, max_boxes=max_boxes,
+                polish=polish)
         one_d = self._sliced_1d(dim, fixed)
         return one_d.minimize() if mode == "min" else one_d.maximize()
 
@@ -2029,6 +2053,3 @@ class ChebyshevTT:
         from pychebyshev_tpu_torch.utils.viz import plot_2d_contour_impl
         return plot_2d_contour_impl(self, ax=ax, n_points=n_points,
                                     n_levels=n_levels, fixed=fixed)
-
-
-mark_not_ported(ChebyshevTT, ("critical_points",))

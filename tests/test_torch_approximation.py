@@ -319,9 +319,8 @@ SLICE_NAMES = ("integrate", "integrate_batch", "partial_integrate_batch",
 @pytest.mark.parametrize("name", ["ChebyshevApproximation", "ChebyshevTT",
                                   "ChebyshevSpline", "ChebyshevSlider"])
 def test_public_surface_matches_the_reference(name):
-    """Every public name of the reference class exists on the port's;
-    a name that waits for a later slice raises NotImplementedError, and
-    none of this slice's names waits."""
+    """Every public name of the reference class exists on the port's,
+    and none of them waits for a later slice (only ``mesh=`` does)."""
     import pychebyshev_tpu
     import pychebyshev_tpu_torch
 
@@ -333,10 +332,8 @@ def test_public_surface_matches_the_reference(name):
     waiting = [n for n in public
                if "Not ported yet" in (getattr(cls, n).__doc__ or "")]
     assert not set(waiting) & set(SLICE_NAMES + ("to_slider",))
-    assert waiting == ["critical_points"]
-    for n in waiting:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            getattr(cls, n)(None)
+    assert waiting == []
+    assert "critical_points" in public
 
 
 def test_dense_surface_gaps_are_closed(pair, pts, tmp_path):

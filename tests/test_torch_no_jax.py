@@ -37,13 +37,13 @@ def test_package_covers_the_slice():
                  "ops.fused_eval", "ops.eval_dd", "ops.fused_dd",
                  "ops._build", "ops.tt_eval", "ops.tt_eval_dd",
                  "ops.spline_eval", "ops.slider_eval",
-                 "ops.quadrature", "ops.integrate",
+                 "ops.quadrature", "ops.integrate", "ops.subdivision",
                  "utils.algebra", "utils.binary", "utils.ceval",
                  "utils.calculus", "utils.extrude_slice",
                  "utils.convert", "utils.derivative_ids",
                  "utils.parallel_build", "utils.unported",
                  "utils.fitting", "utils.sensitivity",
-                 "utils.native_save", "utils.viz",
+                 "utils.native_save", "utils.viz", "utils.globalcalc",
                  "models.approximation",
                  "models.spline", "models.slider",
                  "models.tensor_train", "models.tt_algorithms", "serving"):

@@ -597,15 +597,14 @@ class TestSurface:
                                       "hadamard", "plot_1d"])
     def test_unported_methods_name_the_roadmap(self, spline_abs, name):
         ref, port = spline_abs
-        if name in CALCULUS + HOST_TAIL and (name != "minimize"
-                                             or port.num_dimensions == 1):
-            _bare_call_as_reference(ref, port, name)
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                getattr(port, name)()
+        # every name is ported now (minimize bare: the global form)
+        _bare_call_as_reference(ref, port, name)
         _bare_call_as_reference(ref, port, "fit")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.critical_points()
+        want, got = ref.critical_points(), port.critical_points()
+        assert [c.kind for c in got] == [c.kind for c in want]
+        np.testing.assert_allclose(_flat([c.point for c in got]),
+                                   _flat([c.point for c in want]),
+                                   rtol=0, atol=1e-10)
 
     def test_auto_knots(self):
         f = lambda x, _: abs(x[0] - 0.3) + x[1] ** 2
@@ -616,13 +615,6 @@ class TestSurface:
         assert spl.knots == ref.knots
         assert abs(spl.eval([0.5, 0.2], [0, 0])
                    - ref.eval([0.5, 0.2], [0, 0])) <= 1e-14
-
-
-# Ported with the calculus slice (a bare minimize on more than one dim
-# is the global form, which still waits).
-CALCULUS = ["integrate", "roots", "minimize", "extrude", "slice"]
-# Ported with the host-tail and fit slice.
-HOST_TAIL = ["sobol_indices", "compose", "hadamard", "plot_1d", "fit"]
 
 
 def _bare_call_as_reference(ref, port, name):

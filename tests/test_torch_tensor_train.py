@@ -593,8 +593,7 @@ NOT_PORTED = ["integrate", "integrate_batch", "partial_integrate_batch",
               "plot_2d_contour", "fit"]
 
 
-# Ported with the calculus slice; minimize and maximize called bare are
-# the global form, which still waits.
+# Ported with the calculus slice.
 CALCULUS = ["integrate", "integrate_batch", "partial_integrate_batch",
             "roots", "roots_batch", "minimize_batch", "maximize_batch",
             "to_slider", "extrude", "slice"]
@@ -614,18 +613,34 @@ HOST_TAIL = ["run_completion", "sobol_indices", "interaction_matrix",
              "plot_2d_surface", "plot_2d_contour", "fit"]
 
 
+# Ported with the global-calculus slice: called with two dims pinned
+# (the bare 4-D search certifies in seconds, not milliseconds).
+GLOBAL = ["minimize", "maximize", "critical_points"]
+GLOBAL_FIXED = {1: 1.0, 3: 0.5}
+
+
 @pytest.mark.parametrize("name", NOT_PORTED)
 def test_later_slices_raise_by_name(untouched_pair, name):
+    """Every name the earlier slices left waiting is ported now: each
+    gives the reference's result or raises its error."""
     ref, port = untouched_pair
     assert hasattr(JaxTT, name)
-    if name in CALCULUS + HOST_TAIL:
+    assert name in CALCULUS + HOST_TAIL + GLOBAL
+    if name not in GLOBAL:
         _bare_call_as_reference(ref, port, name)
         return
-    target = ChebyshevTT if name == "fit" else port
-    with pytest.raises(NotImplementedError,
-                       match=rf"ChebyshevTT\.{name} is not ported yet.*"
-                             rf"ROADMAP\.md"):
-        getattr(target, name)()
+    want = getattr(ref, name)(fixed=GLOBAL_FIXED)
+    got = getattr(port, name)(fixed=GLOBAL_FIXED)
+    if name == "critical_points":
+        assert [c.kind for c in got] == [c.kind for c in want]
+        np.testing.assert_allclose(_flat_result([c.point for c in got]),
+                                   _flat_result([c.point for c in want]),
+                                   rtol=0, atol=1e-10)
+        return
+    # the optimum value is unique; x2 = -1 and x2 = 1 tie on the point
+    assert abs(got[0] - want[0]) <= F64_TOL * max(abs(want[0]), 1.0)
+    assert got[1][1] == 1.0 and got[1][3] == 0.5
+    assert abs(got[1][0] - want[1][0]) <= 1e-8
 
 
 def _bare_call_as_reference(ref, port, name):
