@@ -72,6 +72,20 @@ calls on CPU builds of the same models, at the card's threshold and with
 every box statistic forced onto the card, and the main path's two
 busiest searches end to end at several card thresholds.
 
+Then the multi-device checklist of the JAX package's
+``dryrun_multichip`` (``parallel/``, ``mesh=``): on a one-rank NCCL
+world on the card (the machine holds one card), the 11^5 engines at 2^20
+on a ``("dp",)`` mesh (f32 through K1, f64, dd through K3, the f64 and
+dd price + 5 Greeks), a 19^5 f32 engine through K2, each bitwise the
+engine without a mesh and timed beside it; tp of 11^5 with d/dS, dp box
+integrals and grouped-dd TT bucket masses at 2^17, a sharded six-model
+``build_book`` and its engine, config 4's slider as a TT served dp, the
+dense fits (device-dd at 2^19, device at 2^20), a TT build and
+``run_completion`` with sharded oracle batches, a one-stage pipeline;
+then a 4-rank gloo world on the host's CPU (dp, tp (2, 2), dd tp of a
+(9, 16400) grid over tp = 4, a four-stage pipeline, a sharded book, TT
+build and device-dd fit) held to the port's single-device results.
+
 Run from the repository root, with one CUDA card:
 
     python3 chip_smoke.py
@@ -123,10 +137,19 @@ from pychebyshev_tpu_torch.ops.chebyshev import (
     differentiation_matrix_np,
     nodes_for_dim_np,
 )
+from pychebyshev_tpu_torch.ops import eval as eval_ops
+from pychebyshev_tpu_torch.ops import eval_dd
 from pychebyshev_tpu_torch.ops import integrate as integrate_ops
 from pychebyshev_tpu_torch.ops.quadrature import (
     fejer1_weights,
     sub_interval_weights,
+)
+from pychebyshev_tpu_torch.parallel import sharding
+from pychebyshev_tpu_torch.parallel.tt_pipeline import tt_eval_batch_pp
+from pychebyshev_tpu_torch.parallel.world import (
+    check_replicated,
+    local_world,
+    run_world,
 )
 from pychebyshev_tpu_torch.serving import (
     build_book,
@@ -2108,6 +2131,453 @@ def global_calculus(card: str, ms: dict, cheb) -> int:
     return k3_launches
 
 
+# ---------------------------------------------------------------------------
+# 43-53. Multi-device: every meshed path on a one-rank NCCL world on the
+# card (the machine holds one card, and NCCL takes one rank per card), then
+# a 4-rank gloo world on the host's CPU for sharding with P > 1.
+# ---------------------------------------------------------------------------
+
+GLOO_RANKS = 4
+GLOO_DOMAIN = [[-1.0, 1.0], [0.0, 2.0], [-3.0, 1.0]]
+MESH_FITS = (("device-dd", 1 << 19), ("device", 1 << 20))
+MESH_TT_NODES = [11, 9, 10]
+WIDE = (9, 16400)          # beyond supports_dd; tp = 4 serves it
+DD_TP_VS_F64 = 1e-11       # the reference's bound for this grid
+
+
+def arith_np(p, _data=None):
+    """Products and sums only: the same bits on NumPy arrays and on
+    tensors, on the host and on the card (the meshed builds' target)."""
+    return (p[:, 0] * p[:, 0] * p[:, 1] + 0.25 * p[:, 2] * p[:, 2] * p[:, 0]
+            + 0.5 * p[:, 1] * p[:, 2])
+
+
+def book_torch(points, _data=None):
+    """``book_np`` in PyTorch, where ``points`` are: a tensor on the card
+    under a mesh, host NumPy without one."""
+    p = torch.as_tensor(points, dtype=torch.float64)
+    s, k, t, sigma, r = (p[:, i:i + 1] for i in range(5))
+    q = torch.as_tensor(BOOK_YIELDS, dtype=torch.float64,
+                        device=p.device)[None, :]
+    sqrt_t = torch.sqrt(t)
+    d1 = (torch.log(s / k) + (r - q + 0.5 * sigma ** 2) * t) \
+        / (sigma * sqrt_t)
+    d2 = d1 - sigma * sqrt_t
+    return (s * torch.exp(-q * t) * torch.special.ndtr(d1)
+            - k * torch.exp(-r * t) * torch.special.ndtr(d2))
+
+
+def wide_operands(device):
+    """The reference's (9, 16400) beyond-budget grid (closed-form
+    Chebyshev-1 barycentric weights), on ``device``."""
+    def cheb1(n):
+        k = np.arange(n)
+        x = np.cos((2 * k + 1) * np.pi / (2 * n))
+        w = ((-1.0) ** k) * np.sin((2 * k + 1) * np.pi / (2 * n))
+        order = np.argsort(x)
+        return x[order], w[order]
+    xs, ws = zip(*(cheb1(n) for n in WIDE))
+    gx, gy = np.meshgrid(xs[0], xs[1], indexing="ij")
+    tensor = np.sin(3 * gx) * np.cos(2 * gy) + 0.5 * gx * gy
+
+    def on(a):
+        return torch.tensor(a, dtype=torch.float64, device=device)
+    return on(tensor), tuple(map(on, xs)), tuple(map(on, ws))
+
+
+def gloo_results(mesh_fn):
+    """The small meshed checks of phase 53 on ``mesh_fn(axes, shape)``'s
+    meshes, or on one device of the CPU when it returns None."""
+    res = {}
+    cheb = ChebyshevApproximation(arith_np, 3, GLOO_DOMAIN, [9, 8, 8],
+                                  vectorized=True, device="cpu")
+    cheb.build(verbose=False)
+    grid = cheb._grid_tuples()
+    pts = sample_points(130, SEED + 90, GLOO_DOMAIN)
+    pts[:5, 0] = grid[0][0][[0, 2, 3, 5, 8]].numpy()
+    dp = mesh_fn(("dp",), (GLOO_RANKS,))
+    tp = mesh_fn(("dp", "tp"), (2, 2))
+    tp4 = mesh_fn(("dp", "tp"), (1, GLOO_RANKS))
+    pp = mesh_fn(("pp",), (GLOO_RANKS,))
+    tensor, xs, ws = wide_operands("cpu")
+    wide_pts = sample_points(256, SEED + 92, [(-0.97, 0.97)] * 2)
+    if dp is None:
+        res["dp"] = eval_ops.eval_batch(cheb.tensor_values, *grid,
+                                        torch.tensor(pts), (0, 0, 0))
+        res["tp"] = eval_ops.eval_batch(cheb.tensor_values, *grid,
+                                        torch.tensor(pts), (1, 0, 1))
+        res["dd_tp"] = eval_ops.eval_batch(tensor, xs, ws, (None, None),
+                                           torch.tensor(wide_pts), (0, 0))
+    else:
+        res["dp"] = sharding.eval_batch_dp(cheb.tensor_values, *grid, pts,
+                                           dp, (0, 0, 0))
+        res["tp"] = sharding.eval_batch_tp(cheb.tensor_values, *grid, pts,
+                                           tp, orders=(1, 0, 1))
+        res["dd_tp"] = sharding.eval_batch_dd_tp(tensor, xs, ws, ((), ()),
+                                                 wide_pts, tp4)
+    tt = ChebyshevTT(arith_np, 3, GLOO_DOMAIN, MESH_TT_NODES, max_rank=5,
+                     vectorized=True, device="cpu")
+    tt.build(verbose=False, seed=0, mesh=dp)
+    for k, core in enumerate(tt._coeff_cores):
+        res[f"tt_core_{k}"] = torch.as_tensor(core)
+    res["pp"] = (tt_eval.tt_eval_batch(
+        [torch.tensor(c) for c in tt._coeff_cores], GLOO_DOMAIN, pts)
+        if pp is None else tt_eval_batch_pp(tt._coeff_cores, GLOO_DOMAIN,
+                                            pts, pp))
+    book = build_book(lambda p, _: torch.stack(
+        [torch.as_tensor(arith_np(p)) * (m + 1) for m in range(3)], dim=1),
+        3, GLOO_DOMAIN, [5, 6, 7], mesh=dp, device="cpu")
+    res["book"] = torch.stack([m.tensor_values for m in book])
+    rng = np.random.default_rng(SEED + 91)
+    fit_pts = np.stack([rng.uniform(a, b, 5000) for a, b in FIT_DOMAIN],
+                       axis=1)
+    fit_y = fit_f(fit_pts) + rng.normal(0, FIT_NOISE, 5000)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        saved = fit_ops._DD_MAX_CHUNK
+        fit_ops._DD_MAX_CHUNK = 512          # ten chunks over four ranks
+        try:
+            res["fit_dd"] = ChebyshevApproximation.fit(
+                fit_pts, fit_y, 3, FIT_DOMAIN, [5, 5, 5], l2=1e-8,
+                engine="device-dd", mesh=dp, device="cpu").tensor_values
+        finally:
+            fit_ops._DD_MAX_CHUNK = saved
+    return res
+
+
+def gloo_rank(rank, out, cuda_check=True):
+    """One rank of phase 53's world: the checks on its meshes, every rank
+    holding rank 0's results; rank 0 also checks that a CUDA tensor is
+    refused by the gloo group (``cuda_check``), and saves the results."""
+    meshes = {}
+
+    def mesh_fn(axes, shape):
+        meshes[axes] = sharding.make_mesh(axis_names=axes, shape=shape,
+                                          device_type="cpu")
+        return meshes[axes]
+    res = gloo_results(mesh_fn)
+    check_replicated(res)
+    if rank == 0 and cuda_check:
+        on_card = torch.zeros(3, dtype=torch.float64, device="cuda")
+        try:
+            sharding.eval_batch_dp(on_card, (on_card,), (on_card,),
+                                   (None,), np.zeros((4, 1)),
+                                   meshes[("dp",)], (0,))
+            refused = 0
+        except ValueError as exc:
+            refused = int("never staged through the host" in str(exc))
+        res["cuda_under_gloo_refused"] = torch.tensor(refused)
+    if rank == 0:
+        np.savez(out, **{k: v.cpu().numpy() for k, v in res.items()})
+
+
+def multi_device(card: str, ms: dict, cheb, cheb19, slider, tt):
+    """Phases 43-53: the reference's multi-device checklist
+    (``dryrun_multichip``) on the port.  A one-rank NCCL world on the
+    card drives every meshed path at the main path's widths, each held
+    to the same call without a mesh; a 4-rank gloo world on the CPU
+    shards with P > 1.  Returns the K1, K2 and K3 launches of the meshed
+    main-path runs (each counted from zero)."""
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    with local_world("nccl", device_id=torch.device("cuda", 0)):
+        dp = sharding.make_mesh(device_type="cuda")
+        meshes = {"dp": dp, "dp_tp": sharding.make_mesh(
+            axis_names=("dp", "tp"), shape=(1, 1), device_type="cuda"),
+            "pp": sharding.make_mesh(axis_names=("pp",),
+                                     device_type="cuda")}
+        print(f"[43 NCCL world] one rank, backend "
+              f"{torch.distributed.get_backend()}, meshes "
+              + ", ".join(f"{k} {tuple(m.mesh_dim_names)}"
+                          f"={tuple(m.mesh.shape)}"
+                          for k, m in meshes.items())
+              + f" on {sharding.mesh_device(dp)} in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        launches = mesh_engines(card, ms, dp, cheb, cheb19)
+        mesh_paths(card, ms, meshes, cheb, slider, tt)
+        mesh_fits_and_builds(card, ms, meshes)
+    gloo_world(card)
+    return launches
+
+
+def mesh_engines(card: str, ms: dict, dp, cheb, cheb19):
+    """Phases 44-45: the dp engines at 2^20 through K1, K3 and K2 (the
+    launches counted from zero), bitwise the engines without a mesh, and
+    what the mesh adds to each."""
+    t0 = time.perf_counter()
+    pts64 = torch.tensor(sample_points(N, SEED + 80), device=DEVICE)
+    pts32 = pts64.float()
+    engines = {}
+    for tier, dtype in (("f32", torch.float32), ("f64", torch.float64),
+                        ("dd", "dd")):
+        for meshed in (False, True):
+            engines[f"{tier} value", meshed] = BatchedEvaluator(
+                cheb, dtype=dtype, mesh=dp if meshed else None,
+                device=DEVICE)
+    for tier, dtype in (("f64", torch.float64), ("dd", "dd")):
+        for meshed in (False, True):
+            engines[f"{tier} price+5 Greeks", meshed] = MultiSpecEvaluator(
+                cheb, GREEKS, dtype=dtype, mesh=dp if meshed else None,
+                device=DEVICE)
+    plain = {name: engines[name, False](pts32 if name.startswith("f32")
+                                        else pts64)
+             for name, meshed in engines if not meshed}
+    torch.cuda.synchronize()
+    fused_eval.launches = 0
+    fused_dd.launches = 0
+    got = {name: checked(engines[name, True](
+        pts32 if name.startswith("f32") else pts64), plain[name].shape,
+        f"meshed {name}") for name in plain}
+    torch.cuda.synchronize()
+    k1, k3 = fused_eval.launches, fused_dd.launches
+    check(k1 > 0, "the meshed f32 engine never launched K1")
+    check(k3 > 0, "the meshed dd engines never launched K3")
+    for name in plain:
+        check(torch.equal(got[name], plain[name]),
+              f"meshed {name} is not bitwise the engine without a mesh")
+    added = {}
+    for name in plain:
+        pts = pts32 if name.startswith("f32") else pts64
+        ms[f"dp mesh {name}, one rank"] = cuda_ms(
+            lambda e=engines[name, True]: e(pts))
+        ms[f"no mesh {name}"] = cuda_ms(lambda e=engines[name, False]: e(pts))
+        added[name] = (ms[f"dp mesh {name}, one rank"]
+                       - ms[f"no mesh {name}"])
+    gather = torch.empty(N, dtype=torch.float64, device=DEVICE)
+    ms["NCCL all_gather of 2^20 f64, one rank"] = cuda_ms(
+        lambda: sharding._all_gather_rows(gather, dp.get_group("dp"), 1))
+    print(f"[44 dp engines] 11^5 at N=2^20 on a ('dp',) mesh of one rank: "
+          f"f32 (K1), f64, dd (K3), price+5 Greeks f64 and dd, each "
+          f"bitwise the engine without a mesh; K1 launches {k1}, K3 "
+          f"launches {k3}; mesh vs no mesh (CUDA events, median of 15): "
+          + "; ".join(f"{name} {ms[f'dp mesh {name}, one rank']:.4f} vs "
+                      f"{ms[f'no mesh {name}']:.4f} ms (adds "
+                      f"{added[name]:+.4f} ms)" for name in plain)
+          + f"; NCCL all_gather of 2^20 f64 alone "
+          f"{ms['NCCL all_gather of 2^20 f64, one rank']:.4f} ms; "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+    t0 = time.perf_counter()
+    e19 = BatchedEvaluator(cheb19, dtype=torch.float32, device=DEVICE)
+    e19m = BatchedEvaluator(cheb19, dtype=torch.float32, mesh=dp,
+                            device=DEVICE)
+    want19 = e19(pts32)
+    torch.cuda.synchronize()
+    fused_eval.launches = 0
+    got19 = checked(e19m(pts32), (N,), "meshed 19^5 f32")
+    torch.cuda.synchronize()
+    k2 = fused_eval.launches
+    check(k2 > 0, "the meshed 19^5 f32 engine never launched K2")
+    check(torch.equal(got19, want19),
+          "meshed 19^5 f32 is not bitwise the engine without a mesh")
+    ms["dp mesh f32 value 19^5, one rank"] = cuda_ms(lambda: e19m(pts32))
+    ms["no mesh f32 value 19^5"] = cuda_ms(lambda: e19(pts32))
+    print(f"[45 dp K2] 19^5 f32 engine at N=2^20 on the mesh: bitwise the "
+          f"engine without one; K2 launches {k2}; "
+          f"{ms['dp mesh f32 value 19^5, one rank']:.4f} vs "
+          f"{ms['no mesh f32 value 19^5']:.4f} ms; "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return k1, k2, k3
+
+
+def mesh_paths(card: str, ms: dict, meshes, cheb, slider, tt):
+    """Phases 46-49: tp (and dd tp beyond the single-device budget), dp
+    box integrals and grouped-dd TT bucket masses, the sharded book,
+    the slider's TT served dp."""
+    dp = meshes["dp"]
+    t0 = time.perf_counter()
+    nodes, weights, diffs = cheb._grid_tuples()
+    pts64 = torch.tensor(with_node_hits(sample_points(N, SEED + 81),
+                                        cheb._nodes_np()), device=DEVICE)
+    delta = (1, 0, 0, 0, 0)
+    tp = checked(sharding.eval_batch_tp(
+        cheb.tensor_values, nodes, weights, diffs, pts64, meshes["dp_tp"],
+        orders=delta), (N,), "tp d/dS")
+    d_tp = dev(tp, cheb.eval_batch_device(pts64, delta))
+    check(d_tp <= F64_CEILING, f"tp d/dS vs eval_batch_device {d_tp:.3e}")
+    check(not eval_dd.supports_dd(WIDE)
+          and not sharding.dd_tp_plan(WIDE, 1)["ok"]
+          and sharding.dd_tp_plan(WIDE, 4)["ok"],
+          "the (9, 16400) grid's dd plans are not the reference's")
+    tensor, xs, ws = wide_operands(DEVICE)
+    try:
+        sharding.eval_batch_dd_tp(tensor, xs, ws, ((), ()), pts64[:64, :2],
+                                  meshes["dp_tp"])
+        refused = False
+    except ValueError as exc:
+        refused = "outside the tp digit-GEMM budget on 1 devices" in str(exc)
+    check(refused, "dd tp of (9, 16400) at tp = 1 was not refused")
+    print(f"[46 tp] 11^5 d/dS at N=2^20 with node hits on a ('dp', 'tp') "
+          f"(1, 1) mesh vs eval_batch_device {d_tp:.3e} <= "
+          f"{F64_CEILING:g}; dd tp of (9, 16400), outside supports_dd: "
+          f"refused at tp = 1 as the reference refuses it (its tp = 4 run "
+          f"is phase 53's); {time.perf_counter() - t0:.1f} s | {card}",
+          flush=True)
+
+    t0 = time.perf_counter()
+    boxes = random_boxes(NB, SEED + 83, DOMAIN)
+    ib = checked(sharding.integrate_box_batch_dp(
+        cheb.tensor_values, DOMAIN, boxes, dp), (NB,), "dp box integrals")
+    want_ib = integrate_ops.integrate_box_batch(cheb.tensor_values, DOMAIN,
+                                                boxes)
+    check(torch.equal(ib, want_ib),
+          "dp box integrals are not bitwise the call without a mesh")
+    tt_boxes = random_boxes(NB, SEED + 84, TT_DOMAIN)
+    shapes = tt_eval.core_shapes(tt._coeff_cores)
+    groups = tt_eval_dd.tt_dd_auto_groups(shapes)
+    if groups is None or set(groups) == {1}:
+        groups = (2,) + (1,) * (len(shapes) - 2)
+    masses = checked(sharding.tt_integrate_box_batch_dd_dp(
+        tt._coeff_cores, TT_DOMAIN, tt_boxes, dp, groups=groups), (NB,),
+        "dp TT bucket masses")
+    want_masses = integrate_ops.tt_integrate_box_batch_dd(
+        [torch.tensor(c, device=DEVICE) for c in tt._coeff_cores],
+        TT_DOMAIN, tt_boxes, groups=groups)
+    check(torch.equal(masses, want_masses),
+          "dp TT bucket masses are not bitwise the call without a mesh")
+    ms["dp mesh box integrals 2^17, one rank"] = cuda_ms(
+        lambda: sharding.integrate_box_batch_dp(cheb.tensor_values, DOMAIN,
+                                                boxes, dp))
+    print(f"[47 dp integrals] 11^5 box integrals over 2^17 boxes bitwise "
+          f"the call without a mesh "
+          f"({ms['dp mesh box integrals 2^17, one rank']:.4f} ms); rank-15 "
+          f"TT dd bucket masses (groups {groups}) over 2^17 boxes bitwise; "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+    t0 = time.perf_counter()
+    book = build_book(book_torch, 5, DOMAIN, [11] * 5,
+                      num_models=len(BOOK_YIELDS), mesh=dp, device=DEVICE)
+    plain_book = build_book(book_torch, 5, DOMAIN, [11] * 5,
+                            num_models=len(BOOK_YIELDS), device=DEVICE)
+    d_book = max(dev(a.tensor_values, b.tensor_values)
+                 for a, b in zip(book, plain_book))
+    check(d_book <= F64_CEILING, f"sharded book vs host book {d_book:.3e}")
+    b_pts = pts64[:1 << 17]
+    served = checked(MultiModelEvaluator(book, dtype=torch.float64, mesh=dp,
+                                         device=DEVICE)(b_pts),
+                     (len(book), b_pts.shape[0]), "meshed book engine")
+    check(torch.equal(served, MultiModelEvaluator(
+        book, dtype=torch.float64, device=DEVICE)(b_pts)),
+        "the meshed book engine is not bitwise the one without a mesh")
+    slider_tt = slider.to_tt()
+    s_pts = torch.tensor(sample_points(1 << 17, SEED + 85,
+                                       [(-1.0, 1.0)] * SLIDER_D),
+                         device=DEVICE)
+    s_mesh = checked(BatchedEvaluator(slider_tt, dtype=torch.float64,
+                                      mesh=dp, device=DEVICE)(s_pts),
+                     (1 << 17,), "slider -> TT on the mesh")
+    check(torch.equal(s_mesh, BatchedEvaluator(
+        slider_tt, dtype=torch.float64, device=DEVICE)(s_pts)),
+        "the slider's TT on the mesh is not bitwise without it")
+    print(f"[48 book] six-model build_book of book_torch over 11^5, grid "
+          f"rows sharded on the card, vs the host oracle's book "
+          f"{d_book:.3e} <= {F64_CEILING:g}; its MultiModelEvaluator on the "
+          f"mesh at 2^17 bitwise without one; {time.perf_counter() - t0:.1f}"
+          f" s | {card}", flush=True)
+    print(f"[49 slider -> TT dp] config 4's slider to_tt served f64 on the "
+          f"mesh at 2^17, bitwise without one | {card}", flush=True)
+
+
+def mesh_fits_and_builds(card: str, ms: dict, meshes):
+    """Phases 50-52: the dense fits at the main path's sizes, the TT
+    build and completion, the one-stage pipeline."""
+    dp = meshes["dp"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    lines = []
+    for engine, n in MESH_FITS:
+        pts = np.stack([rng.uniform(a, b, n) for a, b in FIT_DOMAIN], axis=1)
+        y = fit_f(pts) + rng.normal(0, FIT_NOISE, n)
+        kw = dict(l2=1e-8, engine=engine, device=DEVICE)
+        plain, plain_s = timed_s(lambda: ChebyshevApproximation.fit(
+            pts, y, 3, FIT_DOMAIN, FIT_NODES, **kw))
+        meshed, mesh_s = timed_s(lambda: ChebyshevApproximation.fit(
+            pts, y, 3, FIT_DOMAIN, FIT_NODES, mesh=dp, **kw))
+        same = torch.equal(meshed.tensor_values, plain.tensor_values)
+        d_fit = dev(meshed.tensor_values, plain.tensor_values)
+        if engine == "device-dd":
+            check(same, "the meshed device-dd fit is not bitwise")
+        check(d_fit <= F32_CEILING, f"meshed {engine} fit {d_fit:.3e}")
+        ms[f"dense fit {engine} on the mesh, {n:,} samples"] = mesh_s * 1e3
+        lines.append(f"{engine} {n:,} samples: {mesh_s:.3f} s vs "
+                     f"{plain_s:.3f} s without a mesh, "
+                     f"{'bitwise' if same else f'{d_fit:.3e}'}")
+    print(f"[50 fits] 9^3 dense fit on the mesh: " + "; ".join(lines)
+          + f"; {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+    t0 = time.perf_counter()
+    builds = {}
+    for meshed in (False, True):
+        tt = ChebyshevTT(arith_np, 3, GLOO_DOMAIN, MESH_TT_NODES, max_rank=5,
+                         vectorized=True, device=DEVICE)
+        tt.build(verbose=False, seed=0, mesh=dp if meshed else None)
+        built = [np.array(c) for c in tt._coeff_cores]
+        tt.run_completion(max_iter=3, mesh=dp if meshed else None)
+        builds[meshed] = built, tt
+    same_build = all(np.array_equal(a, b)
+                     for a, b in zip(builds[True][0], builds[False][0]))
+    same_completion = all(np.array_equal(a, b) for a, b in zip(
+        builds[True][1]._coeff_cores, builds[False][1]._coeff_cores))
+    check(same_build and same_completion,
+          "the TT build or completion on the mesh is not bitwise")
+    tt = builds[True][1]
+    pts = torch.tensor(sample_points(1 << 16, SEED + 86, GLOO_DOMAIN),
+                       device=DEVICE)
+    cores = [torch.tensor(c, device=DEVICE) for c in tt._coeff_cores]
+    pp = checked(tt_eval_batch_pp(cores, GLOO_DOMAIN, pts, meshes["pp"]),
+                 (1 << 16,), "one-stage pipeline")
+    d_pp = dev(pp, tt_eval.tt_eval_batch(cores, GLOO_DOMAIN, pts))
+    check(d_pp <= F64_CEILING, f"one-stage pipeline vs chain {d_pp:.3e}")
+    print(f"[51 TT build] cross on {MESH_TT_NODES} nodes with the oracle's "
+          f"batches on the mesh, and run_completion on it: bitwise the "
+          f"builds without one (ranks {tt.tt_ranks}) | {card}", flush=True)
+    print(f"[52 pipeline] tt_eval_batch_pp, one stage, 2^16 points vs "
+          f"tt_eval_batch {d_pp:.3e} <= {F64_CEILING:g}; "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+
+def gloo_world(card: str, cuda_check: bool = True) -> None:
+    """Phase 53: a 4-rank gloo world on the host's CPU: dp, tp (2, 2),
+    a four-stage pipeline, a sharded book, a sharded TT build and a
+    device-dd fit over ten chunks, held to the port's single-device
+    results on the CPU."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as scratch:
+        out = Path(scratch) / "gloo.npz"
+        run_world(gloo_rank, GLOO_RANKS, (str(out), cuda_check),
+                  deadline_s=300)
+        with np.load(out) as f:
+            got = dict(f)
+    world_s = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)            # as each rank: the GEMMs' order
+    try:
+        want = {k: v.numpy() for k, v in gloo_results(lambda *_: None)
+                .items()}
+    finally:
+        torch.set_num_threads(threads)
+    if cuda_check:
+        check(int(got.pop("cuda_under_gloo_refused")) == 1,
+              "a CUDA tensor under the gloo group was not refused")
+    check(set(got) == set(want), "the gloo world returned other results")
+    devs = {k: dev(got[k], want[k]) for k in ("dp", "tp", "pp", "dd_tp")}
+    check(max(devs["dp"], devs["tp"], devs["pp"]) <= F64_CEILING
+          and devs["dd_tp"] <= DD_TP_VS_F64, f"gloo world {devs}")
+    exact = [k for k in want if k.startswith(("tt_core", "book", "fit"))]
+    for k in exact:
+        check(np.array_equal(got[k], want[k]),
+              f"gloo world {k} is not bitwise one device's")
+    print(f"[53 gloo world] {GLOO_RANKS} ranks on the CPU in {world_s:.1f} "
+          f"s: dp {devs['dp']:.3e}, tp (2, 2) of d2/dx0dx2 {devs['tp']:.3e}, "
+          f"4-stage pipeline {devs['pp']:.3e} (<= {F64_CEILING:g}), dd tp "
+          f"of (9, 16400) over tp = 4 vs f64 {devs['dd_tp']:.3e} (<= "
+          f"{DD_TP_VS_F64:g}); "
+          f"{', '.join(exact)} bitwise one device's"
+          + ("; a CUDA tensor under the gloo group refused"
+             if cuda_check else "") + f" | {card}", flush=True)
+
+
 def main() -> None:
     # 1. The device.
     if not torch.cuda.is_available():
@@ -2802,18 +3272,24 @@ def main() -> None:
     # certified optima witnessed through K3, the reference's rows.
     k3_global_launches = global_calculus(card, ms, cheb)
 
+    # 43-53. Multi-device: the meshed main path through K1, K2 and K3 on
+    # a one-rank NCCL world, then a 4-rank gloo world on the CPU.
+    k1_mesh, k2_mesh, k3_mesh = multi_device(card, ms, cheb, cheb19,
+                                             slider, tt)
+
     # Bounds on the pipes each instance runs on: f32 on the TF32 tensor
     # cores in three passes, f64 on the f64 tensor cores; the SIMT pipes'
     # bound beside each.
     rows = [
         ("K1 fused f32 dense evaluator", "pychebyshev_tpu/ops/pallas_eval.py:173",
-         main_launches + k1_fit_launches, max_abs,
+         main_launches + k1_fit_launches + k1_mesh, max_abs,
          "K1 f32 (fused_eval_batch)",
          "plain f32 (fused_eval_batch_reference)", "GEMM f32 11^5",
          bound((11,) * 5, N, 4, TF32_PEAK, passes=3),
          bound((11,) * 5, N, 4, F32_SIMT_PEAK)[0]),
         ("K2 stream f32 dense evaluator (K1's kernel at 19^5)",
-         "pychebyshev_tpu/ops/pallas_eval.py:319", k2_launches, k2_abs,
+         "pychebyshev_tpu/ops/pallas_eval.py:319", k2_launches + k2_mesh,
+         k2_abs,
          "K1 f32 at 19^5 (fused_eval_batch)",
          "plain f32 at 19^5 (fused_eval_batch_reference)", "GEMM f32 19^5",
          bound((19,) * 5, N, 4, TF32_PEAK, passes=3),
@@ -2821,7 +3297,7 @@ def main() -> None:
         ("K3 fused dd dense evaluator (f64)",
          "pychebyshev_tpu/ops/pallas_dd.py:155",
          k3_launches + k3_spline_launches + k3_fit_launches
-         + k3_global_launches, k3_abs,
+         + k3_global_launches + k3_mesh, k3_abs,
          "K3 f64 (fused_eval_batch_dd)",
          "plain f64 (fused_eval_batch_dd_reference)", "GEMM f64 11^5",
          bound((11,) * 5, N, 8, F64_TC_PEAK),

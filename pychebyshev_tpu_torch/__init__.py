@@ -36,9 +36,10 @@ PyTorch:
   ``solve_system`` (coefficient-space branch-and-bound,
   ``ops.subdivision``, with the box statistics of large dense tensors
   computed in f64 on the model's device; ``utils.globalcalc``).
-
-``mesh=`` (multi-device) is not ported yet and raises
-``NotImplementedError``.
+- Multi-device execution over ``torch.distributed`` device meshes
+  (``parallel.sharding``, ``parallel.tt_pipeline``): data-, tensor- and
+  pipeline-parallel queries, sharded builds and box integrals, and
+  ``mesh=`` on the engines, ``build_book``, the TT builds and every fit.
 
 Every constructor and engine takes an explicit ``device=``; nothing here
 probes for a device or falls back to another one.

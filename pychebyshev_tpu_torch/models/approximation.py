@@ -32,8 +32,8 @@ engines), the Sobol family (``utils.sensitivity``), ``hadamard``,
   branch-and-bound of ``ops.subdivision`` on the host, with the box
   statistics of large tensors on the device (``utils.globalcalc``).
 
-Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
-``mesh=``.
+``fit(mesh=)`` accumulates its normal equations data-parallel over a
+device mesh (``utils.fitting``).
 """
 
 from __future__ import annotations
@@ -467,8 +467,11 @@ class ChebyshevApproximation:
 
         host_nodes = self._nodes_np()
         if self.n_workers is None or self.n_workers == 1:
+            from pychebyshev_tpu_torch.utils.progress import progress_iter
             out = np.zeros(shape)
-            for idx in np.ndindex(*shape):
+            for idx in progress_iter(np.ndindex(*shape),
+                                     total=int(np.prod(shape)),
+                                     enabled=(verbose == 2), desc="build"):
                 point = [float(host_nodes[d][idx[d]])
                          for d in range(self.num_dimensions)]
                 out[idx] = float(self.function(point, self.additional_data))
@@ -1771,9 +1774,12 @@ class ChebyshevApproximation:
             f32, the throughput tier for millions of noisy samples) or
             ``"device-dd"`` (accumulated on ``device`` in native f64).
             The solve and the residual diagnostics stay host f64.
-        mesh : not ported; a value other than ``None`` raises
-            ``NotImplementedError``.
-        device : where the device engines run and the result lives.
+        mesh : optional device mesh (device engines only,
+            ``parallel.sharding``): the samples shard over ``data_axis``
+            and the normal equations are reduced across it (see
+            ``utils.fitting``); every rank gets the same model.
+        device : where the device engines run and the result lives
+            (under a mesh, the mesh's device).
 
         Returns
         -------

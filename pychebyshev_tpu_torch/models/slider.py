@@ -32,8 +32,8 @@ The global ``minimize``/``maximize`` (``dim=None``) and
 certified search, or one stationary set, per slide
 (``utils.globalcalc``).
 
-Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
-``mesh=``.
+``fit(mesh=)`` accumulates its normal equations data-parallel over a
+device mesh (``utils.fitting``).
 """
 
 from __future__ import annotations
@@ -147,8 +147,12 @@ class ChebyshevSlider:
             print(f"Building {self.num_dimensions}D Chebyshev Slider "
                   f"({len(self.partition)} slides, "
                   f"{self.total_build_evals:,} evaluations)...")
+        from pychebyshev_tpu_torch.utils.progress import progress_iter
+
         self.slides = []
-        for slide_idx, group in enumerate(self.partition):
+        for slide_idx, group in enumerate(progress_iter(
+                self.partition, total=len(self.partition),
+                enabled=(verbose == 2), desc="Building slides")):
             slide = ChebyshevApproximation(
                 self._make_slide_func(group), len(group),
                 [self.domain[d] for d in group],

@@ -32,8 +32,8 @@ The certified global ``minimize``/``maximize`` (``dim=None``) search
 each piece with one shared incumbent, and ``critical_points`` merges
 the pieces' stationary points (``utils.globalcalc``).
 
-Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
-``mesh=``.
+``fit(mesh=)`` accumulates every piece's normal equations
+data-parallel over a device mesh (``utils.fitting``).
 """
 
 from __future__ import annotations
@@ -305,7 +305,11 @@ class ChebyshevSpline:
         if verbose:
             print(f"Building {self.num_dimensions}D Chebyshev Spline "
                   f"({total_pieces} pieces)...")
-        for flat_idx, multi_idx in enumerate(self._piece_indices()):
+        from pychebyshev_tpu_torch.utils.progress import progress_iter
+
+        for flat_idx, multi_idx in enumerate(progress_iter(
+                self._piece_indices(), total=total_pieces,
+                enabled=(verbose == 2), desc="Building spline pieces")):
             sub_domain = self._sub_domain(multi_idx)
             piece = ChebyshevApproximation(
                 self.function, self.num_dimensions, sub_domain,

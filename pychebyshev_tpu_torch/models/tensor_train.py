@@ -38,8 +38,9 @@ The global ``minimize``/``maximize`` (``dim=None``) and
 ``critical_points`` search through the coefficient cores with the
 interval transfer-matrix bound, on the host (``utils.globalcalc``).
 
-Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
-``mesh=``.
+``build(mesh=)`` and ``run_completion(mesh=)`` shard every oracle batch
+over a device mesh (``parallel.sharding.sharded_vectorized``);
+``fit(mesh=)`` shards the ALS rows (``utils.fitting``).
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ from pychebyshev_tpu_torch.ops.quadrature import (
     sub_interval_weights,
 )
 from pychebyshev_tpu_torch.ops.tt_eval import tt_eval_batch
+from pychebyshev_tpu_torch.parallel import sharding
 from pychebyshev_tpu_torch.utils import ceval
 from pychebyshev_tpu_torch.utils.algebra import is_scalar
 from pychebyshev_tpu_torch.utils.calculus import (
@@ -85,7 +87,6 @@ from pychebyshev_tpu_torch.utils.extrude_slice import (
     normalize_slicing_params,
 )
 from pychebyshev_tpu_torch.utils import globalcalc
-from pychebyshev_tpu_torch.utils.unported import not_ported_error
 
 __all__ = ["ChebyshevTT"]
 
@@ -171,7 +172,8 @@ class ChebyshevTT:
     def build(self, verbose: bool | int = True, seed: Optional[int] = None,
               method: str = "cross", init_rank: Optional[int] = None,
               kick: int = 2, refine_sweeps: int = 0,
-              refine_samples: int = 0) -> None:
+              refine_samples: int = 0, mesh=None,
+              data_axis: str = "dp") -> None:
         """Build value cores (cross / svd / als) on the host, convert to
         coefficient cores via the DCT-II cosine matrix.
 
@@ -186,6 +188,13 @@ class ChebyshevTT:
         the entries the cross already evaluated (free) plus
         ``refine_samples`` extra random grid samples.  Defaults off, so
         that a seeded build is the plain cross.
+
+        ``mesh`` (requires ``vectorized=True`` with a vectorized function
+        of an (N, d) tensor): shard every oracle batch (the cross
+        matrices, the full grid of svd/als, the refinement samples) over
+        the mesh's ``data_axis``.  Eval counts match the unsharded build,
+        and the cores are bit-identical to it whenever the function's
+        value at a point does not depend on the batch around it.
         """
         if method not in ("cross", "svd", "als"):
             raise ValueError(
@@ -208,9 +217,7 @@ class ChebyshevTT:
                   f"evaluations")
 
         grids = self._storage_grids()
-        oracle = tta.GridOracle(self.function, grids,
-                                additional_data=self.additional_data,
-                                vectorized=self.vectorized)
+        oracle = self._oracle(grids, mesh, data_axis, "build")
 
         if method == "cross":
             if verbose:
@@ -268,6 +275,18 @@ class ChebyshevTT:
             print(f"  Compression: {full_tensor_size:,} -> {tt_storage:,} "
                   f"elements ({full_tensor_size / tt_storage:.1f}x)")
 
+    def _oracle(self, grids, mesh, data_axis: str, name: str):
+        """The batched, caching oracle over ``grids``; under a mesh its
+        batches shard over ``data_axis`` of the model's device."""
+        oracle = tta.GridOracle(self.function, grids,
+                                additional_data=self.additional_data,
+                                vectorized=self.vectorized, mesh=mesh,
+                                data_axis=data_axis)
+        if mesh is not None:
+            sharding.check_device(mesh, self.device,
+                                  f"{type(self).__name__}.{name}")
+        return oracle
+
     def _check_built(self) -> None:
         if not self._built:
             raise RuntimeError("Call build() before using this method.")
@@ -310,10 +329,8 @@ class ChebyshevTT:
                        data_axis: str = "dp") -> None:
         """Refine the TT at its current rank via fixed-rank ALS sweeps
         against fresh grid samples (re-evaluates the function on the full
-        grid; rank does not grow).  ``mesh`` is not ported."""
-        if mesh is not None:
-            raise not_ported_error(type(self).__name__, "run_completion",
-                                   form="with mesh=")
+        grid; rank does not grow).  ``mesh`` shards the full-grid
+        oracle evaluation like :meth:`build`."""
         self._check_built()
         if self.function is None:
             raise RuntimeError(
@@ -323,9 +340,8 @@ class ChebyshevTT:
             )
         value_cores = [tta.coeff_core_to_value_core(c)
                        for c in self._coeff_cores]
-        oracle = tta.GridOracle(self.function, self._storage_grids(),
-                                additional_data=self.additional_data,
-                                vectorized=self.vectorized)
+        oracle = self._oracle(self._storage_grids(), mesh, data_axis,
+                              "run_completion")
         target = oracle.full_tensor(list(self.n_nodes))
         refined = tta.als_fixed_rank_sweeps(
             value_cores, target, tolerance=tolerance, max_iter=max_iter,
@@ -1509,8 +1525,9 @@ class ChebyshevTT:
         ``engine="device"`` runs the per-core designs, the Gram products
         and both interface chains on ``device`` in IEEE f32 (for
         noise-dominated huge-N fits); solves, QR and the residual
-        diagnostics stay host f64.  ``mesh`` is not ported.  The result
-        lives on ``device``.
+        diagnostics stay host f64.  ``mesh`` (device engine) shards the
+        rows over ``data_axis`` and reduces the Grams and the residual
+        across it.  The result lives on ``device``.
         """
         from pychebyshev_tpu_torch.utils.fitting import fit_tt_cores
         domain, n_nodes = _unwrap_typed(domain, n_nodes)

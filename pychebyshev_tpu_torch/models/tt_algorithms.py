@@ -5,7 +5,8 @@ dynamically-ranked tiny matrices (r, n <= ~100) with data-dependent
 pivoting and a black-box function oracle, shapes and control flow that
 gain nothing from a device.  A copy of the JAX package's module (same
 RNG, same NumPy calls, so a seeded build gives the same cores bit for
-bit); only ``GridOracle`` differs, which takes no ``mesh``.  The device
+bit); ``GridOracle``'s ``mesh=`` shards its batches over a
+``torch.distributed`` device mesh.  The device
 hot path is elsewhere: ``ops.tt_eval`` (the batched query chain).
 
 - ``maxvol``: Goreinov-Tyrtyshnikov maximal-volume row selection with
@@ -34,6 +35,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from pychebyshev_tpu_torch.ops.dct import _coeff_matrix_np, _synthesis_matrix_np
+from pychebyshev_tpu_torch.parallel.sharding import sharded_vectorized
 
 __all__ = [
     "maxvol",
@@ -112,12 +114,25 @@ class GridOracle:
     """
 
     def __init__(self, function: Callable, grids: List[np.ndarray],
-                 additional_data=None, vectorized: bool = False):
+                 additional_data=None, vectorized: bool = False,
+                 mesh=None, data_axis: str = "dp"):
         self.function = function
         self.grids = [np.asarray(g, dtype=np.float64) for g in grids]
         self.additional_data = additional_data
         self.vectorized = vectorized
         self._cache: dict = {}
+        # Under a mesh every batch of missing points shards over the
+        # data axis; each rank evaluates its block as a tensor on the
+        # mesh's device and all ranks get every value, so all ranks run
+        # the same cross.
+        self._eval_fn = function
+        if mesh is not None:
+            if not vectorized:
+                raise ValueError(
+                    "mesh-sharded oracle evaluation requires "
+                    "vectorized=True (a vectorized function of an (N, d) "
+                    "tensor); black-box scalar callables evaluate on host")
+            self._eval_fn = sharded_vectorized(function, mesh, data_axis)
 
     @property
     def n_evals(self) -> int:
@@ -138,7 +153,7 @@ class GridOracle:
                     pts[r, dim] = self.grids[dim][key[dim]]
             if self.vectorized:
                 vals = np.asarray(
-                    self.function(pts, self.additional_data),
+                    self._eval_fn(pts, self.additional_data),
                     dtype=np.float64).reshape(-1)
             else:
                 vals = np.array([

@@ -26,8 +26,8 @@ Not ported, by design: the digit-plane machinery (``pair_schedule``,
 ``_two_prod``, ``_khatri_rao_dd``, the digit-plane functions,
 ``dd_gemm_ladder``, ``_compiled`` and the plane caches).  It is TPU
 arithmetic for hardware without f64, and native f64 replaces it.
-Sharding over a mesh (the runners' ``mesh=``) comes with the
-multi-device slice.
+The runners' ``mesh=`` serves the points data-parallel
+(``parallel.sharding``), each rank through the same route.
 """
 
 from __future__ import annotations
@@ -41,6 +41,10 @@ import torch
 from pychebyshev_tpu_torch.ops import eval as eval_ops
 from pychebyshev_tpu_torch.ops import fused_dd
 from pychebyshev_tpu_torch.ops.eval import _split_index
+from pychebyshev_tpu_torch.parallel.sharding import (
+    _dp_runner,
+    _tree_on_mesh,
+)
 
 __all__ = ["eval_batch_dd", "eval_batch_dd_multi", "eval_batch_dd_models",
            "dd_multi_runner", "dd_models_runner", "supports_dd", "dd_plan",
@@ -185,16 +189,21 @@ def eval_batch_dd_models(tensors, nodes, weights, diff_matrices, points,
 
 
 def dd_models_runner(tensors, nodes, weights, diff_matrices, orders,
-                     cutoff: int = None):
+                     cutoff: int = None, mesh=None,
+                     data_axis: str = "dp"):
     """Prepare-once form of :func:`eval_batch_dd_models`: returns a
     ``points -> (M, N)`` callable that holds every model's packed
     operands for its lifetime (on CUDA, one kernel launch per model per
-    call)."""
+    call).  With ``mesh``, the operands are prepared once on this rank's
+    device and the points shard over ``data_axis``
+    (``parallel.sharding``); every rank gets the full result."""
     tensors = tuple(tensors)
     _check_cutoff(cutoff)
     orders = _orders(orders, tensors[0].dim())
-    return _runner(tensors, nodes, weights, diff_matrices,
-                   [orders] * len(tensors))
+    tensors, nodes, weights, diff_matrices = _tree_on_mesh(
+        (tensors, nodes, weights, diff_matrices), mesh)
+    return _dp_runner(_runner(tensors, nodes, weights, diff_matrices,
+                              [orders] * len(tensors)), mesh, data_axis, -1)
 
 
 def eval_batch_dd_multi(tensor, nodes, weights, diff_matrices, points,
@@ -222,13 +231,15 @@ def eval_batch_dd_multi(tensor, nodes, weights, diff_matrices, points,
 
 
 def dd_multi_runner(tensor, nodes, weights, diff_matrices, specs,
-                    cutoff: int = None):
+                    cutoff: int = None, mesh=None,
+                    data_axis: str = "dp"):
     """Prepare-once form of :func:`eval_batch_dd_multi`.
 
     Returns a ``points -> (N, len(specs))`` callable that holds every
     spec's packed operands, so a serving engine owns its working set
     instead of leaning on the bounded operand cache.  On CUDA a call is
-    one kernel launch per spec.
+    one kernel launch per spec.  ``mesh``/``data_axis`` as in
+    :func:`dd_models_runner`.
     """
     shape = tuple(int(n) for n in tensor.shape)
     specs = tuple(tuple(int(o) for o in s) for s in specs)
@@ -240,9 +251,11 @@ def dd_multi_runner(tensor, nodes, weights, diff_matrices, specs,
         )
     for s in specs:
         _orders(s, len(shape))
+    tensor, nodes, weights, diff_matrices = _tree_on_mesh(
+        (tensor, nodes, weights, diff_matrices), mesh)
     if not specs:
         return lambda points: _points64(
             points, tensor.device, len(shape)).new_zeros((len(points), 0))
     run = _runner((tensor,) * len(specs), nodes, weights, diff_matrices,
                   specs)
-    return lambda points: run(points).T
+    return _dp_runner(lambda points: run(points).T, mesh, data_axis, 0)

@@ -19,8 +19,8 @@ and runs one GEMM, fewer launches for a Greek set (PERF.md).
 The reference's digit planes (``_dd_row_planes``, ``_dd_ladder``,
 ``_slider_planes``, ``_compiled_*`` and the plane cache) are TPU
 arithmetic for hardware without f64 and are not ported.  ``cutoff`` is
-validated and accepted; f64 is inside every cutoff's error.  ``mesh=``
-comes with the multi-device slice.
+validated and accepted; f64 is inside every cutoff's error.
+``slider_dd_multi_runner(mesh=)`` serves the points data-parallel.
 """
 
 from __future__ import annotations
@@ -38,6 +38,10 @@ from pychebyshev_tpu_torch.ops.eval import (
 )
 from pychebyshev_tpu_torch.ops.eval_dd import _check_cutoff
 from pychebyshev_tpu_torch.ops.tt_eval import _chunk_size
+from pychebyshev_tpu_torch.parallel.sharding import (
+    _dp_runner,
+    _tree_on_mesh,
+)
 
 __all__ = ["slider_value_batch", "slider_multi_batch", "spec_plan",
            "slider_batch_dd", "slider_multi_batch_dd",
@@ -257,12 +261,22 @@ def slider_multi_batch_dd(slide_data, pivot_value, groups, specs,
 
 
 def slider_dd_multi_runner(slide_data, pivot_value, groups, specs,
-                           cutoff: int = None):
+                           cutoff: int = None, mesh=None,
+                           data_axis: str = "dp"):
     """Prepare-once form of :func:`slider_multi_batch_dd`: returns a
     ``points -> (N, len(specs))`` callable that holds the (K, M) column
     matrix of the specs that touch the device.  Every spec contracts
     against the same full-width rows; a cross-group spec is an
-    exact-zero column that never reaches the device."""
+    exact-zero column that never reaches the device.  With ``mesh``,
+    the matrix is prepared once on this rank's device and the points
+    shard over ``data_axis`` (``parallel.sharding``); every rank gets
+    the full result."""
+    return _dp_runner(
+        _slider_dd_multi(_tree_on_mesh(slide_data, mesh), pivot_value,
+                         groups, specs, cutoff), mesh, data_axis, 0)
+
+
+def _slider_dd_multi(slide_data, pivot_value, groups, specs, cutoff):
     groups = _validated_groups(groups)
     n_dims = sum(len(g) for g in groups)
     specs = tuple(tuple(int(o) for o in s) for s in specs)

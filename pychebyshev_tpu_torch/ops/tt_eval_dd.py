@@ -26,8 +26,7 @@ Not ported, by design: the digit-plane machinery (``_dd_add``,
 ``_pair_fields``, ``_width_digit_bits``, ``_score_partition``,
 ``_enumerate_auto_groups``, the core digit planes and their caches).  It
 is TPU arithmetic for hardware without f64, and native f64 replaces it.
-Sharding over a mesh (the book runner's ``mesh=``) comes with the
-multi-device slice.
+``tt_dd_book_runner(mesh=)`` serves the points data-parallel.
 """
 
 from __future__ import annotations
@@ -45,6 +44,10 @@ from pychebyshev_tpu_torch.ops.tt_eval import (
     core_shapes,
     group_slices,
     validated_groups,
+)
+from pychebyshev_tpu_torch.parallel.sharding import (
+    _dp_runner,
+    _tree_on_mesh,
 )
 
 __all__ = ["tt_eval_batch_dd", "tt_eval_batch_dd_models",
@@ -260,15 +263,19 @@ def tt_eval_batch_dd_models(models_cores, domain, points,
 
 
 def tt_dd_book_runner(models_cores, domain, cutoff: int = None,
-                      groups="auto"):
+                      mesh=None, data_axis: str = "dp", groups="auto"):
     """Prepare-once form of :func:`tt_eval_batch_dd_models`: returns a
     ``points -> (M, N)`` callable that holds the book's f64 cores
     (merged now, for a grouped chain; rank-padded and stacked, so the
     book runs as one batched chain) for its lifetime.  ``groups``:
     ``"auto"`` picks on the model with the largest total rank load,
-    ``None`` is the per-dim chain."""
+    ``None`` is the per-dim chain.  With ``mesh``, the cores are
+    prepared once on this rank's device and the points shard over
+    ``data_axis`` (``parallel.sharding``); every rank gets the full
+    result."""
     _check_cutoff(cutoff)
-    models_cores = tuple(_cores64(cs) for cs in models_cores)
+    models_cores = _tree_on_mesh(tuple(_cores64(cs) for cs in models_cores),
+                                 mesh)
     models_shapes = tuple(core_shapes(cs) for cs in models_cores)
     if isinstance(groups, str) and groups == "auto":
         widest = max(models_shapes,
@@ -296,4 +303,4 @@ def tt_dd_book_runner(models_cores, domain, cutoff: int = None,
         return tt_eval.tt_eval_batch_models(
             stacked, dom, _points64(points, device), groups=groups,
             dims_n=dims_n)
-    return runner
+    return _dp_runner(runner, mesh, data_axis, -1)

@@ -1,7 +1,7 @@
 """Serving engines for batched queries (dense, tensor-train, spline and
 slider interpolants).
 
-The port of ``pychebyshev_tpu.serving``, without ``mesh``.  An engine
+The port of ``pychebyshev_tpu.serving``.  An engine
 snapshots an interpolant's arrays at a chosen dtype on its device, with
 the derivative passes it serves applied once (in f64, then cast), and
 answers any batch.
@@ -49,7 +49,16 @@ sliders the reference's plan refuses.
 over the grid (its models share one set of grid tensors),
 ``integrate_book`` integrates such a book over a batch of boxes in one
 pass (``ops.integrate``), and ``save_book``/``load_book`` keep it as one
-pickle-free ``.npz``.  Mesh sharding is not ported yet.
+pickle-free ``.npz``.
+
+``mesh=`` (a ``torch.distributed`` device mesh, ``parallel.sharding``)
+serves every engine data-parallel: every rank calls the engine with the
+same batch, serves its contiguous block of each slice through the same
+route as a single-device engine (the kernels included) and gets the
+full result by ``all_gather`` over ``data_axis``.  A dense dd engine on a
+mesh with a ``"tp"`` axis serves grids beyond ``supports_dd`` that the
+tensor-parallel plan accepts (``parallel.sharding.eval_batch_dd_tp``).
+``build_book(mesh=)`` shards the grid rows of its one oracle call.
 
 Example
 -------
@@ -75,6 +84,7 @@ from pychebyshev_tpu_torch.ops import (
     tt_eval,
     tt_eval_dd,
 )
+from pychebyshev_tpu_torch.parallel import sharding
 
 __all__ = ["BatchedEvaluator", "MultiSpecEvaluator", "MultiModelEvaluator",
            "build_book", "integrate_book", "save_book", "load_book"]
@@ -108,6 +118,43 @@ def _family(interpolant) -> str:
     return ""
 
 
+def _check_dd_shape(shape) -> None:
+    if not eval_dd.supports_dd(shape):
+        raise ValueError(
+            f"grid shape {shape} is outside the digit-GEMM plan budget; "
+            f"serve at dtype=torch.float64 instead")
+
+
+def _dd_tp_route(shape, mesh, dense: bool) -> bool:
+    """Whether a ``BatchedEvaluator`` at ``dtype="dd"`` serves this grid
+    tensor-parallel: grids ``supports_dd`` accepts are served on each
+    rank (False); beyond it only a dense engine on a mesh with a
+    ``"tp"`` axis whose plan (``dd_tp_plan``) accepts the grid (True).
+    The other cases raise the reference's three refusals."""
+    if eval_dd.supports_dd(shape):
+        return False
+    has_tp = mesh is not None and sharding.has_axis(mesh, "tp")
+    if has_tp and not dense:
+        raise ValueError(
+            f"grid shape {shape} is outside the digit-GEMM plan budget, "
+            f"and the tensor-parallel dd route serves dense "
+            f"ChebyshevApproximation engines only; serve at "
+            f"dtype=torch.float64 instead")
+    if has_tp:
+        n_tp = sharding.axis_size(mesh, "tp")
+        if sharding.dd_tp_plan(shape, n_tp)["ok"]:
+            return True
+        raise ValueError(
+            f"grid shape {shape} is outside the digit-GEMM plan budget "
+            f"even tensor-parallel over tp={n_tp} (the sharded plan "
+            f"refuses this shape); serve at dtype=torch.float64 instead")
+    raise ValueError(
+        f"grid shape {shape} is outside the digit-GEMM plan budget; serve "
+        f"at dtype=torch.float64, or (dense engines) pass a mesh with a "
+        f"'tp' axis — tensor-parallel digit-GEMM raises the per-device "
+        f"budget")
+
+
 def _dense_snapshot(interpolant, engine: str, dtype, device):
     """(nodes, weights, diffs) of a built dense interpolant at ``dtype``
     (f64 for ``"dd"``) on ``device``, or an error naming what is not
@@ -122,11 +169,6 @@ def _dense_snapshot(interpolant, engine: str, dtype, device):
     if interpolant.tensor_values is None:
         raise RuntimeError("interpolant is not built")
     if dtype == "dd":
-        shape = tuple(interpolant.tensor_values.shape)
-        if not eval_dd.supports_dd(shape):
-            raise ValueError(
-                f"grid shape {shape} is outside the digit-GEMM plan "
-                f"budget; serve at dtype=torch.float64 instead")
         dtype = torch.float64
     nodes, weights, diffs = interpolant._grid_tuples()
     return tuple(tuple(a.to(device=device, dtype=dtype) for a in grp)
@@ -168,19 +210,19 @@ def _piece_snapshot(piece, orders, dtype, device):
             + _grid_snapshot(piece, dtype, device))
 
 
-def _check_spline_dd(spline, engine: str) -> None:
+def _check_spline_dd(spline, engine: str, mesh) -> None:
     """A dd spline engine serves one piece grid inside the dd plan (the
-    reference's rule)."""
+    reference's rule, with its single-spec engine's refusals)."""
     shapes = {tuple(p.tensor_values.shape) for p in spline._pieces}
     if len(shapes) != 1:
         raise ValueError(
             f"{engine}: dtype='dd' spline serving requires flat n_nodes "
             f"(all pieces on one grid shape)")
     shape = next(iter(shapes))
-    if not eval_dd.supports_dd(shape):
-        raise ValueError(
-            f"grid shape {shape} is outside the digit-GEMM plan budget; "
-            f"serve at dtype=torch.float64 instead")
+    if engine == "BatchedEvaluator":
+        _dd_tp_route(shape, mesh, dense=False)
+    else:
+        _check_dd_shape(shape)
 
 
 def _check_slider_dd(slider) -> None:
@@ -331,6 +373,32 @@ class _Engine:
     _route_f64 = False
     # (dim, knots) pairs that a spline engine's derivative specs guard.
     _guard = ()
+    # The device mesh the engine serves over, and its data axis.
+    _mesh = None
+    _data_axis = "dp"
+    # A dense dd engine served tensor-parallel (eval_batch_dd_tp shards
+    # the points itself).
+    _dd_tp = False
+
+    def _init_device(self, device, bucket_sizes, mesh, data_axis) -> None:
+        """The engine's device and buckets; under a mesh, the device is
+        the mesh's on this rank (``device=`` must name it) and every
+        bucket must shard evenly over ``data_axis`` (the reference's
+        rule)."""
+        self.bucket_sizes = tuple(sorted(int(b) for b in bucket_sizes))
+        self.device = torch.device(device)
+        if mesh is None:
+            return
+        self.device = sharding.check_device(mesh, device,
+                                            type(self).__name__)
+        axis_size = sharding.axis_size(mesh, data_axis)
+        for b in self.bucket_sizes:
+            if b % axis_size != 0:
+                raise ValueError(
+                    f"bucket size {b} is not divisible by mesh axis "
+                    f"{data_axis!r} (size {axis_size}); pick bucket "
+                    f"sizes that shard evenly")
+        self._mesh, self._data_axis = mesh, data_axis
 
     def _intake(self, points) -> torch.Tensor:
         # dtype= converts host input straight to the engine's dtype (f64
@@ -377,7 +445,8 @@ class _Engine:
         """Prepare a spline or slider engine for ``specs`` (validated)."""
         if dtype == "dd":
             if self._kind == "spline":
-                _check_spline_dd(interpolant, type(self).__name__)
+                _check_spline_dd(interpolant, type(self).__name__,
+                                 self._mesh)
             else:
                 _check_slider_dd(interpolant)
         self._init_dd(interpolant, dtype, sibling)
@@ -425,12 +494,18 @@ class _Engine:
 
     def _sliced(self, points: torch.Tensor) -> torch.Tensor:
         """Run ``_run`` over slices of at most the largest bucket and
-        join the results along the points axis (the last one)."""
+        join the results along the points axis (the last one).  Under a
+        mesh each slice is served data-parallel."""
+        run = self._run
+        if self._mesh is not None and not self._dd_tp:
+            def run(p):
+                return sharding._dp_apply(self._run, p, self._mesh,
+                                          self._data_axis)
         step = self.bucket_sizes[-1]
-        outs = [self._run(points[i:i + step])
+        outs = [run(points[i:i + step])
                 for i in range(0, points.shape[0], step)]
         if not outs:
-            return self._run(points)
+            return run(points)
         return torch.cat(outs, dim=-1)
 
     def warmup(self) -> None:
@@ -464,22 +539,28 @@ class BatchedEvaluator(_Engine):
         forces it (raising outside the envelope), ``False`` the plain
         path.  A dd engine picks its route itself (``ops.eval_dd``) and
         refuses ``True``, as TT, spline and slider engines do (the JAX
-        package has no fused kernel for those families).
-    device : the engine's device (required).
+        package has no fused kernel for those families).  Under a mesh
+        each rank runs the same route on its block; the reference's
+        refusal of ``use_fused`` with ``mesh`` (its kernel was
+        single-device) does not apply.
+    mesh, data_axis : serve data-parallel over the mesh's ``data_axis``
+        (see the module note); every bucket size must divide by its size.
+    device : the engine's device (required; under a mesh, the mesh's).
     """
 
     def __init__(self, interpolant, dtype=torch.float32,
                  derivative_order: Optional[Sequence[int]] = None,
                  bucket_sizes: Tuple[int, ...] = _DEFAULT_BUCKETS,
-                 use_fused: bool = None, *, device):
-        self.device = torch.device(device)
-        self.bucket_sizes = tuple(sorted(int(b) for b in bucket_sizes))
+                 use_fused: bool = None, mesh=None, data_axis: str = "dp",
+                 *, device):
+        self._init_device(device, bucket_sizes, mesh, data_axis)
 
         def sibling():
             return BatchedEvaluator(
                 interpolant, dtype=torch.float64,
                 derivative_order=derivative_order,
-                bucket_sizes=bucket_sizes, device=device)
+                bucket_sizes=bucket_sizes, mesh=mesh, data_axis=data_axis,
+                device=device)
 
         self._kind = _family(interpolant)
         self._tt = self._kind == "tt"
@@ -500,6 +581,8 @@ class BatchedEvaluator(_Engine):
             return
         grid = _dense_snapshot(interpolant, "BatchedEvaluator", dtype,
                                self.device)
+        self._dd_tp = dtype == "dd" and _dd_tp_route(
+            tuple(interpolant.tensor_values.shape), mesh, dense=True)
         self._init_dd(interpolant, dtype, sibling)
         self._nodes, self._weights, self._diffs = grid
         self.num_dimensions = interpolant.num_dimensions
@@ -512,9 +595,10 @@ class BatchedEvaluator(_Engine):
             if use_fused:
                 raise ValueError("dtype='dd' picks its own route; it does "
                                  "not compose with use_fused")
-            self._dd_runner = eval_dd.dd_models_runner(
-                (self._tensor,), self._nodes, self._weights, self._diffs,
-                self._orders)
+            if not self._dd_tp:
+                self._dd_runner = eval_dd.dd_models_runner(
+                    (self._tensor,), self._nodes, self._weights,
+                    self._diffs, self._orders)
             use_fused = False
         elif use_fused is None:
             use_fused = (dtype == torch.float32
@@ -554,6 +638,10 @@ class BatchedEvaluator(_Engine):
                     self._cores, self._tt_domain, points, groups="auto")
             return tt_eval.tt_eval_batch(self._cores, self._tt_domain,
                                          points)
+        if self._dd_tp:
+            return sharding.eval_batch_dd_tp(
+                self._tensor, self._nodes, self._weights, self._diffs,
+                points, self._mesh, self._orders, dp_axis=self._data_axis)
         if self._dd:
             return self._dd_runner(points)[0]
         if self._use_fused:
@@ -595,12 +683,15 @@ class MultiSpecEvaluator(_Engine):
     pre-differentiated tensor), a flat spline through one such runner
     per piece (the points grouped by piece on the device), a slider
     through one f64 contraction (``slider_eval.slider_dd_multi_runner``).
+
+    ``mesh``/``data_axis`` serve the report data-parallel, as in
+    :class:`BatchedEvaluator`.
     """
 
     def __init__(self, interpolant, specs, dtype=torch.float32,
-                 bucket_sizes: Tuple[int, ...] = _DEFAULT_BUCKETS, *,
-                 device):
-        self.device = torch.device(device)
+                 bucket_sizes: Tuple[int, ...] = _DEFAULT_BUCKETS,
+                 mesh=None, data_axis: str = "dp", *, device):
+        self._init_device(device, bucket_sizes, mesh, data_axis)
         self._kind = _family(interpolant)
         if self._kind == "tt":
             raise TypeError(
@@ -609,8 +700,8 @@ class MultiSpecEvaluator(_Engine):
                 "differentiate() per spec + MultiModelEvaluator)")
         sibling = (lambda: MultiSpecEvaluator(
             interpolant, specs, dtype=torch.float64,
-            bucket_sizes=bucket_sizes, device=device))
-        self.bucket_sizes = tuple(sorted(int(b) for b in bucket_sizes))
+            bucket_sizes=bucket_sizes, mesh=mesh, data_axis=data_axis,
+            device=device))
         if self._kind in ("spline", "slider"):
             _check_dtype("MultiSpecEvaluator", dtype)
             _check_built(interpolant, self._kind)
@@ -620,6 +711,8 @@ class MultiSpecEvaluator(_Engine):
             return
         grid = _dense_snapshot(interpolant, "MultiSpecEvaluator", dtype,
                                self.device)
+        if dtype == "dd":
+            _check_dd_shape(tuple(interpolant.tensor_values.shape))
         self._init_dd(interpolant, dtype, sibling)
         self._nodes, self._weights, self._diffs = grid
         self.num_dimensions = interpolant.num_dimensions
@@ -681,6 +774,8 @@ class MultiModelEvaluator(_Engine):
     domain calls go to an f64 sibling book.
 
     One fixed derivative spec, hoisted per model at construction.
+    ``mesh``/``data_axis`` serve the book data-parallel, as in
+    :class:`BatchedEvaluator`.
 
     Example
     -------
@@ -692,14 +787,14 @@ class MultiModelEvaluator(_Engine):
 
     def __init__(self, interpolants, dtype=torch.float32,
                  derivative_order: Optional[Sequence[int]] = None,
-                 bucket_sizes: Tuple[int, ...] = _DEFAULT_BUCKETS, *,
-                 device):
+                 bucket_sizes: Tuple[int, ...] = _DEFAULT_BUCKETS,
+                 mesh=None, data_axis: str = "dp", *, device):
         from pychebyshev_tpu_torch.models.approximation import (
             ChebyshevApproximation,
         )
         from pychebyshev_tpu_torch.models.tensor_train import ChebyshevTT
 
-        self.device = torch.device(device)
+        self._init_device(device, bucket_sizes, mesh, data_axis)
         interpolants = list(interpolants)
         if not interpolants:
             raise ValueError("interpolants must be a non-empty sequence")
@@ -738,8 +833,8 @@ class MultiModelEvaluator(_Engine):
         book = list(interpolants)
         self._init_dd(first, dtype, lambda: MultiModelEvaluator(
             book, dtype=torch.float64, derivative_order=derivative_order,
-            bucket_sizes=bucket_sizes, device=device))
-        self.bucket_sizes = tuple(sorted(int(b) for b in bucket_sizes))
+            bucket_sizes=bucket_sizes, mesh=mesh, data_axis=data_axis,
+            device=device))
         self.num_dimensions = first.num_dimensions
         self.num_models = len(interpolants)
         self._domain = [tuple(b) for b in first.domain]
@@ -834,9 +929,13 @@ def build_book(function, num_dimensions, domain, n_nodes, *,
         ``n_nodes`` must be explicit positive ints.
     num_models : optional expected M; validates the output width.
     max_derivative_order : forwarded to every model.
-    mesh : not ported; a value other than ``None`` raises
-        ``NotImplementedError``.
-    device : where the models live.
+    mesh : optional device mesh (``parallel.sharding``): the grid rows
+        shard over ``data_axis`` and each rank calls *function* once on
+        its block, as an (n, num_dimensions) f64 tensor on the mesh's
+        device (a function that does not answer with a tensor is
+        refused); uneven grids pad with the first grid point.  The
+        gathered book is on every rank.
+    device : where the models live (under a mesh, the mesh's device).
 
     Returns
     -------
@@ -851,10 +950,7 @@ def build_book(function, num_dimensions, domain, n_nodes, *,
         ChebyshevApproximation,
         _unwrap_typed,
     )
-    from pychebyshev_tpu_torch.utils.unported import not_ported_error
 
-    if mesh is not None:
-        raise not_ported_error("serving", "build_book", form="with mesh=")
     domain, n_nodes, _ = _unwrap_typed(domain, n_nodes, None)
     if n_nodes is None or any(
         not isinstance(n, (int, np.integer)) or n <= 0
@@ -880,7 +976,20 @@ def build_book(function, num_dimensions, domain, n_nodes, *,
     shape = grid["shape"]
     n_grid = int(points.shape[0])
 
-    values = function(points, additional_data)
+    if mesh is not None:
+        sharding.check_device(mesh, device, "build_book")
+        refusal = (
+            "build_book(mesh=...) requires a vectorized book function of "
+            "an (N, d) tensor (the sharded grid reaches it as a tensor on "
+            "the mesh's device); drop mesh= for host/NumPy oracles")
+        values = sharding._dp_apply(
+            lambda p: sharding.call_on_shard(function, p, additional_data,
+                                             refusal),
+            torch.as_tensor(points, dtype=torch.float64,
+                            device=template.device),
+            mesh, data_axis, dim=0)
+    else:
+        values = function(points, additional_data)
     on_host = not isinstance(values, torch.Tensor)
     values = (np.asarray(values, dtype=np.float64) if on_host
               else values.detach().to(device=template.device,

@@ -36,17 +36,27 @@ Engines:
   chains and the core Grams on ``device`` in f32; solves and QR run on
   the host in f64.
 
-Sharding contract (for the multi-device port, ROADMAP.md queue 1 item
-6).  The reference's dd tier summed integers, so a sharded fit was
-bit-identical to one on a single device.  Here the chunk boundaries do
-not depend on any mesh (``_fit_chunk_size``, capped at
-``_DD_MAX_CHUNK``), and the ``device-dd`` engine adds each chunk's f64
-partial Gram to its block's accumulator in chunk order
-(``_chunk_partials``).  A sharded run stays bit-identical to this one
-only if it reduces the per-chunk partials in that same order.
+``mesh=`` (a ``torch.distributed`` device mesh, ``parallel.sharding``;
+device engines only) accumulates data-parallel over ``data_axis``.  The
+chunk boundaries do not depend on any mesh (``_fit_chunk_size``, capped
+at ``_DD_MAX_CHUNK`` for ``device-dd``):
 
-``mesh=`` stays in the signatures; a value other than ``None`` raises
-``NotImplementedError`` (ROADMAP.md, item 6).
+- ``"device"``: each rank takes its contiguous block of every chunk's
+  rows (the chunk padded to a multiple of the axis, ``_chunk_alloc``),
+  and its f32 Gram is ``all_reduce``d (SUM): within the f32 tier of the
+  single-device accumulation, not bitwise.
+- ``"device-dd"``: the reference's dd tier summed integers, so a sharded
+  fit was bit-identical to one on a single device.  Here each chunk's
+  f64 partial Gram is computed whole by one rank (chunk ``c`` by rank
+  ``c mod P``), every partial is gathered to every rank, and each block
+  adds them to its accumulator in chunk order from zero, exactly as the
+  single device does (``_chunk_partials``): bitwise the single-device
+  result at any mesh size.  Per-rank sums are never all-reduced.
+- TT ``"device"``: each rank holds its contiguous block of the rows and
+  their interfaces; the core Grams and the sweep's SSE are
+  ``all_reduce``d (SUM).
+
+Every rank returns the same result.
 """
 
 from __future__ import annotations
@@ -70,7 +80,7 @@ from pychebyshev_tpu_torch.ops.eval import barycentric_coefficients
 # C-order index convention, so fitting shares it with the eval path
 # rather than keep a second copy.
 from pychebyshev_tpu_torch.ops.eval import _khatri_rao
-from pychebyshev_tpu_torch.utils.unported import not_ported_error
+from pychebyshev_tpu_torch.parallel import sharding
 
 __all__ = ["barycentric_rows_np", "fit_dense_tensor",
            "fit_additive_tensors", "fit_tt_cores",
@@ -268,6 +278,13 @@ def _fit_chunk_size(grid_points, blocks, cap=None):
     return chunk
 
 
+def _chunk_alloc(chunk, mesh, data_axis):
+    """Rows a chunk occupies on the mesh: rounded up to a multiple of
+    the data axis so that it splits evenly (the padded rows are empty)."""
+    if mesh is None:
+        return chunk
+    return chunk + (-chunk) % sharding.axis_size(mesh, data_axis)
+
 
 
 def _layout_for_block(groups=None, owner=None):
@@ -288,15 +305,15 @@ def _layout_for_block(groups=None, owner=None):
 
 
 def _check_device_engine(name, engine, mesh, device) -> None:
-    """The port's own checks of a fit call: ``mesh`` waits for the
-    multi-device slice, and a device engine needs an explicit
-    ``device`` (the port never probes for one)."""
-    if mesh is not None:
-        raise not_ported_error("fitting", name, form="with mesh=")
+    """The port's own checks of a fit call: a device engine needs an
+    explicit ``device`` (the port never probes for one), and under a
+    mesh it must name the mesh's device."""
     if engine != "host" and device is None:
         raise ValueError(
             f"engine={engine!r} needs an explicit device= (the port "
             f"never probes for a device)")
+    if mesh is not None:
+        sharding.check_device(mesh, device, name)
 
 
 def _require_ieee_f32(device: torch.device) -> None:
@@ -341,7 +358,18 @@ def _device_rows(pts, nodes, weights, dpows, layout):
 def _chunk_partials(block, layout, nodes, weights, dim_design, chunk, *,
                     device, dtype):
     """Yield each chunk's partial ``(A^T A, A^T y)`` of one block, on
-    ``device`` in ``dtype``, in chunk order.
+    ``device`` in ``dtype``, in chunk order."""
+    n_rows, partial = _block_partials(block, layout, nodes, weights,
+                                      dim_design, device=device, dtype=dtype)
+    for start in range(0, n_rows, chunk):
+        yield partial(start, start + chunk)
+
+
+def _block_partials(block, layout, nodes, weights, dim_design, *, device,
+                    dtype):
+    """``(n_rows, partial)`` of one block: ``partial(lo, hi)`` is the
+    ``(A^T A, A^T y)`` of its rows ``[lo, hi)`` on ``device`` in
+    ``dtype`` (zeros for an empty range).
 
     ``block`` is ``(points, orders, values, sqrt_row_scale)`` (host
     NumPy); its arrays move to the device once and are sliced there.
@@ -357,16 +385,19 @@ def _chunk_partials(block, layout, nodes, weights, dim_design, chunk, *,
     pts_t = torch.as_tensor(pts, dtype=dtype, device=device)
     y_t = torch.as_tensor(vals, dtype=dtype, device=device)
     sw_t = torch.as_tensor(sqrt_scale, dtype=dtype, device=device)
-    for start in range(0, pts.shape[0], chunk):
-        sl = slice(start, start + chunk)
+
+    def partial(lo, hi):
+        sl = slice(lo, hi)
         sw = sw_t[sl]
         rows = _device_rows(pts_t[sl], nodes_t, weights_t, dpows,
                             layout) * sw[:, None]
-        yield rows.T @ rows, rows.T @ (y_t[sl] * sw)
+        return rows.T @ rows, rows.T @ (y_t[sl] * sw)
+    return pts.shape[0], partial
 
 
 def _device_normal_accumulation(blocks, nodes, weights, dim_design,
-                                grid_points, layouts=None, *, device):
+                                grid_points, layouts=None, mesh=None,
+                                data_axis: str = "dp", *, device):
     """Accumulate the normal equations on ``device`` (the f32 tier).
 
     ``blocks`` is a list of ``(points, orders, values, sqrt_row_scale)``
@@ -375,28 +406,44 @@ def _device_normal_accumulation(blocks, nodes, weights, dim_design,
     (``ops.eval.barycentric_coefficients``) and every chunk's Gram and
     right-hand side are added to one f32 accumulator: ~1e-4-class
     normal-matrix entries, far below Monte-Carlo noise in the huge-``N``
-    regime this serves.  Returns f64 host ``(ata, aty)``.
+    regime this serves.  Under ``mesh`` each rank takes its block of
+    every chunk's rows and the Gram is ``all_reduce``d over
+    ``data_axis``.  Returns f64 host ``(ata, aty)``.
     """
     device = torch.device(device)
     _require_ieee_f32(device)
     chunk = _fit_chunk_size(grid_points, blocks)
     if layouts is None:
         layouts = [("dense",)] * len(blocks)
+    size, rank = 1, 0
+    if mesh is not None:
+        size = sharding.axis_size(mesh, data_axis)
+        rank = mesh.get_local_rank(data_axis)
+    per = _chunk_alloc(chunk, mesh, data_axis) // size
     ata = torch.zeros((grid_points, grid_points), dtype=torch.float32,
                       device=device)
     aty = torch.zeros(grid_points, dtype=torch.float32, device=device)
     for block, layout in zip(blocks, layouts):
-        for d_ata, d_aty in _chunk_partials(
-                block, layout, nodes, weights, dim_design, chunk,
-                device=device, dtype=torch.float32):
+        n_rows, partial = _block_partials(
+            block, layout, nodes, weights, dim_design, device=device,
+            dtype=torch.float32)
+        for start in range(0, n_rows, chunk):
+            lo = start + rank * per
+            d_ata, d_aty = partial(lo, max(lo, min(lo + per,
+                                                   start + chunk)))
             ata += d_ata
             aty += d_aty
+    if mesh is not None:
+        group = mesh.get_group(data_axis)
+        sharding._all_reduce(ata, group)
+        sharding._all_reduce(aty, group)
     return (ata.cpu().numpy().astype(np.float64),
             aty.cpu().numpy().astype(np.float64))
 
 
 def _device_normal_accumulation_dd(blocks, nodes, weights, dim_design,
-                                   grid_points, layouts=None, *, device):
+                                   grid_points, layouts=None, mesh=None,
+                                   data_axis: str = "dp", *, device):
     """The near-f64 tier on ``device``, in native f64.
 
     Same contract as :func:`_device_normal_accumulation`.  Each block
@@ -406,7 +453,9 @@ def _device_normal_accumulation_dd(blocks, nodes, weights, dim_design,
     the host.  The chunk is capped at ``_DD_MAX_CHUNK`` rows, as in the
     reference, so the boundaries are the reference's.  The reference's
     refusal of a chunk without digit budget cannot trigger under that
-    cap, and the digit planes it budgets are not ported.
+    cap, and the digit planes it budgets are not ported.  Under ``mesh``
+    the chunks are shared out and every partial is gathered, then added
+    in the same order (the module note): bitwise this result.
     """
     device = torch.device(device)
     chunk = _fit_chunk_size(grid_points, blocks, cap=_DD_MAX_CHUNK)
@@ -419,15 +468,41 @@ def _device_normal_accumulation_dd(blocks, nodes, weights, dim_design,
                             dtype=torch.float64, device=device)
         b_aty = torch.zeros(grid_points, dtype=torch.float64,
                             device=device)
-        for d_ata, d_aty in _chunk_partials(
-                block, layout, nodes, weights, dim_design, chunk,
-                device=device, dtype=torch.float64):
+        partials = (_chunk_partials(
+            block, layout, nodes, weights, dim_design, chunk,
+            device=device, dtype=torch.float64) if mesh is None
+            else _gathered_partials(block, layout, nodes, weights,
+                                    dim_design, chunk, mesh, data_axis,
+                                    device=device))
+        for d_ata, d_aty in partials:
             b_ata += d_ata
             b_aty += d_aty
         ata += b_ata.cpu().numpy()
         aty += b_aty.cpu().numpy()
     return ata, aty
 
+
+
+def _gathered_partials(block, layout, nodes, weights, dim_design, chunk,
+                       mesh, data_axis, *, device):
+    """Yield every chunk's f64 partial of one block, in chunk order, on
+    every rank of ``data_axis``: in rounds of P chunks, rank ``r``
+    computes chunk ``round * P + r`` and one ``all_gather`` hands all P
+    partials to every rank."""
+    size = sharding.axis_size(mesh, data_axis)
+    rank = mesh.get_local_rank(data_axis)
+    group = mesh.get_group(data_axis)
+    n_rows, partial = _block_partials(block, layout, nodes, weights,
+                                      dim_design, device=device,
+                                      dtype=torch.float64)
+    n_chunks = -(-n_rows // chunk)
+    for first in range(0, n_chunks, size):
+        lo = (first + rank) * chunk
+        d_ata, d_aty = partial(lo, max(lo, min(lo + chunk, n_rows)))
+        both = sharding._all_gather_rows(
+            torch.cat([d_ata, d_aty[None, :]])[None], group, size)
+        for c in range(min(size, n_chunks - first)):
+            yield both[c, :-1], both[c, -1]
 
 
 def _block_residual_stats(design_chunk_fn, sol, pts, vals, chunk):
@@ -501,8 +576,8 @@ def fit_dense_tensor(
     f64.  Residual diagnostics are computed on host in f64 for every
     engine.  ``device`` is required by the device engines.
 
-    ``mesh`` (data-parallel accumulation) is not ported: a value other
-    than ``None`` with a device engine raises ``NotImplementedError``.
+    ``mesh`` (device engines): data-parallel accumulation over
+    ``data_axis`` (the module note); every rank returns the same fit.
     """
     points = np.asarray(points, dtype=np.float64)
     values = np.asarray(values, dtype=np.float64)
@@ -624,7 +699,8 @@ def fit_dense_tensor(
                       if engine == "device-dd"
                       else _device_normal_accumulation)
         ata, aty = accumulate(spec, nodes, weights, dim_design,
-                              grid_points, device=device)
+                              grid_points, mesh=mesh, data_axis=data_axis,
+                              device=device)
     else:
         ata = np.zeros((grid_points, grid_points))
         aty = np.zeros(grid_points)
@@ -947,7 +1023,8 @@ def fit_additive_tensors(
                       if engine == "device-dd"
                       else _device_normal_accumulation)
         ata, aty = accumulate(spec, nodes, weights, dim_design,
-                              columns, layouts, device=device)
+                              columns, layouts, mesh=mesh,
+                              data_axis=data_axis, device=device)
     else:
         ata = np.zeros((columns, columns))
         aty = np.zeros(columns)
@@ -1054,22 +1131,39 @@ def fit_additive_tensors(
 
 
 def _tt_als_sweeps_device(rows, y_all, sqrt_w, cores, ranks, counts,
-                          l2, sweeps, w_total, *, device):
+                          l2, sweeps, w_total, mesh=None,
+                          data_axis: str = "dp", *, device):
     """The ALS sweep loop with device-resident rows, interfaces and
     Grams.
 
     Same iteration structure and early-stop criterion as the host loop
     in :func:`fit_tt_cores`; returns (cores, ranks, sweep_rms) with
-    cores as host f64 arrays (solves and QR run on the host)."""
+    cores as host f64 arrays (solves and QR run on the host).  Under
+    ``mesh`` each rank holds its contiguous block of the rows and the
+    Grams and the SSE are ``all_reduce``d over ``data_axis``."""
     device = torch.device(device)
     _require_ieee_f32(device)
     f32 = torch.float32
     d = len(rows)
     n = rows[0].shape[0]
+    if sqrt_w is None:
+        sqrt_w = np.ones(n)
+    group = None
+    if mesh is not None:
+        size = sharding.axis_size(mesh, data_axis)
+        per = -(-n // size)
+        lo = min(n, mesh.get_local_rank(data_axis) * per)
+        sl = slice(lo, min(n, lo + per))
+        rows = [r[sl] for r in rows]
+        y_all, sqrt_w = y_all[sl], sqrt_w[sl]
+        n = rows[0].shape[0]
+        group = mesh.get_group(data_axis)
+
+    def reduce(t):
+        return t if group is None else sharding._all_reduce(t, group)
     rows_dev = [torch.as_tensor(r, dtype=f32, device=device) for r in rows]
     y_dev = torch.as_tensor(y_all, dtype=f32, device=device)
-    sw_dev = torch.as_tensor(sqrt_w if sqrt_w is not None else np.ones(n),
-                             dtype=f32, device=device)
+    sw_dev = torch.as_tensor(sqrt_w, dtype=f32, device=device)
     ones_dev = torch.ones((n, 1), dtype=f32, device=device)
 
     def core_dev(k):
@@ -1106,8 +1200,8 @@ def _tt_als_sweeps_device(rows, y_all, sqrt_w, cores, ranks, counts,
                     right[k + 1][sl]).reshape(-1, p_cols) * sw[:, None]
                 ata += design.T @ design
                 aty += design.T @ (y_dev[sl] * sw)
-            ata64 = ata.cpu().numpy().astype(np.float64)
-            aty64 = aty.cpu().numpy().astype(np.float64)
+            ata64 = reduce(ata).cpu().numpy().astype(np.float64)
+            aty64 = reduce(aty).cpu().numpy().astype(np.float64)
             if l2 > 0.0:
                 ata64 = ata64 + l2 * np.eye(p_cols)
             try:
@@ -1127,7 +1221,7 @@ def _tt_als_sweeps_device(rows, y_all, sqrt_w, cores, ranks, counts,
                              torch.einsum("na,nab->nb", left, m),
                              right[d])
         res = ((preds - y_dev) * sw_dev).to(torch.float64)
-        sse = float((res * res).sum())
+        sse = float(reduce((res * res).sum()))
         sweep_rms.append(float(np.sqrt(sse / w_total)))
         if sweep > 0 and sweep_rms[-2] - sweep_rms[-1] < (
                 1e-4 * max(sweep_rms[-2], 1e-300)):
@@ -1198,8 +1292,8 @@ def fit_tt_cores(
     chains — on ``device`` in IEEE f32, with solves/QR on the host.
     Same accuracy caveat as the dense device engine: for
     noise-dominated huge-N fits; exact-recovery fits stay on
-    ``"host"``.  ``mesh=`` is not ported.  Residual diagnostics are
-    host f64 for every engine.
+    ``"host"``.  ``mesh=`` shards the rows over ``data_axis`` (the
+    module note).  Residual diagnostics are host f64 for every engine.
     """
     if engine not in ("host", "device"):
         raise ValueError(
@@ -1344,7 +1438,7 @@ def fit_tt_cores(
     if engine == "device":
         cores, ranks, sweep_rms = _tt_als_sweeps_device(
             rows, y_all, sqrt_w, cores, ranks, counts, l2, sweeps,
-            w_total, device=device)
+            w_total, mesh, data_axis, device=device)
         # Exact f64 residual diagnostics for every engine (the
         # dense fitters' convention): one host chain pass.
         res = _tt_chain_preds(rows, cores) - y_all

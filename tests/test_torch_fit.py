@@ -388,35 +388,62 @@ def test_tf32_precision_is_refused_on_cuda(monkeypatch):
     fitting._require_ieee_f32(torch.device("cpu"))
 
 
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    """A ("dp",) mesh over this process as a world of one rank."""
+    from pychebyshev_tpu_torch.parallel.sharding import make_mesh
+    from pychebyshev_tpu_torch.parallel.world import local_world
+    with local_world():
+        yield make_mesh(device_type="cpu")
+
+
+def _arrays(result):
+    """The fitted numbers of a fitter's ``(tensor(s), diagnostics)`` or of
+    a fitted model, as NumPy arrays."""
+    if isinstance(result, tuple):
+        out = result[0]
+        return [np.asarray(a) for a in (out if isinstance(out, (list, tuple))
+                                        else [out])]
+    if isinstance(result, ChebyshevSpline):
+        return [p.tensor_values.numpy() for p in result._pieces]
+    if isinstance(result, ChebyshevSlider):
+        return [s.tensor_values.numpy() for s in result.slides]
+    return [result.tensor_values.numpy()]
+
+
 @pytest.mark.parametrize("call", ["dense", "additive", "tt", "spline",
                                   "slider", "class"])
-def test_mesh_is_refused_by_name(call):
+def test_mesh_is_refused_by_name(call, one_rank_mesh):
+    """Every fitter takes ``mesh=`` by name: on a mesh of one rank it is
+    bitwise the call without one (the f32 and dd accumulations alike)."""
     pts, vals = _samples3(300, seed=7)
     p4 = np.column_stack([pts, pts[:, 2]])
     calls = {
-        "dense": lambda: fitting.fit_dense_tensor(
-            pts, vals, DOM3, NS3, engine="device", mesh=object(),
+        "dense": lambda mesh: fitting.fit_dense_tensor(
+            pts, vals, DOM3, NS3, engine="device", mesh=mesh,
             device="cpu"),
-        "additive": lambda: fitting.fit_additive_tensors(
+        "additive": lambda mesh: fitting.fit_additive_tensors(
             pts, vals, DOM3, NS3, [[0], [1, 2]], engine="device-dd",
-            mesh=object(), device="cpu"),
-        "tt": lambda: fitting.fit_tt_cores(
-            pts, vals, DOM3, NS3, engine="device", mesh=object(),
+            mesh=mesh, device="cpu"),
+        "tt": lambda mesh: fitting.fit_tt_cores(
+            pts, vals, DOM3, NS3, engine="device", mesh=mesh,
             device="cpu"),
-        "spline": lambda: ChebyshevSpline.fit(
+        "spline": lambda mesh: ChebyshevSpline.fit(
             pts[:, :2], vals, 2, [[0.0, 2.0], [-1.0, 1.0]], [4, 4],
-            [[1.0], []], l2=1e-8, engine="device", mesh=object(),
+            [[1.0], []], l2=1e-8, engine="device", mesh=mesh,
             device="cpu"),
-        "slider": lambda: ChebyshevSlider.fit(
+        "slider": lambda mesh: ChebyshevSlider.fit(
             np.clip(p4, -1, 1), vals, 4, DOM_SL, NS_SL, PARTITION, PIVOT,
-            l2=1e-8, engine="device", mesh=object(), device="cpu"),
-        "class": lambda: ChebyshevApproximation.fit(
+            l2=1e-8, engine="device", mesh=mesh, device="cpu"),
+        "class": lambda mesh: ChebyshevApproximation.fit(
             pts, vals, 3, DOM3, NS3, l2=1e-8, engine="device-dd",
-            mesh=object(), device="cpu"),
+            mesh=mesh, device="cpu"),
     }
-    with pytest.raises(NotImplementedError,
-                       match=r"not ported yet with mesh=.*ROADMAP\.md"):
-        _quiet(calls[call])
+    got = _arrays(_quiet(calls[call], one_rank_mesh))
+    want = _arrays(_quiet(calls[call], None))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
 
 
 # ----------------------------------------------------------------------

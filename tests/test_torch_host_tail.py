@@ -358,11 +358,17 @@ def test_build_book_errors_are_the_reference_s():
         with pytest.raises(ValueError) as got:
             serving.build_book(*args, **kw, device="cpu")
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError,
-                       match=r"build_book is not ported yet with mesh=.*"
-                             r"ROADMAP\.md"):
-        serving.build_book(_book_fn, 3, DOM3, NS3, mesh=object(),
-                           device="cpu")
+    from pychebyshev_tpu_torch.parallel.sharding import make_mesh
+    from pychebyshev_tpu_torch.parallel.world import local_world
+    with local_world():
+        # A NumPy oracle under a mesh: the reference's refusal.
+        with pytest.raises(ValueError,
+                           match=r"build_book\(mesh=\.\.\.\) requires a "
+                                 r"vectorized book function.*drop mesh= "
+                                 r"for host/NumPy oracles"):
+            serving.build_book(_book_fn, 3, DOM3, NS3,
+                               mesh=make_mesh(device_type="cpu"),
+                               device="cpu")
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])

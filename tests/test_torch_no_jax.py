@@ -41,7 +41,9 @@ def test_package_covers_the_slice():
                  "utils.algebra", "utils.binary", "utils.ceval",
                  "utils.calculus", "utils.extrude_slice",
                  "utils.convert", "utils.derivative_ids",
-                 "utils.parallel_build", "utils.unported",
+                 "utils.parallel_build", "utils.progress",
+                 "parallel.sharding", "parallel.tt_pipeline",
+                 "parallel.world",
                  "utils.fitting", "utils.sensitivity",
                  "utils.native_save", "utils.viz", "utils.globalcalc",
                  "models.approximation",

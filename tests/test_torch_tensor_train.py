@@ -135,8 +135,8 @@ def test_constructor_and_build_errors():
     with pytest.raises(RuntimeError, match="Call build"):
         tt.eval_batch(np.zeros((1, 4)))
     assert "built=False" in repr(tt) and "not built" in str(tt)
-    with pytest.raises(TypeError):
-        tt.build(verbose=False, mesh=None)      # no mesh in the port
+    with pytest.raises(ValueError, match="requires vectorized=True"):
+        tt.build(verbose=False, mesh=object())  # a scalar oracle
 
 
 def test_single_point_eval(pair, reordered):
@@ -763,8 +763,12 @@ def test_grid_oracle_takes_no_mesh_and_caches():
     assert oracle.n_evals == 12
     keys, vals = oracle.observations()
     assert keys.shape == (12, 2) and vals.shape == (12,)
-    with pytest.raises(TypeError):
-        GridOracle(f, grids, vectorized=True, mesh=None)
+    # mesh=None is the oracle above; a scalar oracle takes no mesh.
+    plain = GridOracle(f, grids, vectorized=True, mesh=None)
+    np.testing.assert_array_equal(plain.full_tensor([3, 4]),
+                                  oracle.full_tensor([3, 4]))
+    with pytest.raises(ValueError, match="requires vectorized=True"):
+        GridOracle(f, grids, vectorized=False, mesh=object())
 
 
 def test_threads_share_one_tt(reordered):

@@ -167,9 +167,13 @@ def test_errors_and_warnings_are_the_reference_s():
                              l2=0.0, engine="device", device="cpu")
     with pytest.raises(ValueError, match="explicit device="):
         fitting.fit_tt_cores(pts, vals, DOM, NS, engine="device")
-    with pytest.raises(NotImplementedError, match="mesh=.*ROADMAP"):
-        ChebyshevTT.fit(pts, vals, 4, DOM, NS, engine="device",
-                        mesh=object(), device="cpu")
+    from pychebyshev_tpu_torch.parallel.sharding import make_mesh
+    from pychebyshev_tpu_torch.parallel.world import local_world
+    with local_world():
+        with pytest.raises(ValueError, match="contradicts the mesh"):
+            ChebyshevTT.fit(pts, vals, 4, DOM, NS, engine="device",
+                            mesh=make_mesh(device_type="cpu"),
+                            device="meta")
 
 
 # ----------------------------------------------------------------------
@@ -208,11 +212,21 @@ def test_run_completion_against_the_reference(completed):
 
 
 def test_run_completion_refusals(completed, tmp_path):
-    port = completed[1][0]
-    with pytest.raises(NotImplementedError,
-                       match=r"run_completion is not ported yet with mesh="
-                             r".*ROADMAP\.md"):
-        port.run_completion(mesh=object())
+    """A scalar oracle under a mesh is the reference's refusal."""
+    from pychebyshev_tpu.parallel.sharding import make_mesh as jax_mesh
+    from pychebyshev_tpu_torch.parallel.sharding import make_mesh
+    from pychebyshev_tpu_torch.parallel.world import local_world
+
+    (ref, _), (port, _) = completed
+    with pytest.raises(ValueError) as want:
+        ref.run_completion(mesh=jax_mesh(1))
+    with local_world():
+        with pytest.raises(ValueError, match="requires vectorized=True") \
+                as got:
+            port.run_completion(mesh=make_mesh(device_type="cpu"))
+    assert str(got.value).replace(
+        "a vectorized function of an (N, d) tensor",
+        "a JAX-traceable batched oracle") == str(want.value)
     path = tmp_path / "tt.pkl"
     port.save(path)
     loaded = ChebyshevTT.load(path, device="cpu")
