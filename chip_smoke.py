@@ -86,6 +86,14 @@ then a 4-rank gloo world on the host's CPU (dp, tp (2, 2), dd tp of a
 (9, 16400) grid over tp = 4, a four-stage pipeline, a sharded book, TT
 build and device-dd fit) held to the port's single-device results.
 
+Then autodiff and the examples: ``torch.autograd`` and ``torch.func``
+through the f64 evaluator of the 11^5 interpolant (gradients at 2^16
+points and Hessians against the spectral derivative specs, the tensor
+gradient against the CPU's, forward against forward plus backward at
+2^20); K1, K2 and K3 refusing a tensor that requires grad; and every
+example of ``examples_torch/`` run on the card, whose K1 and K3
+launches join the kernels line.
+
 Run from the repository root, with one CUDA card:
 
     python3 chip_smoke.py
@@ -2578,6 +2586,183 @@ def gloo_world(card: str, cuda_check: bool = True) -> None:
              if cuda_check else "") + f" | {card}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 54-56. Autodiff through the plain f64 path, the kernel routes' refusal of
+# a gradient, and every example of examples_torch/ on the card.
+# ---------------------------------------------------------------------------
+
+AD_VS_SPECTRAL = 1e-9          # autograd vs the spectral derivative specs
+AD_TENSOR_VS_CPU = 1e-12       # the tensor gradient, card vs CPU
+AD_POINTS = 1 << 16
+EXAMPLES = ("black_scholes_5d", "spline_kink_2d", "tensor_train_5d",
+            "slider_10d", "portfolio_proxy", "calibration_autodiff",
+            "serving_engine", "greek_report", "near_f64_tiers",
+            "interconversion", "scenario_calculus", "global_calculus",
+            "fit_scattered", "multi_chip", "fdm_baseline",
+            "compressed_serving")
+
+
+def autodiff(card: str, ms: dict, cheb) -> None:
+    """Phase 54: ``torch.autograd`` and ``torch.func`` through
+    ``ops.eval.eval_batch`` (f64) on the 11^5 interpolant, held to its
+    spectral derivative specs, the tensor gradient to the CPU's; forward
+    alone against forward plus backward at 2^20."""
+    nodes, weights, diffs = cheb._grid_tuples()
+    tensor = cheb.tensor_values
+    zero = (0,) * 5
+
+    def value(pts, t=tensor):
+        return eval_ops.eval_batch(t, nodes, weights, diffs, pts, zero)
+
+    pts = torch.tensor(sample_points(AD_POINTS, SEED + 54), device=DEVICE,
+                       requires_grad=True)
+    (grad,) = torch.autograd.grad(value(pts).sum(), pts)
+    checked(grad, (AD_POINTS, 5), "autograd gradient")
+    firsts = [tuple(int(i == d) for i in range(5)) for d in range(5)]
+    d_grad = max(dev(grad[:, d], cheb.eval_batch_device(pts.detach(), o))
+                 for d, o in enumerate(firsts))
+    check(d_grad <= AD_VS_SPECTRAL, f"gradient vs spectral {d_grad:.3e}")
+    few = pts.detach()[:4]
+    d_hess = 0.0
+    for p in few:
+        hess = torch.func.hessian(lambda x: value(x[None, :])[0])(p)
+        spec = torch.stack([torch.stack([cheb.eval_batch_device(
+            p[None, :], [int(i == a) + int(i == b) for i in range(5)])[0]
+            for b in range(5)]) for a in range(5)])
+        d_hess = max(d_hess, dev(hess, spec))
+    check(d_hess <= AD_VS_SPECTRAL, f"Hessian vs spectral {d_hess:.3e}")
+    vm = torch.func.vmap(torch.func.grad(lambda x: value(x[None, :])[0]))(
+        pts.detach()[:4096])
+    d_vmap = dev(vm, grad[:4096])
+    check(d_vmap <= AD_TENSOR_VS_CPU, f"vmap(grad) vs autograd {d_vmap:.3e}")
+    sub = pts.detach()[:4096]
+    # A target of half the values keeps the residuals at the values'
+    # scale: a residual far smaller than the values would amplify the
+    # two devices' f64 rounding of the values themselves.
+    target = 0.5 * cheb.eval_batch_device(sub)
+
+    def tensor_grad(t, p, on):
+        t = t.detach().clone().requires_grad_(True)
+        grid = [tuple(a.to(on) for a in group)
+                for group in (nodes, weights, diffs)]
+        out = eval_ops.eval_batch(t, *grid, p.to(on), zero)
+        return torch.autograd.grad(((out - target.to(on)) ** 2).sum(), t)[0]
+    d_tensor = dev(tensor_grad(tensor, sub, DEVICE),
+                   tensor_grad(tensor.cpu(), sub, "cpu"))
+    check(d_tensor <= AD_TENSOR_VS_CPU, f"tensor gradient, card vs CPU "
+                                        f"{d_tensor:.3e}")
+    big = torch.tensor(sample_points(N, SEED + 55), device=DEVICE)
+
+    def forward():
+        with torch.no_grad():
+            return value(big)
+
+    def forward_backward():
+        x = big.clone().requires_grad_(True)
+        return torch.autograd.grad(value(x).sum(), x)[0]
+    ms["f64 forward (eval_batch)"] = cuda_ms(forward)
+    ms["f64 forward + backward (autograd.grad)"] = cuda_ms(forward_backward)
+    ratio = (ms["f64 forward + backward (autograd.grad)"]
+             / ms["f64 forward (eval_batch)"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[54 autodiff] 11^5, f64 ops.eval.eval_batch: autograd gradient "
+          f"at 2^16 points vs the five first-order specs {d_grad:.3e}, "
+          f"Hessian at 4 points vs the second-order specs {d_hess:.3e} (<= "
+          f"{AD_VS_SPECTRAL:g}); vmap(grad) vs autograd on 4,096 points "
+          f"{d_vmap:.3e}, tensor gradient card vs CPU {d_tensor:.3e} (<= "
+          f"{AD_TENSOR_VS_CPU:g}); at 2^20 forward "
+          f"{ms['f64 forward (eval_batch)']:.3f} ms, forward + backward "
+          f"{ms['f64 forward + backward (autograd.grad)']:.3f} ms "
+          f"({ratio:.2f}x; peak allocated {peak:.1f} GiB) | {card}",
+          flush=True)
+
+
+def refusals(card: str, cheb, cheb19) -> None:
+    """Phase 55: K1, K2 and K3 refuse a tensor that requires grad, with
+    their launch counters still; under ``torch.no_grad()`` each serves
+    its plain version's values as before."""
+    cases = []
+    for name, model, dtype, fn, ref, tol in (
+            ("K1 11^5", cheb, torch.float32, fused_eval.fused_eval_batch,
+             fused_eval.fused_eval_batch_reference, K1_VS_PLAIN),
+            ("K2 19^5", cheb19, torch.float32, fused_eval.fused_eval_batch,
+             fused_eval.fused_eval_batch_reference, K1_VS_PLAIN),
+            ("K3 11^5", cheb, torch.float64, fused_dd.fused_eval_batch_dd,
+             fused_dd.fused_eval_batch_dd_reference, K3_VS_PLAIN)):
+        nodes, weights, diffs = model._grid_tuples()
+        pts = torch.tensor(sample_points(65_536, SEED + 56), dtype=dtype,
+                           device=DEVICE)
+        for which in ("tensor", "points"):
+            t = model.tensor_values.clone().requires_grad_(which == "tensor")
+            p = pts.clone().requires_grad_(which == "points")
+            before = (fused_eval.launches, fused_dd.launches)
+            try:
+                fn(t, nodes, weights, diffs, p)
+                refused = False
+            except RuntimeError as exc:
+                refused = "has no gradient" in str(exc)
+            check(refused, f"{name} served a {which} that requires grad")
+            check((fused_eval.launches, fused_dd.launches) == before,
+                  f"{name}: a refused call moved a launch counter")
+        wanting = model.tensor_values.clone().requires_grad_(True)
+        with torch.no_grad():
+            out = checked(fn(wanting, nodes, weights, diffs, pts),
+                          (pts.shape[0],), f"{name} under no_grad")
+        plain = ref(model.tensor_values, nodes, weights, diffs, pts)
+        d = dev(out, plain)
+        check(d <= tol, f"{name} under no_grad vs plain {d:.3e}")
+        cases.append(f"{name} {d:.3e} <= {tol:g}")
+    print(f"[55 refusals] K1, K2 and K3 refuse a tensor or points that "
+          f"require grad (RuntimeError, no launch); under no_grad vs plain "
+          f"on 65,536 points: {'; '.join(cases)} | {card}", flush=True)
+
+
+def load_example(name):
+    """``examples_torch/<name>.py`` as the module ``examples_torch_<name>``
+    (loaded by path: the JAX package's examples share the base names)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def examples(card: str):
+    """Phase 56: every example's ``main(device="cuda")`` in turn, its
+    printed lines kept aside (shown if it fails) and checked for NaN.
+    Returns the K1 and K3 launches the examples made (from zero)."""
+    import contextlib
+    import io
+    k1 = k3 = 0
+    for name in EXAMPLES:
+        buf = io.StringIO()
+        fused_eval.launches = 0
+        fused_dd.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                result = load_example(name).main(device=DEVICE)
+            torch.cuda.synchronize()
+        except Exception:
+            print(buf.getvalue(), flush=True)
+            raise
+        seconds = time.perf_counter() - t0
+        k1 += fused_eval.launches
+        k3 += fused_dd.launches
+        out = buf.getvalue()
+        check(bool(out.strip()), f"example {name} printed nothing")
+        check("nan" not in out.lower(), f"example {name} printed a NaN")
+        check(all(np.isfinite(float(v)) for v in result.values()),
+              f"example {name} returned a non-finite number")
+        numbers = ", ".join(f"{k} {float(v):.4g}" for k, v in result.items())
+        print(f"[56 example] {name}: {seconds:.2f} s, "
+              f"{len(out.splitlines())} lines, K1 {fused_eval.launches} K3 "
+              f"{fused_dd.launches} launches; {numbers} | {card}",
+              flush=True)
+    return k1, k3
+
+
 def main() -> None:
     # 1. The device.
     if not torch.cuda.is_available():
@@ -3277,12 +3462,21 @@ def main() -> None:
     k1_mesh, k2_mesh, k3_mesh = multi_device(card, ms, cheb, cheb19,
                                              slider, tt)
 
+    # 54. Autodiff through the plain f64 evaluator on the card.
+    autodiff(card, ms, cheb)
+
+    # 55. The kernel routes refuse a gradient; under no_grad they serve.
+    refusals(card, cheb, cheb19)
+
+    # 56. Every example on the card; their K1 and K3 launches count.
+    k1_examples, k3_examples = examples(card)
+
     # Bounds on the pipes each instance runs on: f32 on the TF32 tensor
     # cores in three passes, f64 on the f64 tensor cores; the SIMT pipes'
     # bound beside each.
     rows = [
         ("K1 fused f32 dense evaluator", "pychebyshev_tpu/ops/pallas_eval.py:173",
-         main_launches + k1_fit_launches + k1_mesh, max_abs,
+         main_launches + k1_fit_launches + k1_mesh + k1_examples, max_abs,
          "K1 f32 (fused_eval_batch)",
          "plain f32 (fused_eval_batch_reference)", "GEMM f32 11^5",
          bound((11,) * 5, N, 4, TF32_PEAK, passes=3),
@@ -3297,7 +3491,7 @@ def main() -> None:
         ("K3 fused dd dense evaluator (f64)",
          "pychebyshev_tpu/ops/pallas_dd.py:155",
          k3_launches + k3_spline_launches + k3_fit_launches
-         + k3_global_launches + k3_mesh, k3_abs,
+         + k3_global_launches + k3_mesh + k3_examples, k3_abs,
          "K3 f64 (fused_eval_batch_dd)",
          "plain f64 (fused_eval_batch_dd_reference)", "GEMM f64 11^5",
          bound((11,) * 5, N, 8, F64_TC_PEAK),

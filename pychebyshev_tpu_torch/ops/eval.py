@@ -54,10 +54,12 @@ def barycentric_coefficients(x: torch.Tensor, nodes: torch.Tensor,
     w_over_diff = weights[None, :] / safe
     interp = w_over_diff / w_over_diff.sum(dim=1, keepdim=True)
     # argmax returns the first maximal index, as jnp.argmax does; it
-    # does not take bool, so count in int8.
+    # does not take bool, so count in int8.  The one-hot row compares
+    # with an arange: ``one_hot`` reads its index's range on the host,
+    # which ``torch.func.vmap`` refuses.
     first = exact.to(torch.int8).argmax(dim=1)
-    one_hot = torch.nn.functional.one_hot(
-        first, nodes.shape[0]).to(interp.dtype)
+    one_hot = (first[:, None] == torch.arange(
+        nodes.shape[0], device=first.device)).to(interp.dtype)
     return torch.where(has_exact[:, None], one_hot, interp)
 
 

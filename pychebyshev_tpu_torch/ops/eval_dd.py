@@ -11,6 +11,9 @@ contract (at most 1e-10 scale-normalized from true f64) in native f64:
   K3); other grids through the plain f64 path of ``ops.eval``.  This is
   a static rule on the shape, not a fallback on failure.
 - On a CPU tensor the same routing runs the kernel's plain version.
+- The K3 route refuses, on every device, a tensor that requires grad
+  (``fused_eval.refuse_grad``), as the reference's Pallas K3 does; the
+  plain f64 route stays differentiable.
 
 The grids the tier accepts are the reference's: ``dd_plan`` and
 ``supports_dd`` copy its shape arithmetic (the digit-width budget
@@ -39,7 +42,7 @@ from typing import Sequence, Tuple
 import torch
 
 from pychebyshev_tpu_torch.ops import eval as eval_ops
-from pychebyshev_tpu_torch.ops import fused_dd
+from pychebyshev_tpu_torch.ops import fused_dd, fused_eval
 from pychebyshev_tpu_torch.ops.eval import _split_index
 from pychebyshev_tpu_torch.parallel.sharding import (
     _dp_runner,
@@ -119,10 +122,13 @@ def _runner(tensors, nodes, weights, diff_matrices, orders_list):
     d = len(shape)
     device = tensors[0].device
     if fused_dd.supports_fused_dd(shape):
+        fused_eval.refuse_grad("eval_dd's K3 route", tensors, nodes,
+                               weights, diff_matrices)
         packed = [fused_dd._pack(t, nodes, weights, diff_matrices, o, shape)
                   for t, o in zip(tensors, orders_list)]
 
         def run(points):
+            fused_eval.refuse_grad("eval_dd's K3 route", points)
             pts = _points64(points, device, d)
             return torch.stack([fused_dd._evaluate(p, shape, pts)
                                 for p in packed])

@@ -17,6 +17,9 @@ pipeline on chip.
   packing; points stay f64 end to end.
 - ``launches`` counts kernel launches (a plain integer; reset it by
   assignment).
+- Like ``ops.fused_eval``, the route refuses a tensor that requires
+  grad (``fused_eval.refuse_grad``); the reference's Pallas K3 has no
+  gradient either.
 
 The packing, operand cache and plain contraction are ``ops.fused_eval``'s,
 at f64.  The TPU knobs ``block`` and ``interpret`` have no counterpart.
@@ -98,7 +101,10 @@ def fused_eval_batch_dd(tensor, nodes, weights, diff_matrices, points,
     Same contract as ``ops.eval_dd.eval_batch_dd``.  A CUDA tensor
     launches the kernel; a CPU tensor runs the plain version of the same
     function; any other device raises.  Packed operands are cached.
+    Refuses a tensor that requires grad.
     """
+    fused_eval.refuse_grad("fused_eval_batch_dd", tensor, nodes, weights,
+                           diff_matrices, points)
     shape, orders, points = _prepare(tensor, nodes, weights, diff_matrices,
                                      points, orders)
     fused_eval._check_device(tensor, "fused_eval_batch_dd")

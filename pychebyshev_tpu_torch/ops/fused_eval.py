@@ -28,6 +28,12 @@ the dtype: ``ops.fused_dd`` runs the f64 instance of the same kernel.
   device, before the cast to f32.
 - ``launches`` counts kernel launches (a plain integer; reset it by
   assignment).
+- The kernel has no backward, and neither has the Pallas kernel it
+  replaces (``jax.grad`` through it fails to linearize).  So the route
+  refuses, on every device, an operand or point tensor that requires
+  grad while grad mode is on (``refuse_grad``), before it packs or
+  caches anything; the plain ``*_reference`` functions stay
+  differentiable.
 
 Scope (``supports_fused``): f32 evaluation of tensors with 3 to 16 dims
 whose per-block shared-memory footprint fits Hopper's 227 KB and whose
@@ -54,7 +60,8 @@ from pychebyshev_tpu_torch.ops.eval import (
 )
 
 __all__ = ["fused_eval_batch", "fused_eval_batch_reference",
-           "supports_fused", "clear_fused_cache", "launches"]
+           "supports_fused", "clear_fused_cache", "refuse_grad",
+           "launches"]
 
 #: Kernel launches since import (or since the caller last reset it).
 launches = 0
@@ -264,6 +271,25 @@ def _prepare(tensor, nodes, weights, diff_matrices, points, orders,
     return shape, orders, points.to(dtype).contiguous()
 
 
+def refuse_grad(route: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel route:
+    grad mode is on and any of ``tensors`` (operands, points; sequences
+    of them are walked) requires grad."""
+    if not torch.is_grad_enabled():
+        return
+    stack = list(tensors)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, (tuple, list)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            raise RuntimeError(
+                f"{route} has no gradient: its kernel has no backward, and "
+                f"an operand or the points require grad.  Differentiate "
+                f"through the f64 path (ops.eval.eval_batch, or the "
+                f"model's eval_batch_device), or call under torch.no_grad()")
+
+
 def _check_device(tensor, name):
     if tensor.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, got "
@@ -321,9 +347,12 @@ def fused_eval_batch(tensor, nodes, weights, diff_matrices, points,
     Drop-in for ``ops.eval.eval_batch`` at f32.  A CUDA tensor launches
     the kernel; a CPU tensor runs the plain version of the same
     function; any other device raises.  Packed operands are cached
-    (see ``_operand_cache``).
+    (see ``_operand_cache``).  Refuses a tensor that requires grad
+    (``refuse_grad``).
     """
     global launches
+    refuse_grad("fused_eval_batch", tensor, nodes, weights, diff_matrices,
+                points)
     shape, orders, points = _prepare(tensor, nodes, weights, diff_matrices,
                                      points, orders)
     _check_device(tensor, "fused_eval_batch")

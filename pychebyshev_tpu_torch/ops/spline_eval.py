@@ -138,8 +138,8 @@ def _rows(x, nodes, weights):
     w_over_diff = weights[:, None, :] / safe
     interp = w_over_diff / w_over_diff.sum(dim=-1, keepdim=True)
     first = exact.to(torch.int8).argmax(dim=-1)
-    one_hot = torch.nn.functional.one_hot(
-        first, nodes.shape[-1]).to(interp.dtype)
+    one_hot = (first[..., None] == torch.arange(
+        nodes.shape[-1], device=first.device)).to(interp.dtype)
     return torch.where(has_exact[..., None], one_hot, interp)
 
 

@@ -31,6 +31,36 @@ def test_every_module_imports_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+EXAMPLES = sorted((REPO / "examples_torch").glob("*.py"))
+
+
+def test_every_example_imports_without_jax():
+    """Each port example imports (by path, without running ``main``)
+    with neither JAX nor the JAX package loaded."""
+    code = (
+        "import importlib.util, sys\n"
+        f"for path in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    name = 'examples_torch_' + path.rsplit('/', 1)[1][:-3]\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    module = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(module)\n"
+        "    assert callable(module.main), path\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
+        "                                            'pychebyshev_tpu.'))\n"
+        "             or m == 'pychebyshev_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+    assert len(EXAMPLES) == 16
+    # one counterpart per reference example, under the same base name
+    assert ({p.name for p in EXAMPLES}
+            == {p.name for p in (REPO / "examples").glob("*.py")})
+
+
 def test_package_covers_the_slice():
     names = set(_modules())
     for want in ("config", "ops.chebyshev", "ops.dct", "ops.eval",
