@@ -94,6 +94,14 @@ gradient against the CPU's, forward against forward plus backward at
 example of ``examples_torch/`` run on the card, whose K1 and K3
 launches join the kernels line.
 
+Then the benchmark and the JAX package's on-chip tests: every row of
+``bench_torch.py`` at full widths with a few timed calls a row, each
+line parsed and held to its ceiling (its K1 and K3 launches join the
+kernels line); and the checks of ``tests/test_tpu_hardware.py`` that no
+phase above holds (the 21^5 grid, the kernels' operand caches under an
+in-place edit, the TT core cache, the TT dd fast mode, a slider dd
+report with a two-dim slide).
+
 Run from the repository root, with one CUDA card:
 
     python3 chip_smoke.py
@@ -2763,6 +2771,149 @@ def examples(card: str):
     return k1, k3
 
 
+BENCH_REPS = 5
+
+
+def bench_rows(card: str):
+    """Phase 57: ``bench_torch.main(device="cuda")`` at full widths with
+    ``BENCH_REPS`` timed calls a row, its standard output held aside:
+    every line parses, every row is there and holds its ceiling, K1 and
+    K3 launched on their rows.  Returns the K1 and K3 launches of the
+    run (from zero)."""
+    import contextlib
+    import io
+
+    import bench_torch
+    buf = io.StringIO()
+    fused_eval.launches = 0
+    fused_dd.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            bench_torch.main(device=DEVICE, reps=BENCH_REPS)
+    finally:
+        k1, k3 = fused_eval.launches, fused_dd.launches
+        for line in buf.getvalue().splitlines():
+            print(f"[57 bench] {line}", flush=True)
+    seconds = time.perf_counter() - t0
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    rows = [line for line in lines if "metric" in line]
+    names = [row["metric"] for row in rows]
+    check(names == [base for base, _ in bench_torch.ROWS],
+          f"bench_torch rows {names}")
+    for row in rows:
+        check(row["ok"] and row["deviation"] <= row["ceiling"],
+              f"bench_torch {row['metric']}: {row}")
+    for base in bench_torch.KERNEL_ROWS:
+        check(next(r for r in rows if r["metric"] == base)["launches"] > 0,
+              f"bench_torch {base} never launched its kernel")
+    check(lines[-1] == {"ok": True, "rows": len(bench_torch.ROWS),
+                        "failed": []}, f"bench_torch last line {lines[-1]}")
+    busy = sum(1 for line in lines if "busy_share" in line)
+    print(f"[57 bench_torch] {len(rows)} rows at full widths, "
+          f"{BENCH_REPS} timed calls each, every line parsed, every row "
+          f"within its ceiling, {busy} busy-share lines; K1 {k1} K3 {k3} "
+          f"launches; {seconds:.1f} s | {card}", flush=True)
+    return k1, k3
+
+
+def hardware_counterparts(card: str, cheb) -> None:
+    """Phase 58: the checks of the JAX package's on-chip tests
+    (``tests/test_tpu_hardware.py``) that no other phase holds: the
+    21-node grid's finiteness, the kernels' operand caches under an
+    in-place edit, the TT core cache, the TT dd tier's fast mode, and a
+    dd Greek report on a slider with a two-dim slide."""
+    # The 21^5 grid (tests/test_tpu_hardware.py:156-174): values finite
+    # on every route, f64 within 1e-6 of the analytic price.
+    cheb21 = ChebyshevApproximation(bs_price_np, 5, DOMAIN, [21] * 5,
+                                    vectorized=True, device=DEVICE)
+    cheb21.build(verbose=False)
+    rng = np.random.default_rng(0)
+    pts = np.stack([rng.uniform(lo, hi, 512) for lo, hi in DOMAIN], axis=1)
+    exact = bs_price_np(pts)
+    keep = np.abs(exact) > 1.0
+    f64 = checked(cheb21.eval_batch_device(pts), (512,), "21^5 f64")
+    rel = float((np.abs(_host_f64(f64) - exact)[keep]
+                 / np.abs(exact)[keep]).max())
+    check(rel < 1e-6, f"21^5 f64 vs the analytic price {rel:.3e}")
+    before = (fused_eval.launches, fused_dd.launches)
+    f32 = checked(cheb21.eval_batch_f32(pts), (512,), "21^5 f32 (K1)")
+    dd = checked(cheb21.eval_batch_dd(pts), (512,), "21^5 dd (K3)")
+    check((fused_eval.launches, fused_dd.launches)
+          == (before[0] + 1, before[1] + 1), "21^5 did not launch K1 and K3")
+    d21 = (dev(f32, f64), dev(dd, f64))
+    check(d21[0] <= F32_CEILING and d21[1] <= DD_CEILING,
+          f"21^5 K1 / K3 vs f64 {d21}")
+
+    # The operand caches under an in-place edit (test_tpu_hardware.py
+    # :224-238): the same tensor object, edited, must not hit the cache.
+    nodes, weights, diffs = cheb._grid_tuples()
+    sub = torch.tensor(sample_points(512, SEED + 58), device=DEVICE)
+    worst_cache = 0.0
+    for fn, points, ceiling in (
+            (fused_eval.fused_eval_batch, sub.float(), F32_CEILING),
+            (fused_dd.fused_eval_batch_dd, sub, DD_CEILING)):
+        t = cheb.tensor_values.clone()
+        first = fn(t, nodes, weights, diffs, points)
+        t += 5.0
+        second = fn(t, nodes, weights, diffs, points)
+        d = dev(second, first + 5.0)
+        check(d <= ceiling, f"{fn.__name__} after an in-place edit {d:.3e}")
+        worst_cache = max(worst_cache, d)
+
+    # The TT core cache (test_tpu_hardware.py:240-250): a second batch is
+    # served from the cached device cores, bitwise the first.
+    tt = ChebyshevTT(lambda x, _: x[0] * x[1] + x[2], 3, [[-1, 1]] * 3,
+                     [9, 9, 9], max_rank=4, device=DEVICE)
+    tt.build(verbose=False)
+    tpts = np.random.default_rng(3).uniform(-0.9, 0.9, (1024, 3))
+    a, b = tt.eval_batch(tpts), tt.eval_batch(tpts)
+    check(torch.equal(a, b), "TT eval_batch twice differs")
+    check(tt._cores_on_device(torch.float64)
+          is tt._cores_on_device(torch.float64), "TT core cache missed")
+    d_tt = dev(a, tpts[:, 0] * tpts[:, 1] + tpts[:, 2])
+    check(d_tt <= F64_CEILING, f"TT x0 x1 + x2 {d_tt:.3e}")
+
+    # The TT dd tier's fast mode (test_tpu_hardware.py:275-285).
+    tt4 = ChebyshevTT(lambda x, _: np.exp(-x[:, 0]) * np.sin(x.sum(axis=1)),
+                      4, [[0, 1]] * 4, [9] * 4, max_rank=8, vectorized=True,
+                      device=DEVICE)
+    tt4.build(verbose=False, seed=2)
+    fpts = np.random.default_rng(5).uniform(0.05, 0.95, (1024, 4))
+    d_fast = dev(checked(tt4.eval_batch_dd(fpts, mode="fast"), (1024,),
+                         "TT dd fast"), tt4.eval_batch(fpts))
+    check(d_fast <= DD_CEILING, f"TT dd fast vs f64 {d_fast:.3e}")
+
+    # A dd Greek report on a 6-D slider with a two-dim slide, with a
+    # cross-slide spec (test_tpu_hardware.py:327-350).
+    slider = ChebyshevSlider(
+        lambda p, _: (np.sum(np.sin(p), axis=1) + 0.2 * np.sum(p ** 2,
+                                                                axis=1)),
+        6, [[-1.0, 1.0]] * 6, [9] * 6, [[0, 1]] + [[i] for i in range(2, 6)],
+        [0.0] * 6, vectorized=True, device=DEVICE)
+    slider.build(verbose=False)
+    specs = [(0,) * 6, (1, 0, 0, 0, 0, 0), (0, 0, 1, 0, 0, 0),
+             (0, 0, 1, 1, 0, 0)]
+    spts = np.random.default_rng(17).uniform(-1, 1, (2048, 6))
+    got = checked(MultiSpecEvaluator(slider, specs, dtype="dd",
+                                     device=DEVICE)(spts),
+                  (2048, len(specs)), "slider dd report")
+    d_sl = 0.0
+    for m, s in enumerate(specs):
+        want = slider.eval_batch(spts, list(s))
+        # the cross-slide spec is exactly zero in both
+        d_sl = max(d_sl, dev(got[:, m], want) if np.abs(want).max() > 0
+                   else float(got[:, m].abs().max()))
+    check(d_sl <= DD_CEILING, f"slider dd report vs the class path "
+                              f"{d_sl:.3e}")
+    print(f"[58 on-chip tests] 21^5: f64 vs analytic {rel:.3e} < 1e-6, K1 "
+          f"{d21[0]:.3e} and K3 {d21[1]:.3e} vs f64, all finite; K1 and K3 "
+          f"after an in-place edit of their tensor {worst_cache:.3e}; TT "
+          f"core cache bitwise, {d_tt:.3e}; TT dd fast {d_fast:.3e}; "
+          f"slider dd report with a 2-D slide {d_sl:.3e} | {card}",
+          flush=True)
+
+
 def main() -> None:
     # 1. The device.
     if not torch.cuda.is_available():
@@ -3471,12 +3622,19 @@ def main() -> None:
     # 56. Every example on the card; their K1 and K3 launches count.
     k1_examples, k3_examples = examples(card)
 
+    # 57. bench_torch.py at full widths; its K1 and K3 launches count.
+    k1_bench, k3_bench = bench_rows(card)
+
+    # 58. The JAX package's on-chip tests that no phase above holds.
+    hardware_counterparts(card, cheb)
+
     # Bounds on the pipes each instance runs on: f32 on the TF32 tensor
     # cores in three passes, f64 on the f64 tensor cores; the SIMT pipes'
     # bound beside each.
     rows = [
         ("K1 fused f32 dense evaluator", "pychebyshev_tpu/ops/pallas_eval.py:173",
-         main_launches + k1_fit_launches + k1_mesh + k1_examples, max_abs,
+         main_launches + k1_fit_launches + k1_mesh + k1_examples + k1_bench,
+         max_abs,
          "K1 f32 (fused_eval_batch)",
          "plain f32 (fused_eval_batch_reference)", "GEMM f32 11^5",
          bound((11,) * 5, N, 4, TF32_PEAK, passes=3),
@@ -3491,7 +3649,7 @@ def main() -> None:
         ("K3 fused dd dense evaluator (f64)",
          "pychebyshev_tpu/ops/pallas_dd.py:155",
          k3_launches + k3_spline_launches + k3_fit_launches
-         + k3_global_launches + k3_mesh + k3_examples, k3_abs,
+         + k3_global_launches + k3_mesh + k3_examples + k3_bench, k3_abs,
          "K3 f64 (fused_eval_batch_dd)",
          "plain f64 (fused_eval_batch_dd_reference)", "GEMM f64 11^5",
          bound((11,) * 5, N, 8, F64_TC_PEAK),

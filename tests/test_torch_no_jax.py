@@ -61,6 +61,27 @@ def test_every_example_imports_without_jax():
             == {p.name for p in (REPO / "examples").glob("*.py")})
 
 
+def test_bench_and_chip_check_import_without_jax():
+    """``bench_torch.py`` and ``chip_smoke.py`` run on the card's
+    machine, which has no JAX: importing either loads neither JAX nor
+    the JAX package."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, '.')\n"
+        "import bench_torch, chip_smoke\n"
+        "assert callable(bench_torch.main) and callable(chip_smoke.main)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
+        "                                            'pychebyshev_tpu.'))\n"
+        "             or m == 'pychebyshev_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_package_covers_the_slice():
     names = set(_modules())
     for want in ("config", "ops.chebyshev", "ops.dct", "ops.eval",
