@@ -1,4 +1,5 @@
-"""Benchmark of the PyTorch port on one CUDA card: every row of bench.py.
+"""Benchmark of the PyTorch port on one CUDA card: every row of bench.py,
+the baseline table's five configurations and the calculus workloads.
 
 The same workloads as ``bench.py`` (the JAX package's TPU bench, which
 stays as it is): the 5-D Black-Scholes call on an 11^5 Chebyshev grid
@@ -8,12 +9,23 @@ f64), the reference's rank-15 TT-Cross configuration (f32, Delta, dd,
 f64) and the masked-ALS hard configuration, ``to_tt(1e-13)`` of the
 11^5 interpolant served by the grouped dd chain, dd bucket masses and
 dd conditional expectations over 2^17 boxes, and the 10-D slider's dd
-Greek report at 2^18 points.  Every row is held to its accuracy ceiling
-(scale-normalized max deviation, max|a - ref| / max|ref|).
+Greek report at 2^18 points.  Then the rows of
+``scripts/run_baseline_table.py`` that bench.py lacks (BASELINE.json's
+configurations 1-5: the single-query host path through the C kernels,
+the 2-D kinked spline, the 10-D slider's engines, the 4-D portfolio's
+TT-ALS builds and completion) and of ``scripts/bench_integrate_batch.py``
+(dense and TT box integrals, conditional expectations, a six-model
+book's integrals, roots and minima over 4,096 scenarios).  Every row is
+held to its accuracy ceiling (scale-normalized max deviation,
+max|a - ref| / max|ref|, unless its ``against`` says otherwise).
 
 Run from the repository root, on one card:
 
-    python3 bench_torch.py [--reps 40] [--seed 0]
+    python3 bench_torch.py [--reps 40] [--seed 0] [--rows NAME[,NAME...]]
+
+``--rows`` runs the rows whose names start with one of the given names
+(``--rows spline2d_`` runs configuration 3's three rows); without it,
+every row runs.
 
 and its CPU rehearsal (small widths, the same code path; its metric
 names carry the prefix ``rehearsal.``):
@@ -27,9 +39,10 @@ precision settings); the kernels' build as set-up time; one line per
 metric as soon as it is measured (``metric``, ``value``, ``unit``,
 ``n``, ``median_ms``, ``p75_ms``, ``samples``, ``deviation``,
 ``ceiling``, ``against``, ``device``, ``ok``; ``launches`` and
-``kernel_ms`` on the K1 and K3 rows); then one ``busy_share`` line per
-timed row from a separate ``torch.profiler`` pass; last
-``{"ok": ..., "rows": ..., "failed": [...]}``.  Diagnostics go to
+``kernel_ms`` on the K1 and K3 rows; ``host_cpu`` on the host rows);
+then one ``busy_share`` line per timed device row from a separate
+``torch.profiler`` pass; last ``{"ok": ..., "rows": ..., "failed":
+[...]}``, counting the rows selected.  Diagnostics go to
 standard error.  The exit code is non-zero if any row breaks its
 ceiling, raises, or is missing; a row that fails does not stop the
 rows after it.
@@ -37,17 +50,24 @@ rows after it.
 Timing: CUDA events around each call, 3 warm-ups then ``--reps`` timed
 calls, each row rotating over at least three input batches whose total
 exceeds the card's 50 MB L2 (a server's next request arrives cold);
-the median and the 75th percentile with the sample count.  Builds are
-timed on the host clock around a build that ends in
-``torch.cuda.synchronize()``.  ``--seed S`` is added to each of
-bench.py's seeds (1, 7, 9, 11, 21, 42), so ``--seed 0`` draws
-bench.py's inputs.
+the median and the 75th percentile with the sample count (a row whose
+call takes over a second takes at most 5).  Builds are timed on the
+host clock around a build that ends in ``torch.cuda.synchronize()``.
+The host rows (``*_host_*_us``) time the host, not the card: 10 warm
+calls, then at least 300 in blocks, the median over the blocks in
+microseconds a call; the line names the host's CPU.  ``--seed S`` is
+added to each seed of the scripts (bench.py's 1, 7, 9, 11, 21, 42; the
+baseline table's 0, 1, 2, 5, 42; 72 for the scenarios), so ``--seed 0``
+draws their inputs.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
+import platform
 import subprocess
 import sys
 import time
@@ -59,8 +79,10 @@ import torch
 from scipy.stats import norm
 
 from pychebyshev_tpu_torch import (
+    BatchedEvaluator,
     ChebyshevApproximation,
     ChebyshevSlider,
+    ChebyshevSpline,
     ChebyshevTT,
 )
 from pychebyshev_tpu_torch.ops import eval as eval_ops
@@ -73,6 +95,13 @@ from pychebyshev_tpu_torch.ops import (
     tt_eval,
     tt_eval_dd,
 )
+from pychebyshev_tpu_torch.ops.chebyshev import (
+    barycentric_weights_np,
+    nodes_for_dim_np,
+)
+from pychebyshev_tpu_torch.ops.quadrature import sub_interval_weights
+from pychebyshev_tpu_torch.serving import integrate_book
+from pychebyshev_tpu_torch.utils import ceval
 
 #: The upstream reference's single-query ``vectorized_eval`` on a CPU,
 #: ~0.065 ms a query (BASELINE.md); the headline's ``vs_baseline`` base.
@@ -80,6 +109,12 @@ BASELINE_SINGLE_QUERY_S = 0.065e-3
 L2_BYTES = 50 * 2 ** 20
 WARMUP = 3
 BUSY_CALLS = 5
+#: A row whose warm call takes longer takes at most ``LONG_REPS`` samples.
+LONG_CALL_S = 1.0
+LONG_REPS = 5
+#: The host rows: warm calls, then at least this many timed calls.
+HOST_WARM = 10
+HOST_CALLS = 300
 
 # Accuracy ceilings (ROADMAP.md, scripts/perf_gate.py:168-209).
 F32 = 2e-4
@@ -91,6 +126,20 @@ TO_TT = 1e-12
 ANALYTIC = 5e-4
 #: Rank-15 cross, max relative price error over the 50 test points.
 TT_PRICE = 1e-3
+#: The C host path against the NumPy host path (chip_smoke.py phase 16).
+HOST_C_VS_NUMPY = 1e-14
+#: ... on derivative specs, of each spec's scale: the C kernel folds the
+#: differentiation matrices in another order (ROADMAP.md queue 3).
+HOST_C_VS_NUMPY_SPECS = 1e-10
+#: Config 5's portfolio against its closed form (chip_smoke.py phase 37).
+PORTFOLIO_ERR = 1e-4
+#: Batched roots along S against single ``roots`` calls, absolute in S:
+#: where the slice's last coefficient is rounding noise they differ by
+#: up to 1.26e-10 (ROADMAP.md queue 3).
+ROOTS_VS_SINGLE = 1e-9
+#: Batched minima against single ``minimize`` calls: locations absolute
+#: in S, values of the scale (chip_smoke.py phase 31).
+LOCATION_VS_SINGLE = 1e-10
 #: Fewer nodes and a lower rank interpolate worse: the rehearsal holds
 #: the two analytic rows to this multiple of their ceilings.
 SMALL_ANALYTIC_FACTOR = 10.0
@@ -109,6 +158,22 @@ SLIDER_D = 10
 SLIDER_W = np.linspace(0.5, 1.5, SLIDER_D)
 SLIDER_SPECS = ((0,) * SLIDER_D,) + tuple(
     tuple(1 if j == k else 0 for j in range(SLIDER_D)) for k in (0, 2, 4, 6))
+SLIDER_DOMAIN = [[-1.0, 1.0]] * SLIDER_D
+# The baseline table's configurations (scripts/run_baseline_table.py):
+# config 1's single query point (:195) and the reference's protocol
+# (:60-104), config 3's kinked spline (:403-447), config 5's portfolio
+# (:555-611).
+QUERY_POINT = [100.0, 100.0, 0.8, 0.2, 0.03]
+PROTOCOL_POINTS = 200
+PROTOCOL_SPECS = {"delta": [1, 0, 0, 0, 0], "gamma": [2, 0, 0, 0, 0],
+                  "vega": [0, 0, 0, 1, 0], "rho": [0, 0, 0, 0, 1],
+                  "theta": [0, 0, 1, 0, 0]}
+SPLINE_DOMAIN = [[0.0, 2.0], [0.0, 1.0]]
+SPLINE_NODES = [17, 17]
+SPLINE_KNOTS = [[1.0], []]
+SPLINE_MARGIN = 0.001
+PORTFOLIO_DOMAIN = [[80.0, 120.0], [0.25, 2.0], [0.1, 0.5], [0.01, 0.05]]
+PORTFOLIO_AT = [100.0, 1.0, 0.3, 0.03]
 
 
 def bs_price_np(points, _data=None):
@@ -133,6 +198,27 @@ def bs_div_np(points, _data=None):
             - k * np.exp(-r * t) * norm.cdf(d2))
 
 
+def bs_div_greeks_np(points):
+    """The analytic Greeks of ``bs_div_np`` (run_baseline_table.py:76-95;
+    theta is -dV/dT plus the dividend term)."""
+    points = np.asarray(points, dtype=np.float64)
+    s, k, t, sigma, r = (points[:, i] for i in range(5))
+    sqrt_t = np.sqrt(t)
+    d1 = (np.log(s / k) + (r - TT_Q + 0.5 * sigma ** 2) * t) \
+        / (sigma * sqrt_t)
+    d2 = d1 - sigma * sqrt_t
+    pdf, dq, dr = norm.pdf(d1), np.exp(-TT_Q * t), np.exp(-r * t)
+    return {
+        "delta": dq * norm.cdf(d1),
+        "gamma": dq * pdf / (s * sigma * sqrt_t),
+        "vega": s * dq * pdf * sqrt_t,
+        "rho": k * t * dr * norm.cdf(d2),
+        "theta": (-s * dq * pdf * sigma / (2 * sqrt_t)
+                  - r * k * dr * norm.cdf(d2)
+                  + TT_Q * s * dq * norm.cdf(d1)),
+    }
+
+
 def basket_np(points, _data=None):
     """Config 4's additive basket on [-1, 1]^10."""
     p = np.asarray(points, dtype=np.float64)
@@ -140,14 +226,117 @@ def basket_np(points, _data=None):
                                                                axis=1)
 
 
-def sample_points(n, seed=0, domain=DOMAIN, rng=None):
-    """n points uniform in [2 %, 98 %] of each range.  Drawn from
-    ``rng`` when given (later batches of one stream), else from
-    ``seed``."""
+def payoff_np(points, _data=None):
+    """Config 3's kinked payoff, max(x0 - 1, 0) e^(-0.1 x1)."""
+    p = np.asarray(points, dtype=np.float64)
+    return np.maximum(p[:, 0] - 1.0, 0.0) * np.exp(-0.1 * p[:, 1])
+
+
+def instrument_a_np(points, _data=None):
+    """Config 5's first instrument, a softplus call on (S, T, sigma, r)."""
+    p = np.asarray(points, dtype=np.float64)
+    s, t, sigma, r = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
+    return (5.0 * np.log1p(np.exp((s - 100.0) / 5.0)) * np.exp(-r * t)
+            * (1 + 0.5 * sigma))
+
+
+def instrument_b_np(points, _data=None):
+    """Config 5's second instrument, a bond plus a volatility term."""
+    p = np.asarray(points, dtype=np.float64)
+    s, t, sigma, r = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
+    return 100.0 * np.exp(-r * t) + 0.1 * s * sigma * np.sqrt(t)
+
+
+def auto_n_np(x, _data=None):
+    """The auto-N function of run_baseline_table.py:545-550."""
+    return float(np.sin(3 * x[0]) + np.exp(x[0]))
+
+
+def sample_points(n, seed=0, domain=DOMAIN, rng=None, margin=0.02):
+    """n points uniform in [margin, 1 - margin] of each range (2 % by
+    default).  Drawn from ``rng`` when given (later batches of one
+    stream), else from ``seed``."""
     rng = np.random.default_rng(seed) if rng is None else rng
     lo = np.array([b[0] for b in domain])
     hi = np.array([b[1] for b in domain])
-    return lo + (hi - lo) * rng.uniform(0.02, 0.98, size=(n, len(domain)))
+    return lo + (hi - lo) * rng.uniform(margin, 1 - margin,
+                                        size=(n, len(domain)))
+
+
+def protocol_points(seed):
+    """The reference's protocol points (run_baseline_table.py:98-103):
+    200 uniform on the TT domain, one dim after another."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(lo, hi, PROTOCOL_POINTS)
+                     for lo, hi in TT_DOMAIN], axis=1)
+
+
+def additive_interpolant_np(points, n_nodes):
+    """Config 4's slider computed independently on the host: each dim's
+    1-D barycentric interpolant of the basket's slice through the pivot
+    0 (NumPy, f64), summed (the pivot value is 0)."""
+    total = np.zeros(len(points))
+    for d in range(SLIDER_D):
+        x = nodes_for_dim_np(-1.0, 1.0, n_nodes)
+        w = barycentric_weights_np(x)
+        grid = np.zeros((n_nodes, SLIDER_D))
+        grid[:, d] = x
+        v = basket_np(grid)
+        diff = points[:, d, None] - x[None, :]
+        hit = np.abs(diff) < 1e-14
+        with np.errstate(divide="ignore", invalid="ignore"):
+            r = w / diff
+            row = r / r.sum(axis=1, keepdims=True)
+        row[hit.any(axis=1)] = hit[hit.any(axis=1)].astype(float)
+        total += row @ v
+    return total
+
+
+def quad_row_np(n, a, c, lo, hi):
+    """The host sub-interval Fejer row of one dim, scaled by its
+    half-width (zero for a zero-measure interval)."""
+    if lo == hi:
+        return np.zeros(n)
+    return sub_interval_weights(n, 2.0 * (lo - a) / (c - a) - 1.0,
+                                2.0 * (hi - a) / (c - a) - 1.0) * (c - a) / 2
+
+
+def bary_row_np(x, nodes):
+    """The host barycentric row of coordinate ``x`` (one-hot at a node)."""
+    hit = np.abs(x - nodes) < 1e-14
+    if hit.any():
+        return hit.astype(float)
+    r = barycentric_weights_np(nodes) / (x - nodes)
+    return r / r.sum()
+
+
+def contract_np(tensor, rows) -> float:
+    """The host tensor contracted with one row per dim, last dim first."""
+    t = tensor
+    for row in reversed(rows):
+        t = np.tensordot(t, row, axes=([t.ndim - 1], [0]))
+    return float(t)
+
+
+def host_cpu() -> str:
+    """The host's CPU model, for the host rows: ``/proc/cpuinfo``'s model
+    name, or where a container's kernel hides it ("unknown"), the
+    vendor, family, model number and clock it does give."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break   # the end of the first processor's block
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        return platform.machine() or "unknown"
+    if info.get("model name", "unknown") != "unknown":
+        return info["model name"]
+    return (f"{info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')}, "
+            f"{info.get('cpu MHz', '?')} MHz, {os.cpu_count()} CPUs")
 
 
 @dataclass(frozen=True)
@@ -158,10 +347,13 @@ class Widths:
     tt_rank: int
     check: int      # points of the host-path checks
     analytic: float  # factor on the two analytic ceilings
+    scenarios: int  # scenarios of the roots and minima
 
 
-FULL = Widths(11, 1 << 20, 1 << 17, 15, 4096, 1.0)
-SMALL = Widths(9, 4096, 512, 8, 512, SMALL_ANALYTIC_FACTOR)
+FULL = Widths(11, 1 << 20, 1 << 17, 15, 4096, 1.0, 4096)
+SMALL = Widths(9, 4096, 512, 8, 512, SMALL_ANALYTIC_FACTOR, 256)
+#: Scenarios the batched roots and minima are checked on, one call each.
+SINGLE_CHECKS = 64
 
 
 def _host(x) -> np.ndarray:
@@ -191,6 +383,7 @@ class Bench:
         self.reps = reps
         self.seed = seed
         self.card = card
+        self.cpu = host_cpu()
         self.rows = []
         self.timed = []   # (base name, fn, batches) for the busy shares
 
@@ -219,12 +412,17 @@ class Bench:
 
     def samples(self, fn, batches) -> list:
         """Milliseconds of ``reps`` calls after ``WARMUP``, rotating over
-        ``batches``: CUDA events on a card, the host clock on the CPU."""
+        ``batches``: CUDA events on a card, the host clock on the CPU.
+        A call longer than ``LONG_CALL_S`` takes at most ``LONG_REPS``."""
         for i in range(WARMUP):
+            t0 = time.perf_counter()
             fn(batches[i % len(batches)])
-        self.sync()
+            self.sync()
+            warm_s = time.perf_counter() - t0
+        reps = min(self.reps, LONG_REPS) if warm_s > LONG_CALL_S \
+            else self.reps
         times = []
-        for i in range(self.reps):
+        for i in range(reps):
             b = batches[i % len(batches)]
             if self.cuda:
                 start = torch.cuda.Event(enable_timing=True)
@@ -252,6 +450,22 @@ class Bench:
         self.timed.append((base, fn, batches))
         return timing(ms, value=per_call * n / (np.median(ms) / 1e3),
                       unit=unit, n=n, **check)
+
+    def host_row(self, fn) -> dict:
+        """A host row, microseconds a call: ``HOST_WARM`` warm calls,
+        then at least ``HOST_CALLS`` in ``reps`` blocks on the host
+        clock; the median and p75 over the blocks."""
+        for _ in range(HOST_WARM):
+            fn()
+        per_block = -(-HOST_CALLS // self.reps)
+        ms = []
+        for _ in range(self.reps):
+            t0 = time.perf_counter()
+            for _ in range(per_block):
+                fn()
+            ms.append((time.perf_counter() - t0) * 1e3 / per_block)
+        return timing(ms, value=float(np.median(ms)) * 1e3, unit="us", n=1,
+                      calls=per_block * self.reps, host_cpu=self.cpu)
 
     def busy_shares(self) -> None:
         """device time over wall time across ``BUSY_CALLS`` calls of each
@@ -310,12 +524,16 @@ def one_sample(seconds, **fields) -> dict:
 # --- the rows, in bench.py's order -------------------------------------------
 #
 # Each takes the run (``b``) and the state the rows share (``s``), and
-# returns its line's fields.  A row that needs what an earlier row
-# failed to make raises, and only that row fails.
+# returns its line's fields.  A model the rows share is built by the
+# row that times its build; a row that needs it and runs without that
+# row (``--rows``) builds it untimed.  A row that needs what an earlier
+# row failed to make raises, and only that row fails.  A row's
+# ``checks`` ({name: [value, limit]}) must hold as its deviation must.
 
 
 def dense_points(b, s):
     """The dense rows' inputs: bench.py's seed-1 points, f64 and f32."""
+    dense(b, s)
     if "pts64" not in s:
         w = b.w
         host = b.batches(1, lambda rng: sample_points(w.n, rng=rng),
@@ -358,13 +576,26 @@ def new_dense(b):
                                   vectorized=True, device=b.device)
 
 
-def build_cold(b, s):
-    cheb = new_dense(b)
-    seconds = b.build_s(lambda: cheb.build(verbose=False))
+def keep_dense(s, cheb):
     s["cheb"] = cheb
     s["grid"] = cheb._grid_tuples()
     s["grid32"] = tuple(tuple(a.float() for a in g) for g in s["grid"])
     s["tensor32"] = cheb.tensor_values.float()
+
+
+def dense(b, s):
+    """bench.py's 11^5 interpolant, the dense and calculus rows' model."""
+    if "cheb" not in s:
+        cheb = new_dense(b)
+        cheb.build(verbose=False)
+        keep_dense(s, cheb)
+    return s["cheb"]
+
+
+def build_cold(b, s):
+    cheb = new_dense(b)
+    seconds = b.build_s(lambda: cheb.build(verbose=False))
+    keep_dense(s, cheb)
     return one_sample(seconds, **analytic(b, cheb))
 
 
@@ -461,6 +692,7 @@ def tt_points(b, s):
     """The TT chains' inputs: seed 1 on the TT's own domain (bench.py
     timed them on the dense domain, part of which lies outside the
     TT's, where no ceiling holds)."""
+    tt_cross(b, s)
     if "tt64" not in s:
         w = b.w
         host = b.batches(1, lambda rng: sample_points(w.n, domain=TT_DOMAIN,
@@ -471,17 +703,24 @@ def tt_points(b, s):
     return s["tt64"], s["tt32"]
 
 
+def make_tt_cross(b, s):
+    w = b.w
+    s["tt"] = ChebyshevTT(bs_div_np, 5, TT_DOMAIN, [w.nodes] * 5,
+                          max_rank=w.tt_rank, max_sweeps=10,
+                          tolerance=1e-6, vectorized=True, device=b.device)
+    s["tt"].build(verbose=False, seed=42 + b.seed)
+
+
+def tt_cross(b, s):
+    """The reference's rank-15 TT-Cross (q = 2 %), the TT rows' model."""
+    if "tt" not in s:
+        make_tt_cross(b, s)
+    return s["tt"]
+
+
 def tt_build(b, s):
     w = b.w
-
-    def build():
-        s["tt"] = ChebyshevTT(bs_div_np, 5, TT_DOMAIN, [w.nodes] * 5,
-                              max_rank=w.tt_rank, max_sweeps=10,
-                              tolerance=1e-6, vectorized=True,
-                              device=b.device)
-        s["tt"].build(verbose=False, seed=42 + b.seed)
-
-    seconds = b.build_s(build)
+    seconds = b.build_s(lambda: make_tt_cross(b, s))
     tt = s["tt"]
     rng = np.random.default_rng(42 + b.seed)
     pts = np.stack([rng.uniform(lo, hi, 50) for lo, hi in TT_DOMAIN], axis=1)
@@ -603,10 +842,16 @@ def dd(b, s):
     return row
 
 
+def compressed(b, s):
+    """``to_tt(1e-13)`` of the 11^5 interpolant."""
+    if "comp" not in s:
+        s["comp"] = dense(b, s).to_tt(tolerance=1e-13)
+    return s["comp"]
+
+
 def to_tt_dd(b, s):
     pts64, _ = dense_points(b, s)
-    comp = s["cheb"].to_tt(tolerance=1e-13)
-    s["comp"] = comp
+    comp = compressed(b, s)
     cores = comp._cores_on_device(torch.float64)
     dom = np.asarray(comp.domain, dtype=np.float64)
 
@@ -624,7 +869,8 @@ def to_tt_dd(b, s):
 
 def box_batches(b, s):
     """bench.py's seed-21 stream: 5-D boxes, then the conditional
-    points of (K, sigma, r), batch after batch."""
+    points of (K, sigma, r), batch after batch; the boxes also on the
+    host (``s["boxes_np"]``) for the calls that take host bounds."""
     if "boxes" not in s:
         nb = b.w.boxes
         lo, hi = np.asarray(DOMAIN)[:, 0], np.asarray(DOMAIN)[:, 1]
@@ -639,6 +885,7 @@ def box_batches(b, s):
         # enough batches for the smaller working set, (S, T) boxes plus
         # points: 56 bytes a scenario
         host = b.batches(21, draw, nb * 56)
+        s["boxes_np"] = [bx for bx, _ in host]
         s["boxes"] = [b.on(bx) for bx, _ in host]
         s["cond"] = [(b.on(bx[:, [0, 2], :]), b.on(c)) for bx, c in host]
     return s["boxes"], s["cond"]
@@ -646,8 +893,9 @@ def box_batches(b, s):
 
 def tt_dd_masses(b, s):
     boxes, _ = box_batches(b, s)
-    cores = s["comp"]._cores_on_device(torch.float64)
-    dom = np.asarray(s["comp"].domain, dtype=np.float64)
+    comp = compressed(b, s)
+    cores = comp._cores_on_device(torch.float64)
+    dom = np.asarray(comp.domain, dtype=np.float64)
 
     def run(bx):
         return integrate.tt_integrate_box_batch_dd(cores, dom, bx,
@@ -664,7 +912,7 @@ def tt_dd_masses(b, s):
 
 def dd_cond(b, s):
     _, cond = box_batches(b, s)
-    cheb, grid = s["cheb"], s["grid"]
+    cheb, grid = dense(b, s), s["grid"]
     dom = np.asarray(DOMAIN, dtype=np.float64)
 
     def run(c):
@@ -682,7 +930,7 @@ def dd_cond(b, s):
 
 def tt_dd(b, s):
     w = b.w
-    tt = s["tt"]
+    tt = tt_cross(b, s)
     host = b.batches(9, lambda rng: np.stack(
         [rng.uniform(lo, hi, w.n) for lo, hi in TT_DOMAIN], axis=1),
         w.n * 5 * 8)
@@ -699,13 +947,18 @@ def tt_dd(b, s):
                   against="the TT f64 chain on the first batch (seed 9)")
 
 
+def new_slider(b):
+    """Config 4: ten singleton slides of 9 nodes, pivot 0."""
+    return ChebyshevSlider(basket_np, SLIDER_D, SLIDER_DOMAIN,
+                           [9] * SLIDER_D, [[i] for i in range(SLIDER_D)],
+                           [0.0] * SLIDER_D, vectorized=True,
+                           device=b.device)
+
+
 def slider_dd_report(b, s):
     w = b.w
     ns = w.n // 4
-    slider = ChebyshevSlider(basket_np, SLIDER_D, [[-1.0, 1.0]] * SLIDER_D,
-                             [9] * SLIDER_D, [[i] for i in range(SLIDER_D)],
-                             [0.0] * SLIDER_D, vectorized=True,
-                             device=b.device)
+    slider = new_slider(b)
     slider.build(verbose=False)
     data, groups = slider._slide_data(), slider._groups()
     host = b.batches(11, lambda rng: rng.uniform(-1, 1, (ns, SLIDER_D)),
@@ -758,6 +1011,594 @@ def tt_f64(b, s):
                           f"{b.w.check:,} points")
 
 
+# --- BASELINE.json configs 1-5 (scripts/run_baseline_table.py) --------------
+
+
+def div_dense(b, s):
+    """Config 1 as the baseline table builds it (:60-73, 148-152): the
+    11^5 call with a 2 % dividend on the reference's narrow domain.
+    Its single points go through the C kernels (``utils.ceval``)."""
+    if "div" not in s:
+        cheb = ChebyshevApproximation(bs_div_np, 5, TT_DOMAIN,
+                                      [b.w.nodes] * 5, vectorized=True,
+                                      device=b.device)
+        cheb.build(verbose=False)
+        if cheb._host_cpack(cheb._host_arrays()) is None:
+            raise RuntimeError("the C host library (cpp/hosteval.c) did "
+                               "not build or load")
+        s["div"] = cheb
+    return s["div"]
+
+
+@contextlib.contextmanager
+def numpy_host_path(cheb):
+    """The dense model's NumPy single-point path: its C pack set aside
+    for the block."""
+    h = cheb._host_arrays()
+    pack = cheb._host_cpack(h)
+    h["cpack"] = None
+    try:
+        yield
+    finally:
+        h["cpack"] = pack
+
+
+def reference_protocol(cheb, pts) -> dict:
+    """The reference's published protocol (run_baseline_table.py:
+    165-193): the price and each Greek against the analytic ones,
+    relative, in percent; theta is -dV/dT."""
+    exact = bs_div_np(pts)
+    greeks = bs_div_greeks_np(pts)
+    rel = np.abs(cheb.vectorized_eval_batch(pts, [0] * 5) - exact) \
+        / np.abs(exact)
+    out = {"price_err_mean_pct": float(rel.mean() * 100),
+           "price_err_max_pct": float(rel.max() * 100)}
+    for name, orders in PROTOCOL_SPECS.items():
+        got = cheb.vectorized_eval_batch(pts, orders)
+        if name == "theta":
+            got = -got
+        out[f"{name}_err_max_pct"] = float(
+            (np.abs(got - greeks[name]) / np.abs(greeks[name])).max() * 100)
+    return out
+
+
+def query_points(b):
+    """The query point, then the protocol's 200 points (seed 42)."""
+    return np.vstack([QUERY_POINT, protocol_points(42 + b.seed)])
+
+
+def host_query(b, s):
+    """Config 1's single query through the C kernel."""
+    cheb = div_dense(b, s)
+    pts = query_points(b)
+    got = np.array([cheb.vectorized_eval(p, [0] * 5) for p in pts])
+    with numpy_host_path(cheb):
+        ref = np.array([cheb.vectorized_eval(p, [0] * 5) for p in pts])
+    row = b.host_row(lambda: cheb.vectorized_eval(QUERY_POINT, [0] * 5))
+    return dict(row, deviation=dev(got, ref), ceiling=HOST_C_VS_NUMPY,
+                against=f"the NumPy host path at the point and the "
+                        f"{PROTOCOL_POINTS} protocol points (seed 42)",
+                point=QUERY_POINT, value_at_point=float(got[0]),
+                **reference_protocol(cheb, pts[1:]))
+
+
+def host_price_greeks(b, s):
+    """Config 1's price and five Greeks at one point, one C call."""
+    cheb = div_dense(b, s)
+    pts = query_points(b)
+    got = np.array([cheb.vectorized_eval_multi(p, GREEKS) for p in pts])
+    with numpy_host_path(cheb):
+        ref = np.array([cheb.vectorized_eval_multi(p, GREEKS)
+                        for p in pts])
+    check = b.on(sample_points(b.w.check, 7 + b.seed, TT_DOMAIN))
+    scale = np.abs(_host(eval_ops.eval_batch_multi(
+        cheb.tensor_values, *cheb._grid_tuples(), check, GREEKS))).max(
+            axis=1)
+    row = b.host_row(lambda: cheb.vectorized_eval_multi(QUERY_POINT,
+                                                        GREEKS))
+    return dict(row, deviation=float((np.abs(got - ref) / scale).max()),
+                ceiling=HOST_C_VS_NUMPY_SPECS,
+                against=f"the NumPy host path at the point and the "
+                        f"{PROTOCOL_POINTS} protocol points, each of the 6 "
+                        f"specs over its max |value| at {b.w.check:,} "
+                        f"points (seed 7)", specs=len(GREEKS))
+
+
+def to_tt_host_query(b, s):
+    """Config 1's single query on ``to_tt(1e-13)``, the C TT kernel."""
+    cheb = div_dense(b, s)
+    comp = cheb.to_tt(tolerance=1e-13)
+    if comp._host_cpack() is None:
+        raise RuntimeError("the C TT kernel declined the cores")
+    pts = query_points(b)
+    got = np.array([comp.eval(p) for p in pts])
+    ref = np.array([cheb.vectorized_eval(p, [0] * 5) for p in pts])
+    row = b.host_row(lambda: comp.eval(QUERY_POINT))
+    return dict(row, deviation=dev(got, ref), ceiling=TO_TT,
+                against="the dense C path (bs5d_11n_host_query_us) at the "
+                        "point and the protocol points",
+                ranks=comp.tt_ranks,
+                core_bytes=int(sum(c.nbytes for c in comp._coeff_cores)))
+
+
+def tt_host_query(b, s):
+    """Config 2's single query on the rank-15 cross, the C TT kernel,
+    and its finite-difference Greeks (run_baseline_table.py:375-388)."""
+    tt = tt_cross(b, s)
+    if tt._host_cpack() is None:
+        raise RuntimeError("the C TT kernel declined the cores")
+    pts = query_points(b)
+    got = np.array([tt.eval(p) for p in pts])
+    chain = tt_eval.tt_eval_batch(tt._cores_on_device(torch.float64),
+                                  np.asarray(tt.domain), b.on(pts))
+    row = b.host_row(lambda: tt.eval(QUERY_POINT))
+    rng = np.random.default_rng(42 + b.seed)
+    pts50 = np.stack([rng.uniform(lo, hi, 50) for lo, hi in TT_DOMAIN],
+                     axis=1)
+    sub = pts50[np.abs(bs_div_np(pts50)) >= 0.50][:25]
+    greeks = bs_div_greeks_np(sub)
+    fd = {}
+    for name, spec in (("delta", [1, 0, 0, 0, 0]),
+                       ("gamma", [2, 0, 0, 0, 0])):
+        got_fd = np.array([tt.eval_multi(list(p), [spec])[0] for p in sub])
+        fd[f"fd_{name}_err_avg_pct"] = float(
+            (np.abs(got_fd - greeks[name]) / np.abs(greeks[name])).mean()
+            * 100)
+    return dict(row, deviation=dev(got, chain), ceiling=F64,
+                against="the f64 chain on the device at the point and the "
+                        "protocol points", fd_points=len(sub), **fd)
+
+
+def spline_model(b, s):
+    """Config 3: two pieces of 17^2 split at the kink x0 = 1."""
+    if "spline" not in s:
+        spline = ChebyshevSpline(payoff_np, 2, SPLINE_DOMAIN, SPLINE_NODES,
+                                 SPLINE_KNOTS, vectorized=True,
+                                 device=b.device)
+        spline.build(verbose=False)
+        s["spline"] = spline
+    return s["spline"]
+
+
+def spline_build(b, s):
+    seconds = b.build_s(lambda: spline_model(b, s))
+    spline = s["spline"]
+    pts = sample_points(4000, 0 + b.seed, SPLINE_DOMAIN,
+                        margin=SPLINE_MARGIN)
+    exact = payoff_np(pts)
+    plain = ChebyshevApproximation(payoff_np, 2, SPLINE_DOMAIN, SPLINE_NODES,
+                                   vectorized=True, device=b.device)
+    plain.build(verbose=False)
+    err_plain = float(np.abs(plain.vectorized_eval_batch(pts, [0, 0])
+                             - exact).max())
+    err_spline = float(np.abs(spline.eval_batch(pts, [0, 0]) - exact).max())
+    via = ChebyshevApproximation(payoff_np, 2, SPLINE_DOMAIN,
+                                 [SPLINE_NODES, SPLINE_NODES[:1]],
+                                 special_points=SPLINE_KNOTS,
+                                 vectorized=True, device=b.device)
+    if type(via) is not ChebyshevSpline:
+        raise TypeError(f"special_points dispatch gave {type(via).__name__}")
+    return one_sample(
+        seconds, n=spline.total_build_evals, deviation=err_spline,
+        ceiling=err_plain,
+        against="the exact payoff at 4,000 points (seed 0, margin 0.001), "
+                "max abs; held to the global 17^2 tensor's",
+        spline_max_abs=err_spline, global_max_abs=err_plain,
+        pieces=spline.num_pieces, dispatch=type(via).__name__)
+
+
+def spline_points(b, s):
+    """Config 3's queries: seed 5, margin 0.001 (:440)."""
+    if "sp64" not in s:
+        w = b.w
+        host = b.batches(5, lambda rng: sample_points(
+            w.n, domain=SPLINE_DOMAIN, rng=rng, margin=SPLINE_MARGIN),
+            w.n * 2 * 8)
+        s["sp64"] = [b.on(h) for h in host]
+    return s["sp64"]
+
+
+def spline_f64(b, s):
+    spline = spline_model(b, s)
+    pts = spline_points(b, s)
+
+    def run(p):
+        return spline.eval_batch(p, [0, 0])
+
+    sub = pts[0][:b.w.check]
+    host = [spline.eval(p, [0, 0]) for p in _host(sub)]
+    return b.rate("spline2d_17n_f64_queries_per_sec", run, pts, b.w.n,
+                  "queries/s", deviation=dev(run(sub), host), ceiling=F64,
+                  against=f"the class host path (ChebyshevSpline.eval) at "
+                          f"{b.w.check:,} points")
+
+
+def spline_f32(b, s):
+    spline = spline_model(b, s)
+    pts = spline_points(b, s)
+    engine = BatchedEvaluator(spline, dtype=torch.float32, device=b.device)
+    ref = spline.eval_batch_device(pts[0], [0, 0])
+    return b.rate("spline2d_17n_f32_queries_per_sec", engine, pts, b.w.n,
+                  "queries/s", deviation=dev(engine(pts[0]), ref),
+                  ceiling=F32, against="the f64 class path "
+                                       "(eval_batch_device), first batch",
+                  route="masked" if engine._specs_run.masked else "routed",
+                  pieces=spline.num_pieces)
+
+
+def slider_model(b, s):
+    if "slider" not in s:
+        slider = new_slider(b)
+        slider.build(verbose=False)
+        s["slider"] = slider
+    return s["slider"]
+
+
+def slider_build(b, s):
+    seconds = b.build_s(lambda: slider_model(b, s))
+    slider = s["slider"]
+    pts = np.random.default_rng(0 + b.seed).uniform(-1, 1, (5000, SLIDER_D))
+    got = slider.eval_batch(pts)
+    exact_integral = 0.25 * SLIDER_D * (2.0 / 3.0) * 2.0 ** (SLIDER_D - 1)
+    n1 = ChebyshevApproximation.get_optimal_n1(auto_n_np, (-1.0, 1.0),
+                                               1e-10, device=b.device)
+    return one_sample(
+        seconds, n=slider.total_build_evals,
+        deviation=dev(got, additive_interpolant_np(pts, 9)), ceiling=F64,
+        against="the slides' additive interpolant computed on the host at "
+                "5,000 points (seed 0)",
+        max_abs_vs_basket=float(np.abs(got - basket_np(pts)).max()),
+        integral_rel_err=abs(slider.integrate() - exact_integral)
+        / exact_integral, optimal_n1=n1)
+
+
+def slider_points(b, s):
+    """Config 4's queries: seed 5, 2 % margin (:507)."""
+    if "sl64" not in s:
+        w = b.w
+        host = b.batches(5, lambda rng: sample_points(
+            w.n, domain=SLIDER_DOMAIN, rng=rng), w.n * SLIDER_D * 8)
+        s["sl64"] = [b.on(h) for h in host]
+    return s["sl64"]
+
+
+def slider_f32(b, s):
+    slider = slider_model(b, s)
+    pts64 = slider_points(b, s)
+    pts32 = [p.float() for p in pts64]
+    engine = BatchedEvaluator(slider, dtype=torch.float32, device=b.device)
+    return b.rate("slider10d_9n_f32_queries_per_sec", engine, pts32, b.w.n,
+                  "queries/s", deviation=dev(engine(pts32[0]),
+                                             slider.eval_batch_device(
+                                                 pts64[0])),
+                  ceiling=F32, against="the f64 class path "
+                                       "(eval_batch_device), first batch")
+
+
+def slider_dd(b, s):
+    slider = slider_model(b, s)
+    pts = slider_points(b, s)
+    data, groups = slider._slide_data(), slider._groups()
+
+    def run(p):
+        return slider_eval.slider_batch_dd(data, slider.pivot_value, groups,
+                                           p)
+
+    sub = pts[0][:b.w.check]
+    return b.rate("slider10d_9n_dd_queries_per_sec", run, pts, b.w.n,
+                  "queries/s",
+                  deviation=dev(run(sub), slider.eval_batch(sub)),
+                  ceiling=DD, against=f"the f64 class path "
+                                      f"(ChebyshevSlider.eval_batch) at "
+                                      f"{b.w.check:,} points")
+
+
+def slider_f64(b, s):
+    slider = slider_model(b, s)
+    pts = slider_points(b, s)
+    engine = BatchedEvaluator(slider, dtype=torch.float64, device=b.device)
+    sub = pts[0][:b.w.check]
+    return b.rate("slider10d_9n_f64_queries_per_sec", engine, pts, b.w.n,
+                  "queries/s",
+                  deviation=dev(engine(sub), slider.eval_batch(sub)),
+                  ceiling=F64, against=f"the class path "
+                                       f"(ChebyshevSlider.eval_batch) at "
+                                       f"{b.w.check:,} points")
+
+
+def new_instrument(b, fn, seed):
+    """One of config 5's instruments by rank-adaptive TT-ALS."""
+    tt = ChebyshevTT(fn, 4, PORTFOLIO_DOMAIN, [9] * 4, max_rank=8,
+                     tolerance=1e-8, vectorized=True, device=b.device)
+    tt.build(verbose=False, method="als", seed=seed + b.seed)
+    return tt
+
+
+def instruments(b, s):
+    if "tta" not in s:
+        s["tta"] = new_instrument(b, instrument_a_np, 0)
+        s["ttb"] = new_instrument(b, instrument_b_np, 1)
+    return s["tta"], s["ttb"]
+
+
+def portfolio_check(b, tta, ttb):
+    """2A + B as one TT, its points (seed 2, margin 0.05) and its
+    deviation from the closed form there."""
+    portfolio = tta * 2.0 + ttb
+    pts = sample_points(500, 2 + b.seed, PORTFOLIO_DOMAIN, margin=0.05)
+    exact = 2.0 * instrument_a_np(pts) + instrument_b_np(pts)
+    return portfolio, pts, dev(portfolio.eval_batch(pts), exact)
+
+
+def portfolio_build(b, s):
+    seconds = b.build_s(lambda: instruments(b, s))
+    tta, ttb = s["tta"], s["ttb"]
+    portfolio, pts, err = portfolio_check(b, tta, ttb)
+    before = portfolio.eval(PORTFOLIO_AT)
+    portfolio.orth_left(3)
+    portfolio.orth_right(0)
+    drift = abs(portfolio.eval(PORTFOLIO_AT) - before) / abs(before)
+    sliced = portfolio.slice((3, 0.03))
+    full3 = np.column_stack([pts[:100, :3], np.full(100, 0.03)])
+    err3 = dev(sliced.eval_batch(full3[:, :3]),
+               2.0 * instrument_a_np(full3) + instrument_b_np(full3))
+    return one_sample(
+        seconds, n=tta.total_build_evals + ttb.total_build_evals,
+        deviation=err, ceiling=PORTFOLIO_ERR,
+        against="2A + B against its closed form at 500 points (seed 2, "
+                "margin 0.05)",
+        ranks=[tta.tt_ranks, ttb.tt_ranks],
+        inner_product=tta.inner_product(ttb),
+        checks={"orth_sweep_drift_rel": [drift, F64],
+                "slice_r3pct_err": [err3, PORTFOLIO_ERR]})
+
+
+def portfolio_completion(b, s):
+    _, ttb = instruments(b, s)
+    tta = new_instrument(b, instrument_a_np, 0)
+    before = tta._coeff_cores[0].copy()
+    seconds = b.build_s(lambda: tta.run_completion(tolerance=1e-10,
+                                                   max_iter=5))
+    _, _, err = portfolio_check(b, tta, ttb)
+    return one_sample(
+        seconds, n=5, deviation=err, ceiling=PORTFOLIO_ERR,
+        against="2A + B against its closed form at 500 points after "
+                "run_completion(1e-10, 5 iterations) of a fresh A",
+        core0_moved=float(np.abs(tta._coeff_cores[0] - before).max()))
+
+
+# --- calculus (scripts/bench_integrate_batch.py, chip_smoke.py 25-31) -------
+
+
+def script_tt(b, s):
+    """bench_integrate_batch.py's TT (:117-128): the call without
+    dividend on the dense domain, a rank-capped cross, seed 42."""
+    if "tt_int" not in s:
+        tt = ChebyshevTT(bs_price_np, 5, DOMAIN, [b.w.nodes] * 5,
+                         max_rank=b.w.tt_rank, vectorized=True,
+                         device=b.device)
+        tt.build(verbose=False, seed=42 + b.seed)
+        s["tt_int"] = tt
+    return s["tt_int"]
+
+
+def per_call_integrals(model, boxes) -> np.ndarray:
+    """``integrate(bounds=...)`` one box at a time."""
+    return np.array([model.integrate(bounds=[tuple(k) for k in box])
+                     for box in _host(boxes)])
+
+
+def box_f64(b, s):
+    cheb = dense(b, s)
+    boxes, _ = box_batches(b, s)
+    dom = np.asarray(DOMAIN)
+
+    def run(bx):
+        return integrate.integrate_box_batch(cheb.tensor_values, dom, bx)
+
+    d = dev(run(boxes[0][:8]), per_call_integrals(cheb, boxes[0][:8]))
+    row = b.rate("bs5d_11n_f64_box_integrals_per_sec", run, boxes,
+                 b.w.boxes, "boxes/s", deviation=d, ceiling=F64,
+                 against="cheb.integrate(bounds=...) one call a box, 8 "
+                         "boxes of the first batch")
+    # The per-call loop a user would otherwise write (:110-116): 50
+    # calls on the host clock.
+    one = [tuple(k) for k in _host(boxes[0][0])]
+    for _ in range(WARMUP):
+        cheb.integrate(bounds=one)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        cheb.integrate(bounds=one)
+    row["per_call_boxes_per_sec"] = 50 / (time.perf_counter() - t0)
+    return row
+
+
+def box_f32(b, s):
+    cheb = dense(b, s)
+    boxes, _ = box_batches(b, s)
+    boxes32 = [bx.float() for bx in boxes]
+    dom = np.asarray(DOMAIN)
+
+    def run(bx):
+        return integrate.integrate_box_batch(cheb.tensor_values, dom, bx,
+                                             dtype=torch.float32)
+
+    ref = integrate.integrate_box_batch(cheb.tensor_values, dom, boxes[0])
+    return b.rate("bs5d_11n_f32_box_integrals_per_sec", run, boxes32,
+                  b.w.boxes, "boxes/s", deviation=dev(run(boxes32[0]), ref),
+                  ceiling=F32, against="the f64 box integrals, first batch")
+
+
+def box_dd(b, s):
+    cheb = dense(b, s)
+    boxes, _ = box_batches(b, s)
+    dom = np.asarray(DOMAIN)
+
+    def run(bx):
+        return integrate.integrate_box_batch_dd(cheb.tensor_values, dom, bx)
+
+    ref = integrate.integrate_box_batch(cheb.tensor_values, dom, boxes[0])
+    return b.rate("bs5d_11n_dd_box_integrals_per_sec", run, boxes,
+                  b.w.boxes, "boxes/s", deviation=dev(run(boxes[0]), ref),
+                  ceiling=DD, against="the f64 box integrals, first batch")
+
+
+def tt_box_f64(b, s):
+    tt = script_tt(b, s)
+    boxes, _ = box_batches(b, s)
+    cores = tt._cores_on_device(torch.float64)
+    dom = np.asarray(tt.domain)
+
+    def run(bx):
+        return integrate.tt_integrate_box_batch(cores, dom, bx)
+
+    got = _host(run(boxes[0][:8]))
+    dense_per_call = per_call_integrals(dense(b, s), boxes[0][:8])
+    return b.rate("bs5d_tt11_r15_f64_box_integrals_per_sec", run, boxes,
+                  b.w.boxes, "boxes/s",
+                  deviation=dev(got, per_call_integrals(tt, boxes[0][:8])),
+                  ceiling=F64, against="the same TT's integrate(bounds=...) "
+                                       "one call a box, 8 boxes",
+                  ranks=tt.tt_ranks,
+                  vs_dense_per_call=float(
+                      np.abs(got - dense_per_call).max()
+                      / max(1.0, np.abs(dense_per_call).max())))
+
+
+def cond_f64(b, s):
+    _, cond = box_batches(b, s)
+    cheb, grid = dense(b, s), s["grid"]
+    dom = np.asarray(DOMAIN, dtype=np.float64)
+
+    def run(c):
+        return integrate.partial_integrate_eval_batch(
+            cheb.tensor_values, dom, *grid, (0, 2), c[0], c[1])
+
+    host_t = _host(cheb.tensor_values)
+    nodes = [_host(x) for x in cheb.nodes]
+    sub, pts = (c[:SINGLE_CHECKS] for c in cond[0])
+    bx, px = _host(sub), _host(pts)
+    n = b.w.nodes
+    ref = [contract_np(host_t, [quad_row_np(n, *DOMAIN[0], *bx[i, 0]),
+                                bary_row_np(px[i, 0], nodes[1]),
+                                quad_row_np(n, *DOMAIN[2], *bx[i, 1]),
+                                bary_row_np(px[i, 1], nodes[3]),
+                                bary_row_np(px[i, 2], nodes[4])])
+           for i in range(len(bx))]
+    return b.rate("bs5d_11n_f64_cond_exp_scenarios_per_sec", run, cond,
+                  b.w.boxes, "scenarios/s",
+                  deviation=dev(run((sub, pts)), ref), ceiling=F64,
+                  against=f"NumPy quadrature and barycentric rows "
+                          f"contracted on the host, {SINGLE_CHECKS} "
+                          f"scenarios of the first batch")
+
+
+def tt_cond_dd(b, s):
+    tt = script_tt(b, s)
+    _, cond = box_batches(b, s)
+    cores = tt._cores_on_device(torch.float64)
+    dom = np.asarray(tt.domain)
+
+    def run(c):
+        return integrate.tt_partial_integrate_eval_batch_dd(
+            cores, dom, (0, 2), c[0], c[1], groups="auto")
+
+    ref = integrate.tt_partial_integrate_eval_batch(cores, dom, (0, 2),
+                                                    *cond[0])
+    return b.rate("bs5d_tt11_r15_dd_cond_exp_scenarios_per_sec", run, cond,
+                  b.w.boxes, "scenarios/s", deviation=dev(run(cond[0]), ref),
+                  ceiling=DD, against="the TT f64 conditional expectations "
+                                      "(tt_partial_integrate_eval_batch), "
+                                      "first batch", ranks=tt.tt_ranks)
+
+
+def book_integrals(b, s):
+    cheb = dense(b, s)
+    box_batches(b, s)
+    boxes = s["boxes_np"]
+    book = [cheb] + [cheb.differentiate(list(g)) for g in GREEKS[1:]]
+
+    def run(bx):
+        return integrate_book(book, bx)
+
+    got = run(boxes[0])
+    d = max(dev(got[k], m.integrate_batch(boxes[0]))
+            for k, m in enumerate(book))
+    return b.rate("bs5d_11n_integrate_book_boxes_per_sec", run, boxes,
+                  b.w.boxes, "boxes/s", deviation=d, ceiling=F64,
+                  against="each model's integrate_batch on the first batch, "
+                          "on its own scale", models=len(book))
+
+
+def scenario_batches(b, s):
+    """(K, T, sigma, r) scenarios along S (chip_smoke.py phase 31,
+    seed 72), as the host columns ``fixed`` takes."""
+    if "scen" not in s:
+        ns = b.w.scenarios
+        host = b.batches(72, lambda rng: sample_points(ns, rng=rng),
+                         ns * 4 * 8)
+        s["scen"] = [{d: np.ascontiguousarray(h[:, d]) for d in range(1, 5)}
+                     for h in host]
+    return s["scen"]
+
+
+def pinned(fixed, i) -> dict:
+    return {d: float(col[i]) for d, col in fixed.items()}
+
+
+def scenario_roots(b, s):
+    """Breakevens of Delta = 0.5 along S."""
+    cheb = dense(b, s)
+    scen = scenario_batches(b, s)
+    delta = cheb.differentiate([1, 0, 0, 0, 0])
+    half = ChebyshevApproximation.from_values(
+        _host(delta.tensor_values) - 0.5, 5, DOMAIN, [b.w.nodes] * 5,
+        device=b.device)
+
+    def run(fixed):
+        return half.roots_batch(dim=0, fixed=fixed)
+
+    roots = run(scen[0])
+    worst = 0.0
+    for i in range(SINGLE_CHECKS):
+        single = half.roots(dim=0, fixed=pinned(scen[0], i))
+        if single.shape != roots[i].shape:
+            raise ValueError(f"scenario {i}: {roots[i].size} batched roots "
+                             f"against {single.size} single ones")
+        if single.size:
+            worst = max(worst, float(np.abs(single - roots[i]).max()))
+    return b.rate("bs5d_11n_scenario_roots_per_sec", run, scen,
+                  b.w.scenarios, "scenarios/s", deviation=worst,
+                  ceiling=ROOTS_VS_SINGLE,
+                  against=f"single roots(dim=0) on {SINGLE_CHECKS} "
+                          f"scenarios, absolute in S, equal counts",
+                  roots_found=int(sum(r.size for r in roots)))
+
+
+def scenario_minima(b, s):
+    """Gamma's minimum along S."""
+    gamma = dense(b, s).differentiate([2, 0, 0, 0, 0])
+    scen = scenario_batches(b, s)
+
+    def run(fixed):
+        return gamma.minimize_batch(dim=0, fixed=fixed)
+
+    values, locations = run(scen[0])
+    scale = float(gamma.tensor_values.abs().max())
+    loc_err = val_err = 0.0
+    for i in range(SINGLE_CHECKS):
+        val, loc = gamma.minimize(dim=0, fixed=pinned(scen[0], i))
+        loc_err = max(loc_err, abs(loc - locations[i]))
+        val_err = max(val_err, abs(val - values[i]) / scale)
+    return b.rate("bs5d_11n_scenario_minima_per_sec", run, scen,
+                  b.w.scenarios, "scenarios/s", deviation=float(loc_err),
+                  ceiling=LOCATION_VS_SINGLE,
+                  against=f"single minimize(dim=0) on {SINGLE_CHECKS} "
+                          f"scenarios: locations absolute in S; values "
+                          f"over Gamma's max |value| on the grid (checks)",
+                  checks={"value_vs_single": [float(val_err), F64]})
+
+
 ROWS = (
     ("bs5d_11n_build_cold_s", build_cold),
     ("bs5d_11n_build_warm_s", build_warm),
@@ -778,7 +1619,31 @@ ROWS = (
     ("slider10d_9n_dd_greek_report_sets_per_sec", slider_dd_report),
     ("bs5d_11n_f64_queries_per_sec", f64_dense),
     ("bs5d_tt_r15_f64_queries_per_sec", tt_f64),
+    ("bs5d_11n_host_query_us", host_query),
+    ("bs5d_11n_host_price_greeks_us", host_price_greeks),
+    ("bs5d_11n_to_tt_host_query_us", to_tt_host_query),
+    ("bs5d_tt_r15_host_query_us", tt_host_query),
+    ("spline2d_17n_build_s", spline_build),
+    ("spline2d_17n_f64_queries_per_sec", spline_f64),
+    ("spline2d_17n_f32_queries_per_sec", spline_f32),
+    ("slider10d_9n_build_s", slider_build),
+    ("slider10d_9n_f32_queries_per_sec", slider_f32),
+    ("slider10d_9n_dd_queries_per_sec", slider_dd),
+    ("slider10d_9n_f64_queries_per_sec", slider_f64),
+    ("portfolio4d_tt_als_build_s", portfolio_build),
+    ("portfolio4d_run_completion_s", portfolio_completion),
+    ("bs5d_11n_f64_box_integrals_per_sec", box_f64),
+    ("bs5d_11n_f32_box_integrals_per_sec", box_f32),
+    ("bs5d_11n_dd_box_integrals_per_sec", box_dd),
+    ("bs5d_tt11_r15_f64_box_integrals_per_sec", tt_box_f64),
+    ("bs5d_11n_f64_cond_exp_scenarios_per_sec", cond_f64),
+    ("bs5d_tt11_r15_dd_cond_exp_scenarios_per_sec", tt_cond_dd),
+    ("bs5d_11n_integrate_book_boxes_per_sec", book_integrals),
+    ("bs5d_11n_scenario_roots_per_sec", scenario_roots),
+    ("bs5d_11n_scenario_minima_per_sec", scenario_minima),
 )
+#: Rows that time the host through the C kernels (``utils.ceval``).
+HOST_ROWS = {base for base, _ in ROWS if "_host_" in base}
 KERNEL_ROWS = {"bs5d_11n_f32_batched_queries_per_sec": "K1",
                "bs5d_11n_dd_queries_per_sec": "K3"}
 
@@ -801,13 +1666,38 @@ def _card(device: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def passed(rows) -> bool:
-    return (len(rows) == len(ROWS)
+def select(names=None) -> tuple:
+    """The rows whose names start with one of ``names`` (every row when
+    None), in ``ROWS`` order; a name that selects nothing is refused."""
+    if names is None:
+        return ROWS
+    unknown = [n for n in names
+               if not any(base.startswith(n) for base, _ in ROWS)]
+    if unknown or not names:
+        raise SystemExit(f"bench_torch: --rows {','.join(unknown)!r} names "
+                         f"no row")
+    return tuple((base, fn) for base, fn in ROWS
+                 if any(base.startswith(n) for n in names))
+
+
+def passed(rows, count=len(ROWS)) -> bool:
+    return (len(rows) == count
             and all(r.get("ok") is True for r in rows))
 
 
-def main(device="cuda", small=False, reps=40, seed=0) -> list[dict]:
-    """Run every row; print the lines; return the metric lines."""
+def held(row) -> bool:
+    """The row's deviation within its ceiling, and each of its checks
+    within its limit."""
+    return bool(row["deviation"] <= row["ceiling"]
+                and all(v <= lim for v, lim in row.get("checks",
+                                                       {}).values()))
+
+
+def main(device="cuda", small=False, reps=40, seed=0,
+         rows=None) -> list[dict]:
+    """Run the rows ``rows`` selects (``select``; every row by
+    default); print the lines; return the metric lines."""
+    selected = select(rows)
     card = _card(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -819,7 +1709,7 @@ def main(device="cuda", small=False, reps=40, seed=0) -> list[dict]:
                         else "cpu"),
         "device_count": torch.cuda.device_count() if b.cuda else 0,
         "torch": torch.__version__, "cuda": torch.version.cuda,
-        "seed": seed, "reps": reps, "small": small,
+        "seed": seed, "reps": reps, "small": small, "host_cpu": b.cpu,
         "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "float32_matmul_precision": torch.get_float32_matmul_precision()})
@@ -833,8 +1723,14 @@ def main(device="cuda", small=False, reps=40, seed=0) -> list[dict]:
         except Exception as e:   # the K1 and K3 rows then fail
             line.update(ok=False, error=f"{type(e).__name__}: {e}")
         b.emit(dict(line, seconds=time.perf_counter() - t0))
+    if any(base in HOST_ROWS for base, _ in selected):
+        # The host rows' C library compiles at first use: set-up time.
+        t0 = time.perf_counter()
+        b.emit({"setup": "host C compiler build of cpp/hosteval.c "
+                         "(utils.ceval)", "ok": ceval.available(),
+                "seconds": time.perf_counter() - t0})
     s = {}
-    for base, row_fn in ROWS:
+    for base, row_fn in selected:
         metric = b.name(base)
         t0 = time.perf_counter()
         try:
@@ -842,7 +1738,7 @@ def main(device="cuda", small=False, reps=40, seed=0) -> list[dict]:
             # the row's whole wall time: inputs, checks, timed calls
             row = {"metric": metric, **row, "device": card,
                    "row_s": time.perf_counter() - t0}
-            row["ok"] = bool(row["deviation"] <= row["ceiling"])
+            row["ok"] = held(row)
             if b.cuda and base in KERNEL_ROWS and not row["launches"] > 0:
                 row["ok"] = False
                 row["error"] = f"{KERNEL_ROWS[base]} was never launched"
@@ -855,9 +1751,10 @@ def main(device="cuda", small=False, reps=40, seed=0) -> list[dict]:
         if not row["ok"]:
             log(f"{metric}: FAILED "
                 + (row.get("error") or f"deviation {row['deviation']:.3e} "
-                                       f"> {row['ceiling']:g}"))
+                                       f"(ceiling {row['ceiling']:g}), "
+                                       f"checks {row.get('checks', {})}"))
     b.busy_shares()
-    b.emit({"ok": passed(b.rows), "rows": len(b.rows),
+    b.emit({"ok": passed(b.rows, len(selected)), "rows": len(b.rows),
             "failed": [r["metric"] for r in b.rows if not r["ok"]]})
     return b.rows
 
@@ -869,9 +1766,13 @@ def cli(argv=None) -> int:
                         help="the rehearsal widths (9 nodes, 4,096 points)")
     parser.add_argument("--reps", type=int, default=40)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--rows", type=lambda v: v.split(","),
+                        metavar="NAME[,NAME...]",
+                        help="run only the rows whose names start with one "
+                             "of these (default: every row)")
     args = parser.parse_args(argv)
-    rows = main(args.device, args.small, args.reps, args.seed)
-    return 0 if passed(rows) else 1
+    rows = main(args.device, args.small, args.reps, args.seed, args.rows)
+    return 0 if passed(rows, len(select(args.rows))) else 1
 
 
 if __name__ == "__main__":

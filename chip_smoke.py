@@ -2810,10 +2810,12 @@ def bench_rows(card: str):
     check(lines[-1] == {"ok": True, "rows": len(bench_torch.ROWS),
                         "failed": []}, f"bench_torch last line {lines[-1]}")
     busy = sum(1 for line in lines if "busy_share" in line)
+    hosts = {row["host_cpu"] for row in rows if "host_cpu" in row}
     print(f"[57 bench_torch] {len(rows)} rows at full widths, "
           f"{BENCH_REPS} timed calls each, every line parsed, every row "
           f"within its ceiling, {busy} busy-share lines; K1 {k1} K3 {k3} "
-          f"launches; {seconds:.1f} s | {card}", flush=True)
+          f"launches; host rows on {', '.join(sorted(hosts))}; "
+          f"{seconds:.1f} s | {card}", flush=True)
     return k1, k3
 
 

@@ -5,9 +5,12 @@ key, every ceiling, and the last line.  (b) The CPU accuracy gate of
 ``scripts/perf_gate.py --cpu`` (``gate_cpu``) on the port, at the gate's
 own inputs and ceilings.  (c) The same inputs through the JAX package:
 the calls the rows make, held to the JAX package's f64 calls (its dd
-paths are not the yardstick; ROADMAP.md queue 3), and the rank-15
-cross's ranks and evaluation count.  (d) No card: ``main`` and the
-command line refuse, naming the cause.
+paths are not the yardstick; ROADMAP.md queue 3), the rank-15 cross's
+ranks and evaluation count, and config 5's TT-ALS builds (bitwise the
+JAX package's).  The host rows' C and NumPy single-point values are
+bitwise the JAX package's (the same C source, the same NumPy steps).
+(d) No card: ``main`` and the command line refuse, naming the cause.
+(e) ``--rows``: a prefix runs exactly its rows.
 """
 
 import contextlib
@@ -25,13 +28,17 @@ from threadpoolctl import threadpool_limits
 
 from pychebyshev_tpu import ChebyshevApproximation as JaxApproximation
 from pychebyshev_tpu import ChebyshevSlider as JaxSlider
+from pychebyshev_tpu import ChebyshevSpline as JaxSpline
 from pychebyshev_tpu import ChebyshevTT as JaxTT
 from pychebyshev_tpu.ops import eval as jax_eval
 from pychebyshev_tpu.ops import integrate as jax_integrate
 from pychebyshev_tpu.ops.tt_eval import tt_eval_batch as jax_tt_eval_batch
+from pychebyshev_tpu.serving import integrate_book as jax_integrate_book
 from pychebyshev_tpu_torch import (
+    BatchedEvaluator,
     ChebyshevApproximation,
     ChebyshevSlider,
+    ChebyshevSpline,
     ChebyshevTT,
 )
 from pychebyshev_tpu_torch.ops import eval as eval_ops
@@ -55,6 +62,22 @@ if not hasattr(bench, "main"):
 KEYS = {"metric", "value", "unit", "n", "median_ms", "p75_ms", "samples",
         "deviation", "ceiling", "against", "device", "ok"}
 BASES = [base for base, _ in bench.ROWS]
+#: The rows of bench.py, then the baseline table's and the calculus ones.
+NEW_BASES = [
+    "bs5d_11n_host_query_us", "bs5d_11n_host_price_greeks_us",
+    "bs5d_11n_to_tt_host_query_us", "bs5d_tt_r15_host_query_us",
+    "spline2d_17n_build_s", "spline2d_17n_f64_queries_per_sec",
+    "spline2d_17n_f32_queries_per_sec", "slider10d_9n_build_s",
+    "slider10d_9n_f32_queries_per_sec", "slider10d_9n_dd_queries_per_sec",
+    "slider10d_9n_f64_queries_per_sec", "portfolio4d_tt_als_build_s",
+    "portfolio4d_run_completion_s", "bs5d_11n_f64_box_integrals_per_sec",
+    "bs5d_11n_f32_box_integrals_per_sec",
+    "bs5d_11n_dd_box_integrals_per_sec",
+    "bs5d_tt11_r15_f64_box_integrals_per_sec",
+    "bs5d_11n_f64_cond_exp_scenarios_per_sec",
+    "bs5d_tt11_r15_dd_cond_exp_scenarios_per_sec",
+    "bs5d_11n_integrate_book_boxes_per_sec",
+    "bs5d_11n_scenario_roots_per_sec", "bs5d_11n_scenario_minima_per_sec"]
 
 
 def dev(a, ref, floor=0.0) -> float:
@@ -102,6 +125,51 @@ def test_every_row_is_there_with_every_key(rehearsal):
     assert headline["vs_baseline"] == pytest.approx(
         headline["value"] * bench.BASELINE_SINGLE_QUERY_S)
     assert "CPU" in headline["baseline"]
+    assert BASES[:19] + NEW_BASES == BASES and len(BASES) == 41
+
+
+def test_host_rows_time_the_host_and_name_its_cpu(rehearsal):
+    rows, lines = rehearsal
+    assert bench.HOST_ROWS == {b for b in NEW_BASES if "_host_" in b}
+    setup = [line for line in lines if "setup" in line]
+    assert [line["ok"] for line in setup] == [True]
+    assert "hosteval.c" in setup[0]["setup"]
+    for base in bench.HOST_ROWS:
+        row = rows[BASES.index(base)]
+        assert row["unit"] == "us" and row["n"] == 1
+        assert row["calls"] >= bench.HOST_CALLS
+        assert row["host_cpu"] == lines[0]["host_cpu"] == bench.host_cpu()
+        assert row["value"] == pytest.approx(row["median_ms"] * 1e3)
+    query = rows[BASES.index("bs5d_11n_host_query_us")]
+    assert query["point"] == bench.QUERY_POINT
+    assert {"price_err_mean_pct", "price_err_max_pct", "delta_err_max_pct",
+            "gamma_err_max_pct", "vega_err_max_pct", "rho_err_max_pct",
+            "theta_err_max_pct"} <= query.keys()
+    tt = rows[BASES.index("bs5d_tt_r15_host_query_us")]
+    assert tt["fd_points"] == 25
+    assert tt["fd_delta_err_avg_pct"] < 1.0 and tt["fd_gamma_err_avg_pct"] < 5
+
+
+def test_config_and_calculus_rows_report_their_fields(rehearsal):
+    rows = dict(zip(BASES, rehearsal[0]))
+    spline = rows["spline2d_17n_build_s"]
+    assert spline["dispatch"] == "ChebyshevSpline" and spline["pieces"] == 2
+    # the kink costs the global 17^2 tensor ~1e-2; the spline is exact
+    assert spline["spline_max_abs"] <= 1e-12 < 1e-3 < spline["global_max_abs"]
+    # two pieces, within MASKED_MAX_PIECES: the f32 engine masks
+    assert rows["spline2d_17n_f32_queries_per_sec"]["route"] == "masked"
+    slider = rows["slider10d_9n_build_s"]
+    assert slider["n"] == 90 and slider["optimal_n1"] == 24
+    assert slider["integral_rel_err"] <= 1e-12
+    portfolio = rows["portfolio4d_tt_als_build_s"]
+    assert portfolio["checks"]["orth_sweep_drift_rel"][1] == bench.F64
+    assert rows["portfolio4d_run_completion_s"]["core0_moved"] >= 0.0
+    assert rows["bs5d_11n_f64_box_integrals_per_sec"][
+        "per_call_boxes_per_sec"] > 0
+    assert rows["bs5d_11n_integrate_book_boxes_per_sec"]["models"] == 6
+    assert rows["bs5d_11n_scenario_roots_per_sec"]["roots_found"] > 0
+    assert rows["bs5d_11n_scenario_minima_per_sec"]["checks"][
+        "value_vs_single"][0] <= bench.F64
 
 
 @pytest.mark.parametrize("base", BASES)
@@ -118,7 +186,8 @@ def test_header_busy_lines_and_last_line(rehearsal):
     assert header["allow_tf32"] is False
     assert header["float32_matmul_precision"] == "highest"
     busy = [line for line in lines if "busy_share" in line]
-    timed = [r["metric"] for r in rows if not r["metric"].endswith("_s")]
+    # the device rates; the builds and the host rows are not traced
+    timed = [r["metric"] for r in rows if r["unit"].endswith("/s")]
     kernel_rows = [f"rehearsal.{base}" for base in bench.KERNEL_ROWS]
     # the kernel rows are traced first, then the rest in the rows' order
     assert [line["of"] for line in busy] == kernel_rows + [
@@ -365,31 +434,297 @@ def _rows(inputs, jax_models, port_models):
     }
 
 
+@contextlib.contextmanager
+def numpy_host_path(model):
+    """A dense model's NumPy single-point path, in either package: its C
+    pack set aside for the block."""
+    h = model._host_arrays()
+    pack = h.get("cpack", "absent")
+    h["cpack"] = None
+    try:
+        yield
+    finally:
+        if pack == "absent":
+            h.pop("cpack", None)
+        else:
+            h["cpack"] = pack
+
+
+@pytest.fixture(scope="module")
+def baseline_models():
+    """Both packages' models of the new rows at rehearsal widths (the
+    baseline table's config 1 at 9^5, config 3's spline, config 5's
+    instruments, A again after ``run_completion``, and
+    bench_integrate_batch.py's rank-capped cross at 9^5), as (JAX
+    package's, port's) pairs."""
+    w = bench.SMALL
+
+    def instrument(fn, seed, complete=False):
+        def build(m):
+            m.build(verbose=False, method="als", seed=seed)
+            if complete:
+                m.run_completion(tolerance=1e-10, max_iter=5)
+
+        return _pair(lambda cls, **kw: cls(
+            fn, 4, bench.PORTFOLIO_DOMAIN, [9] * 4, max_rank=8,
+            tolerance=1e-8, vectorized=True, **kw), build, JaxTT,
+            ChebyshevTT)
+
+    with one_thread():
+        return {
+            "div": _pair(lambda cls, **kw: cls(
+                bench.bs_div_np, 5, bench.TT_DOMAIN, [w.nodes] * 5,
+                vectorized=True, **kw), lambda m: m.build(verbose=False)),
+            "spline": _pair(lambda cls, **kw: cls(
+                bench.payoff_np, 2, bench.SPLINE_DOMAIN, bench.SPLINE_NODES,
+                bench.SPLINE_KNOTS, vectorized=True, **kw),
+                lambda m: m.build(verbose=False), JaxSpline, ChebyshevSpline),
+            "tta": instrument(bench.instrument_a_np, 0),
+            "ttb": instrument(bench.instrument_b_np, 1),
+            "tta_completed": instrument(bench.instrument_a_np, 0, True),
+            "script_tt": _pair(lambda cls, **kw: cls(
+                bench.bs_price_np, 5, bench.DOMAIN, [w.nodes] * 5,
+                max_rank=w.tt_rank, vectorized=True, **kw),
+                lambda m: m.build(verbose=False, seed=42), JaxTT,
+                ChebyshevTT),
+        }
+
+
+def _pair(make, build, jax_cls=JaxApproximation,
+          port_cls=ChebyshevApproximation):
+    ref, port = make(jax_cls), make(port_cls, device="cpu")
+    build(ref)
+    build(port)
+    return ref, port
+
+
+def _new_rows(inputs, jax_models, port_models, models):
+    """name -> (the port's call as a new row makes it, the JAX package's
+    call, ceiling[, absolute]), lazily.  Relative (scale-normalized) by
+    default; absolute where a row holds an absolute error."""
+    pts, bxs, sub, ppts = inputs
+    jcheb, jtt, jslider = jax_models
+    cheb, _, tt, slider = port_models
+    jdiv, div = models["div"]
+    jspline, spline = models["spline"]
+    jstt, stt = models["script_tt"]
+    query = np.vstack([bench.QUERY_POINT, bench.protocol_points(42)])
+    dom = np.asarray(GATE_DOMAIN)
+    few = bxs[:8]
+    sp_pts = bench.sample_points(2048, 5, bench.SPLINE_DOMAIN,
+                                 margin=bench.SPLINE_MARGIN)
+    sl_pts = bench.sample_points(2048, 5, bench.SLIDER_DOMAIN)
+    book = [cheb] + [cheb.differentiate(list(g)) for g in bench.GREEKS[1:]]
+    jbook = [jcheb] + [jcheb.differentiate(list(g))
+                       for g in bench.GREEKS[1:]]
+    scen = bench.sample_points(bench.SMALL.scenarios, 72)
+    fixed = {d: scen[:, d] for d in range(1, 5)}
+    half = ChebyshevApproximation.from_values(
+        cheb.differentiate([1, 0, 0, 0, 0]).tensor_values.numpy() - 0.5, 5,
+        GATE_DOMAIN, [11] * 5, device="cpu")
+    jhalf = JaxApproximation.from_values(
+        np.asarray(jcheb.differentiate([1, 0, 0, 0, 0]).tensor_values)
+        - 0.5, 5, GATE_DOMAIN, [11] * 5)
+    gamma = cheb.differentiate([2, 0, 0, 0, 0])
+    jgamma = jcheb.differentiate([2, 0, 0, 0, 0])
+    g_scale = float(gamma.tensor_values.abs().max())
+
+    def on(models, fn):
+        return [fn(m, p) for m in models for p in query]
+
+    def host_numpy(model, method, *args):
+        with numpy_host_path(model):
+            return [getattr(model, method)(p, *args) for p in query]
+
+    def tt_fd(model):
+        return [model.eval_multi(list(p), [s])[0] for p in query[:25]
+                for s in ([1, 0, 0, 0, 0], [2, 0, 0, 0, 0])]
+
+    def portfolio(a, k):
+        """2A + B at config 5's 500 points, A from pair ``a``."""
+        return (models[a][k] * 2.0 + models["ttb"][k]).eval_batch(
+            bench.sample_points(500, 2, bench.PORTFOLIO_DOMAIN, margin=0.05))
+
+    def minima(model, part):
+        return model.minimize_batch(dim=0, fixed=fixed)[part]
+
+    return {
+        "host C query": (
+            lambda: on([div], lambda m, p: m.vectorized_eval(p, [0] * 5)),
+            lambda: on([jdiv], lambda m, p: m.vectorized_eval(p, [0] * 5)),
+            0.0),
+        "host NumPy query": (
+            lambda: host_numpy(div, "vectorized_eval", [0] * 5),
+            lambda: host_numpy(jdiv, "vectorized_eval", [0] * 5), 0.0),
+        "host C price + 5 Greeks": (
+            lambda: on([div], lambda m, p: m.vectorized_eval_multi(
+                p, bench.GREEKS)),
+            lambda: on([jdiv], lambda m, p: m.vectorized_eval_multi(
+                p, bench.GREEKS)), 0.0),
+        "host NumPy price + 5 Greeks": (
+            lambda: host_numpy(div, "vectorized_eval_multi", bench.GREEKS),
+            lambda: host_numpy(jdiv, "vectorized_eval_multi",
+                               bench.GREEKS), 0.0),
+        "host C to_tt(1e-13) query": (
+            lambda: on([div.to_tt(tolerance=1e-13)],
+                       lambda m, p: m.eval(p)),
+            lambda: on([jdiv.to_tt(tolerance=1e-13)],
+                       lambda m, p: m.eval(p)), 0.0),
+        "host C TT query": (lambda: on([tt], lambda m, p: m.eval(p)),
+                            lambda: on([jtt], lambda m, p: m.eval(p)), 0.0),
+        "TT finite-difference Greeks": (lambda: tt_fd(tt),
+                                        lambda: tt_fd(jtt), 0.0),
+        "spline f64 class path": (
+            lambda: spline.eval_batch(sp_pts, [0, 0]),
+            lambda: jspline.eval_batch(sp_pts, [0, 0]), bench.F64),
+        "spline f32 engine": (
+            lambda: BatchedEvaluator(spline, dtype=torch.float32,
+                                     device="cpu")(sp_pts),
+            lambda: jspline.eval_batch(sp_pts, [0, 0]), bench.F32),
+        "slider f32 engine": (
+            lambda: BatchedEvaluator(slider, dtype=torch.float32,
+                                     device="cpu")(sl_pts),
+            lambda: jslider.eval_batch(sl_pts), bench.F32),
+        "slider dd (native f64)": (
+            lambda: slider_eval.slider_batch_dd(
+                slider._slide_data(), slider.pivot_value, slider._groups(),
+                sl_pts), lambda: jslider.eval_batch(sl_pts), bench.F64),
+        "slider f64 engine": (
+            lambda: BatchedEvaluator(slider, dtype=torch.float64,
+                                     device="cpu")(sl_pts),
+            lambda: jslider.eval_batch(sl_pts), bench.F64),
+        "slider integrate()": (lambda: [slider.integrate()],
+                               lambda: [jslider.integrate()], bench.F64),
+        "get_optimal_n1": (
+            lambda: [ChebyshevApproximation.get_optimal_n1(
+                bench.auto_n_np, (-1.0, 1.0), 1e-10, device="cpu")],
+            lambda: [JaxApproximation.get_optimal_n1(
+                bench.auto_n_np, (-1.0, 1.0), 1e-10)], 0.0),
+        "portfolio 2A + B": (lambda: portfolio("tta", 1),
+                             lambda: portfolio("tta", 0), bench.F64),
+        "portfolio after run_completion": (
+            lambda: portfolio("tta_completed", 1),
+            lambda: portfolio("tta_completed", 0), bench.F64),
+        "dense f64 box integrals": (
+            lambda: integrate.integrate_box_batch(cheb.tensor_values, dom,
+                                                  bxs),
+            lambda: jax_integrate.integrate_box_batch(
+                jcheb.tensor_values, dom, jnp.asarray(bxs)), bench.F64),
+        "dense f32 box integrals": (
+            lambda: integrate.integrate_box_batch(
+                cheb.tensor_values, dom, torch.from_numpy(bxs).float(),
+                dtype=torch.float32),
+            lambda: jax_integrate.integrate_box_batch(
+                jcheb.tensor_values, dom, jnp.asarray(bxs)), bench.F32),
+        "dense dd box integrals (native f64)": (
+            lambda: integrate.integrate_box_batch_dd(cheb.tensor_values,
+                                                     dom, bxs),
+            lambda: jax_integrate.integrate_box_batch(
+                jcheb.tensor_values, dom, jnp.asarray(bxs)), bench.DD),
+        "per-call integrate(bounds=...)": (
+            lambda: bench.per_call_integrals(cheb, few),
+            lambda: jax_integrate.integrate_box_batch(
+                jcheb.tensor_values, dom, jnp.asarray(few)), bench.F64),
+        "TT f64 box integrals": (
+            lambda: integrate.tt_integrate_box_batch(
+                stt._cores_on_device(torch.float64), dom, bxs),
+            lambda: jax_integrate.tt_integrate_box_batch(
+                jstt._cores_on_device(np.float64), dom, jnp.asarray(bxs)),
+            bench.F64),
+        "dense f64 conditional expectations": (
+            lambda: integrate.partial_integrate_eval_batch(
+                cheb.tensor_values, dom, *cheb._grid_tuples(), (0, 2), sub,
+                ppts),
+            lambda: jax_integrate.partial_integrate_eval_batch(
+                jcheb.tensor_values, dom, *jcheb._grid_tuples(), (0, 2),
+                jnp.asarray(sub), jnp.asarray(ppts)), bench.F64),
+        "TT dd conditional expectations (native f64)": (
+            lambda: integrate.tt_partial_integrate_eval_batch_dd(
+                stt._cores_on_device(torch.float64), dom, (0, 2), sub, ppts,
+                groups="auto"),
+            lambda: jax_integrate.tt_partial_integrate_eval_batch(
+                jstt._cores_on_device(np.float64), dom, (0, 2),
+                jnp.asarray(sub), jnp.asarray(ppts)), bench.DD),
+        "integrate_book, price + 5 Greeks": (
+            lambda: bench.integrate_book(book, bxs),
+            lambda: jax_integrate_book(jbook, bxs), bench.F64),
+        "scenario roots along S": (
+            lambda: np.concatenate(half.roots_batch(dim=0, fixed=fixed)),
+            lambda: np.concatenate(jhalf.roots_batch(dim=0, fixed=fixed)),
+            bench.ROOTS_VS_SINGLE, True),
+        "scenario minima along S, locations": (
+            lambda: minima(gamma, 1), lambda: minima(jgamma, 1),
+            bench.LOCATION_VS_SINGLE, True),
+        # values over Gamma's max |value| on the grid, as the row holds
+        # them (chip_smoke.py phase 31's bound)
+        "scenario minima along S, values": (
+            lambda: minima(gamma, 0) / g_scale,
+            lambda: minima(jgamma, 0) / g_scale, bench.F64, True),
+    }
+
+
 ROW_CALLS = ["f32 plain", "f32 K1 route", "f64", "f64 Delta",
              "f64 price + 5 Greeks", "f64 8-model book", "dd (K3 route)",
              "to_tt(1e-13) dd chain", "TT f64 chain", "TT f64 Delta",
              "TT dd chain", "TT dd bucket masses",
-             "dense dd conditional expectations", "slider dd Greek report"]
+             "dense dd conditional expectations", "slider dd Greek report",
+             "host C query", "host NumPy query", "host C price + 5 Greeks",
+             "host NumPy price + 5 Greeks", "host C to_tt(1e-13) query",
+             "host C TT query", "TT finite-difference Greeks",
+             "spline f64 class path", "spline f32 engine",
+             "slider f32 engine", "slider dd (native f64)",
+             "slider f64 engine", "slider integrate()", "get_optimal_n1",
+             "portfolio 2A + B", "portfolio after run_completion",
+             "dense f64 box integrals", "dense f32 box integrals",
+             "dense dd box integrals (native f64)",
+             "per-call integrate(bounds=...)", "TT f64 box integrals",
+             "dense f64 conditional expectations",
+             "TT dd conditional expectations (native f64)",
+             "integrate_book, price + 5 Greeks", "scenario roots along S",
+             "scenario minima along S, locations",
+             "scenario minima along S, values"]
 
 
 @pytest.fixture(scope="module")
-def row_calls(inputs, jax_models, port_models):
+def row_calls(inputs, jax_models, port_models, baseline_models):
     with one_thread():
-        return _rows(inputs, jax_models, port_models)
+        return {**_rows(inputs, jax_models, port_models),
+                **_new_rows(inputs, jax_models, port_models,
+                            baseline_models)}
 
 
 @pytest.mark.parametrize("name", ROW_CALLS)
 def test_row_calls_match_the_jax_package(row_calls, name):
-    port_fn, jax_fn, ceiling = row_calls[name]
+    port_fn, jax_fn, ceiling, *absolute = row_calls[name]
     with one_thread():
         got = np.asarray(port_fn(), dtype=np.float64)
         want = np.asarray(jax_fn(), dtype=np.float64)
     assert got.shape == want.shape
-    # each row of a multi-output call on its own scale
-    got, want = got.reshape(-1, got.shape[-1]), want.reshape(
-        -1, want.shape[-1])
-    d = max(dev(g, w, 1e-3) for g, w in zip(got, want))
+    if absolute:
+        d = float(np.abs(got - want).max())
+    else:
+        # each row of a multi-output call on its own scale
+        got, want = got.reshape(-1, got.shape[-1]), want.reshape(
+            -1, want.shape[-1])
+        d = max(dev(g, w, 1e-3) for g, w in zip(got, want))
     assert d <= ceiling, (name, d)
+
+
+def test_portfolio_als_builds_are_bitwise_the_jax_packages(baseline_models):
+    """Config 5's rank-adaptive TT-ALS: the port's ALS is a copy of the
+    JAX package's host NumPy, so each instrument's ranks and cores are
+    bitwise equal, and so are 2A + B's errors against its closed
+    form."""
+    for name in ("tta", "ttb"):
+        ref, port = baseline_models[name]
+        assert port.tt_ranks == ref.tt_ranks
+        for a, c in zip(port._coeff_cores, ref._coeff_cores):
+            np.testing.assert_array_equal(a, np.asarray(c))
+    pts = bench.sample_points(500, 2, bench.PORTFOLIO_DOMAIN, margin=0.05)
+    exact = 2.0 * bench.instrument_a_np(pts) + bench.instrument_b_np(pts)
+    errs = [dev(np.asarray((a * 2.0 + b).eval_batch(pts)), exact)
+            for a, b in zip(baseline_models["tta"], baseline_models["ttb"])]
+    assert errs[0] == errs[1] <= bench.PORTFOLIO_ERR
 
 
 # --- (d) no card -------------------------------------------------------------
@@ -407,3 +742,35 @@ def test_refuses_without_a_card(monkeypatch, capsys, entry):
             bench.cli([])
     assert "no CUDA card" in str(exc.value.code)
     assert capsys.readouterr().out == ""
+
+
+# --- (e) --rows --------------------------------------------------------------
+
+
+def test_rows_runs_exactly_the_rows_a_prefix_names(capsys):
+    """A prefix selects its rows in ``ROWS`` order, each runs without the
+    rows before it (the shared models are built on demand), and the
+    last line counts the rows selected."""
+    with one_thread():
+        rows = bench.main(device="cpu", small=True, reps=1,
+                          rows=["spline2d_"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["metric"] for r in rows] == [
+        "rehearsal.spline2d_17n_build_s",
+        "rehearsal.spline2d_17n_f64_queries_per_sec",
+        "rehearsal.spline2d_17n_f32_queries_per_sec"]
+    assert lines[-1] == {"ok": True, "rows": 3, "failed": []}
+    assert bench.passed(rows, 3) and not bench.passed(rows)
+    assert [base for base, _ in bench.select(["bs5d_11n_scenario_"])] == [
+        "bs5d_11n_scenario_roots_per_sec", "bs5d_11n_scenario_minima_per_sec"]
+    assert bench.select(None) is bench.ROWS
+    with pytest.raises(SystemExit, match="names no row"):
+        bench.select(["bs5d_11n_f32_plain", "no_such_row"])
+    with one_thread():
+        assert bench.cli(["--device", "cpu", "--small", "--reps", "1",
+                          "--rows", "bs5d_11n_f64_box,slider10d_9n_dd_q"]) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [line["metric"] for line in lines if "metric" in line] == [
+        "rehearsal.slider10d_9n_dd_queries_per_sec",
+        "rehearsal.bs5d_11n_f64_box_integrals_per_sec"]
+    assert lines[-1] == {"ok": True, "rows": 2, "failed": []}
