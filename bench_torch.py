@@ -1,5 +1,6 @@
 """Benchmark of the PyTorch port on one CUDA card: every row of bench.py,
-the baseline table's five configurations and the calculus workloads.
+the baseline table's five configurations, the calculus workloads and
+the rest of scripts/' measurements.
 
 The same workloads as ``bench.py`` (the JAX package's TPU bench, which
 stays as it is): the 5-D Black-Scholes call on an 11^5 Chebyshev grid
@@ -15,9 +16,16 @@ configurations 1-5: the single-query host path through the C kernels,
 the 2-D kinked spline, the 10-D slider's engines, the 4-D portfolio's
 TT-ALS builds and completion) and of ``scripts/bench_integrate_batch.py``
 (dense and TT box integrals, conditional expectations, a six-model
-book's integrals, roots and minima over 4,096 scenarios).  Every row is
-held to its accuracy ceiling (scale-normalized max deviation,
-max|a - ref| / max|ref|, unless its ``against`` says otherwise).
+book's integrals, roots and minima over 4,096 scenarios).  Then the
+rest of ``scripts/``: the dense and TT scattered-data fits
+(``bench_fit.py``, ``bench_tt_fit.py``), the certified global searches
+of ``bench_global_calculus.py``, the 10-D TT search of
+``bench_tt_minimize.py``, the zero isolations of
+``bench_zero_isolation.py``, and the grouped TT chains of
+``bench_tt_book_grouped.py``, ``bench_tt_grouped.py`` and
+``bench_highd_grouping.py``.  Every row is held to its accuracy ceiling
+(scale-normalized max deviation, max|a - ref| / max|ref|, unless its
+``against`` says otherwise).
 
 Run from the repository root, on one card:
 
@@ -50,14 +58,18 @@ rows after it.
 Timing: CUDA events around each call, 3 warm-ups then ``--reps`` timed
 calls, each row rotating over at least three input batches whose total
 exceeds the card's 50 MB L2 (a server's next request arrives cold);
-the median and the 75th percentile with the sample count (a row whose
-call takes over a second takes at most 5).  Builds are timed on the
-host clock around a build that ends in ``torch.cuda.synchronize()``.
+the median and the 75th percentile with the sample count (a call over
+a second takes one warm-up, at most 5 timed calls and one traced call;
+a call over 20 s is its own one sample).  Builds are timed on the host
+clock around a build that ends in ``torch.cuda.synchronize()``; so are
+the rows that run host NumPy only (the host fits, the TT search, the
+isolations), which name the host's CPU and are not traced.
 The host rows (``*_host_*_us``) time the host, not the card: 10 warm
 calls, then at least 300 in blocks, the median over the blocks in
 microseconds a call; the line names the host's CPU.  ``--seed S`` is
 added to each seed of the scripts (bench.py's 1, 7, 9, 11, 21, 42; the
-baseline table's 0, 1, 2, 5, 42; 72 for the scenarios), so ``--seed 0``
+baseline table's 0, 1, 2, 5, 42; 72 for the scenarios; the rest of
+scripts/' 0, 3, 7, 11, the witnesses' 41 and 100), so ``--seed 0``
 draws their inputs.
 """
 
@@ -72,6 +84,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -84,6 +97,7 @@ from pychebyshev_tpu_torch import (
     ChebyshevSlider,
     ChebyshevSpline,
     ChebyshevTT,
+    solve_system,
 )
 from pychebyshev_tpu_torch.ops import eval as eval_ops
 from pychebyshev_tpu_torch.ops import (
@@ -92,6 +106,7 @@ from pychebyshev_tpu_torch.ops import (
     fused_eval,
     integrate,
     slider_eval,
+    subdivision,
     tt_eval,
     tt_eval_dd,
 )
@@ -101,7 +116,7 @@ from pychebyshev_tpu_torch.ops.chebyshev import (
 )
 from pychebyshev_tpu_torch.ops.quadrature import sub_interval_weights
 from pychebyshev_tpu_torch.serving import integrate_book
-from pychebyshev_tpu_torch.utils import ceval
+from pychebyshev_tpu_torch.utils import ceval, fitting, globalcalc
 
 #: The upstream reference's single-query ``vectorized_eval`` on a CPU,
 #: ~0.065 ms a query (BASELINE.md); the headline's ``vs_baseline`` base.
@@ -109,9 +124,14 @@ BASELINE_SINGLE_QUERY_S = 0.065e-3
 L2_BYTES = 50 * 2 ** 20
 WARMUP = 3
 BUSY_CALLS = 5
-#: A row whose warm call takes longer takes at most ``LONG_REPS`` samples.
+#: A row whose warm call takes longer takes one warm call and at most
+#: ``LONG_REPS`` samples, and one traced call in the busy pass.
 LONG_CALL_S = 1.0
 LONG_REPS = 5
+#: A warm call longer than this is the row's one sample, as a build's
+#: is: at that length a second call costs more than the noise it
+#: removes (the 10-D TT search, the zero isolations, the host TT fit).
+ONE_CALL_S = 20.0
 #: The host rows: warm calls, then at least this many timed calls.
 HOST_WARM = 10
 HOST_CALLS = 300
@@ -140,6 +160,35 @@ ROOTS_VS_SINGLE = 1e-9
 #: Batched minima against single ``minimize`` calls: locations absolute
 #: in S, values of the scale (chip_smoke.py phase 31).
 LOCATION_VS_SINGLE = 1e-10
+# The fits (scripts/bench_fit.py:37-50, bench_tt_fit.py:36-47): the
+# dense 9^3 fit's domain, noise and penalty, the device Grams' ceilings
+# against the host's f64 Gram (chip_smoke.py:239-240), the TT fit's
+# noise and its device rms against the host's (chip_smoke.py:243).
+FIT_DOMAIN = [[0.0, 2.0], [-1.0, 1.0], [0.0, 1.0]]
+FIT_NODES = [9, 9, 9]
+FIT_NOISE = 1e-3
+FIT_L2 = 1e-8
+FIT_GRAM_F32 = 1e-4
+FIT_GRAM_DD = 1e-11
+TT_FIT_D = 5
+TT_FIT_NOISE = 1e-4
+TT_FIT_RMS_REL = 0.1
+# Global calculus (chip_smoke.py:262-264): a search's value against the
+# same call on a CPU build, of the model's scale; a witness's slack.
+GLOBAL_VS_CPU = 1e-12
+WITNESS_EPS = 1e-10
+#: |gradient| at a critical point over its max on the grid.
+GRAD_AT_CRITICAL = 1e-10
+#: The 10-D TT search's witness points (uniform in [-1, 1]^10).
+TT_SEARCH_WITNESS_SEED = 100
+# The grouped TT chains: the first-order specs of the six-model book
+# (bench_tt_book_grouped.py:62-63), the points each chain is checked on
+# (:79-80; bench_highd_grouping.py:67) and bench_tt_grouped.py's probe
+# (:71).
+FIRST_ORDER = tuple(tuple(1 if i == k else 0 for i in range(5))
+                    for k in range(5))
+CHAIN_CHECK = 16384
+TO_TT_PROBE = 65536
 #: Fewer nodes and a lower rank interpolate worse: the rehearsal holds
 #: the two analytic rows to this multiple of their ceilings.
 SMALL_ANALYTIC_FACTOR = 10.0
@@ -155,7 +204,6 @@ GREEKS = ((0, 0, 0, 0, 0), (1, 0, 0, 0, 0), (2, 0, 0, 0, 0),
           (0, 0, 1, 0, 0), (0, 0, 0, 1, 0), (0, 0, 0, 0, 1))
 BOOK = 8
 SLIDER_D = 10
-SLIDER_W = np.linspace(0.5, 1.5, SLIDER_D)
 SLIDER_SPECS = ((0,) * SLIDER_D,) + tuple(
     tuple(1 if j == k else 0 for j in range(SLIDER_D)) for k in (0, 2, 4, 6))
 SLIDER_DOMAIN = [[-1.0, 1.0]] * SLIDER_D
@@ -220,10 +268,11 @@ def bs_div_greeks_np(points):
 
 
 def basket_np(points, _data=None):
-    """Config 4's additive basket on [-1, 1]^10."""
+    """Config 4's additive basket on [-1, 1]^10, and on [-1, 1]^d with
+    weights ``linspace(0.5, 1.5, d)`` (bench_highd_grouping.py:50-54)."""
     p = np.asarray(points, dtype=np.float64)
-    return np.sum(SLIDER_W * np.sin(p), axis=1) + 0.25 * np.sum(p ** 2,
-                                                               axis=1)
+    w = np.linspace(0.5, 1.5, p.shape[1])
+    return np.sum(w * np.sin(p), axis=1) + 0.25 * np.sum(p ** 2, axis=1)
 
 
 def payoff_np(points, _data=None):
@@ -348,10 +397,35 @@ class Widths:
     check: int      # points of the host-path checks
     analytic: float  # factor on the two analytic ceilings
     scenarios: int  # scenarios of the roots and minima
+    fit_samples: tuple  # (engine, samples) of the dense fits, in order
+    fit_subset: int     # the device Grams' shared subset
+    tt_fit_samples: int
+    tt_fit_sweeps: int
+    search_nodes: int   # nodes a dim of the 2-D waves and the 5-D osc5
+    osc_boxes: int      # max_boxes of the osc5 search
+    tt_search: tuple    # (nodes, max_rank, max_boxes) of the 10-D TT search
+    zeros: tuple        # (nodes, d, freq, delta, max_boxes) per isolation
+    sup_target: float   # to_tt's trimming target (bench_tt_grouped.py:64)
 
 
-FULL = Widths(11, 1 << 20, 1 << 17, 15, 4096, 1.0, 4096)
-SMALL = Widths(9, 4096, 512, 8, 512, SMALL_ANALYTIC_FACTOR, 256)
+FULL = Widths(
+    11, 1 << 20, 1 << 17, 15, 4096, 1.0, 4096,
+    fit_samples=(("host", 1 << 15), ("device", 1 << 20),
+                 ("device-dd", 1 << 19)),
+    fit_subset=1 << 15, tt_fit_samples=1_000_000, tt_fit_sweeps=3,
+    search_nodes=21, osc_boxes=5000, tt_search=(7, 8, 400_000),
+    zeros=((31, 3, 6.0, 1e-3, 200_000), (25, 4, 3.0, 1e-2, 400_000)),
+    sup_target=3e-12)
+# The rehearsal's 9^5 grid trimmed to 3e-12 on the grid reads 1.05e-12
+# off it, past the 1e-12 ceiling (11^5: 7.5e-13), so it trims to 1e-12.
+SMALL = Widths(
+    9, 4096, 512, 8, 512, SMALL_ANALYTIC_FACTOR, 256,
+    fit_samples=(("host", 1 << 12), ("device", 1 << 12),
+                 ("device-dd", 1 << 12)),
+    fit_subset=1 << 11, tt_fit_samples=1 << 13, tt_fit_sweeps=1,
+    search_nodes=7, osc_boxes=200, tt_search=(5, 3, 2000),
+    zeros=((11, 2, 6.0, 1e-3, 200_000), (9, 3, 3.0, 1e-2, 400_000)),
+    sup_target=1e-12)
 #: Scenarios the batched roots and minima are checked on, one call each.
 SINGLE_CHECKS = 64
 
@@ -395,12 +469,14 @@ class Bench:
     def emit(self, line: dict) -> None:
         print(json.dumps(line), flush=True)
 
-    def batches(self, seed, draw, nbytes):
+    def batches(self, seed, draw, nbytes, rng=None):
         """Batches drawn one after another from ``seed``'s stream (the
-        first is bench.py's input), enough that together they exceed
-        the L2 cache: at least three."""
+        first is bench.py's input), or from ``rng`` where a script draws
+        them after other inputs, enough that together they exceed the
+        L2 cache: at least three."""
         count = 3 if self.small else max(3, L2_BYTES // nbytes + 1)
-        rng = np.random.default_rng(seed + self.seed)
+        if rng is None:
+            rng = np.random.default_rng(seed + self.seed)
         return [draw(rng) for _ in range(count)]
 
     def on(self, array):
@@ -410,21 +486,28 @@ class Bench:
         if self.cuda:
             torch.cuda.synchronize()
 
-    def samples(self, fn, batches) -> list:
-        """Milliseconds of ``reps`` calls after ``WARMUP``, rotating over
-        ``batches``: CUDA events on a card, the host clock on the CPU.
-        A call longer than ``LONG_CALL_S`` takes at most ``LONG_REPS``."""
+    def samples(self, fn, batches, host=False) -> tuple:
+        """(milliseconds of ``reps`` calls after ``WARMUP``, rotating over
+        ``batches``, and whether the call is long): CUDA events on a
+        card, the host clock on the CPU or with ``host``.  A warm call
+        longer than ``LONG_CALL_S`` ends the warm-up and the call takes
+        at most ``LONG_REPS``; one longer than ``ONE_CALL_S`` is itself
+        the one sample."""
         for i in range(WARMUP):
             t0 = time.perf_counter()
             fn(batches[i % len(batches)])
             self.sync()
             warm_s = time.perf_counter() - t0
-        reps = min(self.reps, LONG_REPS) if warm_s > LONG_CALL_S \
-            else self.reps
+            if warm_s > ONE_CALL_S:
+                return [warm_s * 1e3], True
+            if warm_s > LONG_CALL_S:
+                break
+        long = warm_s > LONG_CALL_S
+        reps = min(self.reps, LONG_REPS) if long else self.reps
         times = []
         for i in range(reps):
             b = batches[i % len(batches)]
-            if self.cuda:
+            if self.cuda and not host:
                 start = torch.cuda.Event(enable_timing=True)
                 stop = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -435,8 +518,9 @@ class Bench:
             else:
                 t0 = time.perf_counter()
                 fn(b)
+                self.sync()
                 times.append((time.perf_counter() - t0) * 1e3)
-        return times
+        return times, long
 
     def build_s(self, build) -> float:
         t0 = time.perf_counter()
@@ -444,12 +528,30 @@ class Bench:
         self.sync()
         return time.perf_counter() - t0
 
-    def rate(self, base, fn, batches, n, unit, per_call=1, **check):
-        """A throughput row: ``per_call * n`` results a call."""
-        ms = self.samples(fn, batches)
-        self.timed.append((base, fn, batches))
-        return timing(ms, value=per_call * n / (np.median(ms) / 1e3),
-                      unit=unit, n=n, **check)
+    def measure(self, base, fn, batches, host=False) -> list:
+        """A row's ``samples``.  A row that touches the card joins the
+        busy pass (one traced call if its call is long); a ``host`` row
+        (host NumPy only) runs on the host clock and is not traced."""
+        ms, long = self.samples(fn, batches, host)
+        if not host:
+            self.timed.append((base, fn, batches, 1 if long else BUSY_CALLS))
+        return ms
+
+    def rate(self, base, fn, batches, n, unit, per_call=1, host=False,
+             **check):
+        """A throughput row: ``per_call * n`` results a call; a ``host``
+        row names the host's CPU."""
+        ms = self.measure(base, fn, batches, host)
+        row = timing(ms, value=per_call * n / (np.median(ms) / 1e3),
+                     unit=unit, n=n, **check)
+        return dict(row, host_cpu=self.cpu) if host else row
+
+    def seconds(self, base, fn, n, host=False, **check):
+        """A row of seconds a call of ``fn()``: the median."""
+        ms = self.measure(base, lambda _: fn(), [None], host)
+        row = timing(ms, value=float(np.median(ms)) / 1e3, unit="s", n=n,
+                     **check)
+        return dict(row, host_cpu=self.cpu) if host else row
 
     def host_row(self, fn) -> dict:
         """A host row, microseconds a call: ``HOST_WARM`` warm calls,
@@ -469,35 +571,38 @@ class Bench:
 
     def busy_shares(self) -> None:
         """device time over wall time across ``BUSY_CALLS`` calls of each
-        timed row, under ``torch.profiler``; after the timed pass, so
-        tracing never touches a timed number.  The kernel rows go first:
-        on the card, once traces have recorded many kernels, later
-        traces miss launches of the kernels this repository builds,
-        more of them each time, down to none (torch's own kernels are
-        still recorded)."""
-        for base, fn, batches in sorted(
+        timed row (one of a long call), under ``torch.profiler``; after
+        the timed pass, so tracing never touches a timed number.  The
+        kernel rows go first: on the card, once traces have recorded
+        many kernels, later traces miss launches of the kernels this
+        repository builds, more of them each time, down to none
+        (torch's own kernels are still recorded)."""
+        for base, fn, batches, calls in sorted(
                 self.timed, key=lambda row: row[0] not in KERNEL_ROWS):
             line = {"busy_share": "not measured", "of": self.name(base),
-                    "calls": BUSY_CALLS, "device": self.card}
+                    "calls": calls, "device": self.card}
             t0 = time.perf_counter()
             if self.cuda:
                 try:
-                    line.update(_profiled(fn, batches, base in KERNEL_ROWS))
+                    line.update(_profiled(fn, batches, base in KERNEL_ROWS,
+                                          calls))
                 except Exception as e:   # the one line allowed to miss
                     log(f"busy share of {base}: {type(e).__name__}: {e}")
             self.emit(dict(line, trace_s=time.perf_counter() - t0))
 
 
-def _profiled(fn, batches, kernel_row) -> dict:
-    """The device time ``torch.profiler`` records over ``BUSY_CALLS``
-    calls, and the wall time.  A kernel row whose trace lacks any of its
-    launches is not measured (see ``Bench.busy_shares``)."""
+def _profiled(fn, batches, kernel_row, calls) -> dict:
+    """The device time ``torch.profiler`` records over ``calls`` calls,
+    and the wall time.  A kernel row whose trace lacks any of its
+    launches is not measured (see ``Bench.busy_shares``).  A long call
+    is warm from its timed pass; a short one gets one more warm call."""
     from torch.profiler import ProfilerActivity, profile
-    fn(batches[0])
+    if calls > 1:
+        fn(batches[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(BUSY_CALLS):
+        for i in range(calls):
             fn(batches[i % len(batches)])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -507,7 +612,7 @@ def _profiled(fn, batches, kernel_row) -> dict:
     out = {"device_ms": device_ms, "wall_ms": wall_ms}
     if kernel_row:
         out["kernel_launches_traced"] = seen
-    if device_ms > 0 and (seen == BUSY_CALLS or not kernel_row):
+    if device_ms > 0 and (seen == calls or not kernel_row):
         out["busy_share"] = device_ms / wall_ms
     return out
 
@@ -653,7 +758,7 @@ def kernel_ms(b, packed, shape, batches):
     if not b.cuda:
         return "not measured"
     return float(np.median(b.samples(
-        lambda p: fused_eval._launch(*packed, shape, p), batches)))
+        lambda p: fused_eval._launch(*packed, shape, p), batches)[0]))
 
 
 def f32_delta(b, s):
@@ -1599,6 +1704,788 @@ def scenario_minima(b, s):
                   checks={"value_vs_single": [float(val_err), F64]})
 
 
+# --- fits (scripts/bench_fit.py, bench_tt_fit.py; chip_smoke.py 32, 36) ----
+
+
+def fit_target_np(p):
+    """bench_fit.py's target (:41-43), sin(2 x0) cos(x1) + x2^3."""
+    return np.sin(2 * p[:, 0]) * np.cos(p[:, 1]) + p[:, 2] ** 3
+
+
+def fit_samples(b, s):
+    """bench_fit.py's samples (:45-48): one seed-0 stream drawn engine
+    after engine, noise N(0, 1e-3)."""
+    if "fit" not in s:
+        rng = np.random.default_rng(0 + b.seed)
+        s["fit"] = {}
+        for engine, n in b.w.fit_samples:
+            pts = np.stack([rng.uniform(lo, hi, n) for lo, hi in FIT_DOMAIN],
+                           axis=1)
+            s["fit"][engine] = pts, (fit_target_np(pts)
+                                     + rng.normal(0, FIT_NOISE, n))
+    return s["fit"]
+
+
+def gram_vs_host(b, engine, pts, y) -> float:
+    """The device engine's Gram of ``pts`` against the host's f64 one."""
+    nodes = [nodes_for_dim_np(lo, hi, n)
+             for (lo, hi), n in zip(FIT_DOMAIN, FIT_NODES)]
+    weights = [barycentric_weights_np(x) for x in nodes]
+    design = fitting._DimDesign(nodes, weights)
+    rows = fitting._khatri_rao([design.rows(pts[:, k], k)
+                                for k in range(len(nodes))])
+    accumulate = (fitting._device_normal_accumulation if engine == "device"
+                  else fitting._device_normal_accumulation_dd)
+    gram, _ = accumulate([(pts, (0,) * len(nodes), y, np.ones(len(y)))],
+                         nodes, weights, design, rows.shape[1],
+                         device=b.device)
+    return dev(gram, rows.T @ rows)
+
+
+def dense_fit(b, s, base, engine):
+    pts, y = fit_samples(b, s)[engine]
+    fitted = {}
+
+    def run(_):
+        fitted["model"] = ChebyshevApproximation.fit(
+            pts, y, len(FIT_NODES), FIT_DOMAIN, FIT_NODES, l2=FIT_L2,
+            engine=engine, device=b.device)
+
+    host = engine == "host"
+    row = b.rate(base, run, [None], len(y), "samples/s", host=host)
+    rms = fitted["model"].fit_diagnostics["rms"]
+    row.update(deviation=rms, ceiling=2 * FIT_NOISE,
+               against=f"the fit's rms residual over its samples, held to "
+                       f"twice the noise's sigma ({FIT_NOISE:g})",
+               engine=engine, grid_points=int(np.prod(FIT_NODES)))
+    if not host:
+        sub_pts, sub_y = (a[:b.w.fit_subset]
+                          for a in fit_samples(b, s)["device"])
+        row["checks"] = {"gram_vs_host_f64": [
+            gram_vs_host(b, engine, sub_pts, sub_y),
+            FIT_GRAM_F32 if engine == "device" else FIT_GRAM_DD]}
+        row["gram_points"] = len(sub_y)
+    return row
+
+
+def fit_host(b, s):
+    return dense_fit(b, s, "fit3d_9n_host_samples_per_sec", "host")
+
+
+def fit_f32(b, s):
+    return dense_fit(b, s, "fit3d_9n_f32_samples_per_sec", "device")
+
+
+def fit_dd(b, s):
+    return dense_fit(b, s, "fit3d_9n_dd_samples_per_sec", "device-dd")
+
+
+def tt_fit_samples(b, s):
+    """bench_tt_fit.py's samples (:41-44): seed 0, prod(cos 2x) +
+    0.1 sum x + N(0, 1e-4) on [0, 1]^5."""
+    if "ttfit" not in s:
+        n = b.w.tt_fit_samples
+        rng = np.random.default_rng(0 + b.seed)
+        pts = rng.uniform(0.0, 1.0, (n, TT_FIT_D))
+        s["ttfit"] = pts, (np.prod(np.cos(2 * pts), axis=1)
+                           + 0.1 * pts.sum(1)
+                           + rng.normal(0.0, TT_FIT_NOISE, n))
+    return s["ttfit"]
+
+
+def tt_fit(b, s, engine):
+    pts, y = tt_fit_samples(b, s)
+    return ChebyshevTT.fit(pts, y, TT_FIT_D, [[0.0, 1.0]] * TT_FIT_D,
+                           [7] * TT_FIT_D, max_rank=5,
+                           sweeps=b.w.tt_fit_sweeps, l2=1e-8, engine=engine,
+                           device=b.device)
+
+
+def tt_fit_host_run(b, s):
+    """The host TT fit, run once and timed on the host clock: the host
+    row's one sample and the device row's yardstick."""
+    if "ttfit_host" not in s:
+        def run():
+            s["ttfit_host"] = tt_fit(b, s, "host")
+        s["ttfit_host_s"] = b.build_s(run)
+    return s["ttfit_host"], s["ttfit_host_s"]
+
+
+def sweeps_of(model) -> int:
+    return len(model.fit_diagnostics["sweep_rms"])
+
+
+def rms_apart(b, s) -> dict:
+    """The two engines' rms on the same samples, the device's relative
+    to the host's: both TT fit rows are held to it."""
+    rms = {engine: s[f"ttfit_{engine}"].fit_diagnostics["rms"]
+           for engine in ("device", "host")}
+    return dict(deviation=abs(rms["device"] - rms["host"]) / rms["host"],
+                ceiling=TT_FIT_RMS_REL,
+                against="the device engine's rms against the host "
+                        "engine's on the same samples, relative",
+                rms=rms)
+
+
+def tt_fit_device(b, s):
+    tt_fit_host_run(b, s)
+    fitted = {}
+
+    def run(_):
+        fitted["model"] = tt_fit(b, s, "device")
+
+    ms = b.measure("ttfit5d_7n_r5_device_sample_sweeps_per_sec", run, [None])
+    model, n = fitted["model"], b.w.tt_fit_samples
+    s["ttfit_device"] = model
+    return timing(ms, value=n * sweeps_of(model) / (np.median(ms) / 1e3),
+                  unit="sample-sweeps/s", n=n, sweeps=sweeps_of(model),
+                  **rms_apart(b, s))
+
+
+def tt_fit_host(b, s):
+    model, seconds = tt_fit_host_run(b, s)
+    if "ttfit_device" not in s:
+        s["ttfit_device"] = tt_fit(b, s, "device")
+    n = b.w.tt_fit_samples
+    return timing([seconds * 1e3], value=n * sweeps_of(model) / seconds,
+                  unit="sample-sweeps/s", n=n, sweeps=sweeps_of(model),
+                  timed="one call on the host clock, as the builds are",
+                  host_cpu=b.cpu, **rms_apart(b, s))
+
+
+# --- global calculus (scripts/bench_global_calculus.py, bench_tt_minimize.py,
+# bench_zero_isolation.py; chip_smoke.py 41) -------------------------------
+
+
+def waves_np(p, _data=None):
+    """bench_global_calculus.py's 2-D "waves" (:50-53)."""
+    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
+    return (np.sin(3 * p[:, 0]) + np.cos(4 * p[:, 1])
+            + 0.5 * p[:, 0] * p[:, 1])
+
+
+def bowl3_np(p, _data=None):
+    """Its 3-D "bowl3" (:71-74): minima at x0 = +-1/sqrt(2)."""
+    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
+    return ((p[:, 0] ** 2 - 0.5) ** 2 + (p[:, 1] - 0.2) ** 2
+            + np.exp(0.5 * p[:, 2]) * 0.1)
+
+
+def osc5_np(p, _data=None):
+    """Its oscillatory 5-D row (:83-89)."""
+    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
+    return (np.sin(3 * p[:, 0]) * np.cos(2 * p[:, 1])
+            + np.sin(2 * p[:, 2] + p[:, 3]) + 0.5 * np.cos(4 * p[:, 4])
+            + 0.2 * np.sin(p[:, 0] * p[:, 4] * 2)
+            + 0.1 * np.cos(p[:, 1] + p[:, 2] * p[:, 3]))
+
+
+def kinked_np(p, _data=None):
+    """Its 2-piece spline (:102-104): a kink minimum on the knot."""
+    p = np.asarray(p, dtype=np.float64)
+    return np.abs(p[:, 0]) + (p[:, 1] - 0.2) ** 2
+
+
+def bowl10_np(p, _data=None):
+    """Its 10-D additive slider (:113-115)."""
+    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
+    return sum((p[:, i] - 0.05 * i) ** 2 for i in range(10))
+
+
+def q3_np(p, _data=None):
+    """Its 3-D TT (:126-129)."""
+    p = np.asarray(p, dtype=np.float64)
+    return ((p[:, 0] ** 2 - 0.25) ** 2 + (p[:, 1] - 0.3) ** 2
+            + (p[:, 2] + 0.4) ** 2)
+
+
+def circle_np(p, _data=None):
+    return p[:, 0] ** 2 + p[:, 1] ** 2 - 0.64
+
+
+def line_np(p, _data=None):
+    return p[:, 0] - p[:, 1]
+
+
+def surrogate_np(points, _data=None):
+    """bench_tt_minimize.py's 10-D basket surrogate (:52-58)."""
+    x = np.asarray(points, dtype=np.float64)
+    d = x.shape[1]
+    s = x @ (0.6 + 0.4 * np.cos(np.arange(d)))
+    return np.exp(-0.5 * np.sum(x * x, axis=-1) / d) * np.cos(1.7 * s) \
+        + 0.1 * s
+
+
+def oscillating_np(freq):
+    """bench_zero_isolation.py's interpolated function (:59-64): a
+    product of cosines of ``freq`` plus a small tilt."""
+    def f(points, _data=None):
+        x = np.asarray(points, dtype=np.float64)
+        out = np.ones(x.shape[0])
+        for k in range(x.shape[1]):
+            out = out * np.cos(freq * x[:, k] + 0.3 * k)
+        return out + 0.05 * np.sum(x, axis=-1)
+    return f
+
+
+def global_models(b, s, device):
+    """bench_global_calculus.py's models on ``device``: the card's, and
+    a CPU build of each that the card's calls are held to."""
+    key = ("global", str(torch.device(device)))
+    if key not in s:
+        k = b.w.search_nodes
+        built = {
+            "waves": ChebyshevApproximation(
+                waves_np, 2, [[-1.5, 1.5], [-1, 2]], [k, k],
+                vectorized=True, device=device),
+            "bowl3": ChebyshevApproximation(
+                bowl3_np, 3, [[-1, 1]] * 3, [9, 9, 9], vectorized=True,
+                device=device),
+            "osc5": ChebyshevApproximation(
+                osc5_np, 5, [[-1, 1]] * 5, [k] * 5, vectorized=True,
+                device=device),
+            "spline": ChebyshevSpline(
+                kinked_np, 2, [[-1, 1], [-1, 1]], [[9, 9], [9]],
+                knots=[[0.0], []], vectorized=True, device=device),
+            "slider": ChebyshevSlider(
+                bowl10_np, 10, [[-1, 1]] * 10, [9] * 10,
+                partition=[[i] for i in range(10)], pivot_point=[0.0] * 10,
+                vectorized=True, device=device),
+            "circle": ChebyshevApproximation(
+                circle_np, 2, [[-1, 1]] * 2, [7, 7], vectorized=True,
+                device=device),
+            "line": ChebyshevApproximation(
+                line_np, 2, [[-1, 1]] * 2, [7, 7], vectorized=True,
+                device=device),
+            "tt": ChebyshevTT(q3_np, 3, [[-1, 1]] * 3, [9, 9, 9],
+                              tolerance=1e-12, max_rank=8, vectorized=True,
+                              device=device),
+        }
+        for name, model in built.items():
+            if name == "tt":
+                model.build(verbose=False, seed=0 + b.seed)
+            else:
+                model.build(verbose=False)
+        s[key] = built
+    return s[key]
+
+
+@contextlib.contextmanager
+def searches():
+    """Records the ``GlobalResult`` of every optimum search run in the
+    block (``utils.globalcalc``'s two search entry points) and the boxes
+    whose statistics ran through PyTorch on the model's device
+    (``ops.subdivision._device_raw_stats``); an uncertified search's
+    RuntimeWarning is held back (the line says ``certified``)."""
+    rec = {"results": [], "device_boxes": 0}
+    saved = {name: getattr(globalcalc, name)
+             for name in ("minimize_coeff_tensor", "minimize_tt_cores")}
+    raw = subdivision._device_raw_stats
+
+    def kept(search):
+        def run(*args, **kwargs):
+            out = search(*args, **kwargs)
+            rec["results"].append(out)
+            return out
+        return run
+
+    def counted(coeffs, boxes, *args):
+        rec["device_boxes"] += boxes.shape[0]
+        return raw(coeffs, boxes, *args)
+
+    for name, search in saved.items():
+        setattr(globalcalc, name, kept(search))
+    subdivision._device_raw_stats = counted
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            yield rec
+    finally:
+        for name, search in saved.items():
+            setattr(globalcalc, name, search)
+        subdivision._device_raw_stats = raw
+
+
+def value_scale(model) -> float:
+    """A bound on |f| over the model's box from its node values: the
+    scale of the values-within ceilings (chip_smoke.py phase 41)."""
+    if isinstance(model, ChebyshevTT):
+        return float(np.abs(model.to_dense()).max())
+    if isinstance(model, ChebyshevSpline):
+        return max(value_scale(p) for p in model._pieces)
+    if isinstance(model, ChebyshevSlider):
+        pivot = float(model.pivot_value)
+        return abs(pivot) + sum(value_scale(sl) + abs(pivot)
+                                for sl in model.slides)
+    return float(model.tensor_values.abs().max())
+
+
+def search_fields(rec) -> dict:
+    """A line's account of the searches one call ran."""
+    res = rec["results"]
+    return {"certified": all(r.certified for r in res),
+            "gap": max((float(r.gap) for r in res), default=0.0),
+            "boxes": int(sum(r.boxes for r in res)), "searches": len(res),
+            "device_box_stats": rec["device_boxes"]}
+
+
+def global_row(b, s, base, key, call):
+    """One of bench_global_calculus.py's calls on the card's model,
+    timed, held to the same call on a CPU build of the same model: a
+    value within 1e-12 x the model's scale and the same certificate;
+    equal counts of points and roots."""
+    models = global_models(b, s, b.device)
+    last = {}
+
+    def run():
+        with searches() as rec:
+            last["out"] = call(models)
+        last["rec"] = rec
+
+    row = b.seconds(base, run, n=0)
+    with searches() as want_rec:
+        want = call(global_models(b, s, "cpu"))
+    got, rec = last["out"], last["rec"]
+    scale = value_scale(models[key])
+    fields = dict(against="the same call on a CPU build of the same model",
+                  scale=scale, **search_fields(rec))
+    if isinstance(got, tuple):   # (value, point) of an optimum
+        fields.update(
+            n=fields["boxes"], deviation=abs(got[0] - want[0]) / scale,
+            ceiling=GLOBAL_VS_CPU, optimum=float(got[0]),
+            point=[float(x) for x in got[1]],
+            checks={"certified_differs": [
+                int(fields["certified"]
+                    != search_fields(want_rec)["certified"]), 0]})
+    elif isinstance(got, list):   # CriticalPoints
+        fields.update(
+            n=len(got), ceiling=GLOBAL_VS_CPU,
+            deviation=max((abs(a.value - c.value) / scale
+                           for a, c in zip(got, want)), default=0.0),
+            points=len(got), kinds=[c.kind for c in got],
+            checks={"count_differs": [abs(len(got) - len(want)), 0],
+                    "kinds_differ": [int([c.kind for c in got]
+                                         != [c.kind for c in want]), 0]})
+    else:   # the roots of a system, (K, d)
+        fields.update(
+            n=int(got.shape[0]), ceiling=GLOBAL_VS_CPU,
+            deviation=(float(np.abs(got - want).max())
+                       if got.shape == want.shape and got.size else 0.0),
+            roots=got.tolist(),
+            checks={"count_differs": [abs(got.shape[0] - want.shape[0]),
+                                      0]})
+    return dict(row, **fields)
+
+
+def global_min(b, s, base, key):
+    return global_row(b, s, base, key, lambda m: m[key].minimize(tol=1e-9))
+
+
+def global_waves(b, s):
+    return global_min(b, s, "global_waves2d_21n_min_s", "waves")
+
+
+def global_bowl3(b, s):
+    return global_min(b, s, "global_bowl3d_9n_min_s", "bowl3")
+
+
+def global_spline(b, s):
+    return global_min(b, s, "global_spline2d_kink_min_s", "spline")
+
+
+def global_slider(b, s):
+    return global_min(b, s, "global_slider10d_9n_min_s", "slider")
+
+
+def global_tt(b, s):
+    return global_min(b, s, "global_tt3d_r8_min_s", "tt")
+
+
+def global_bowl3_critical(b, s):
+    return global_row(b, s, "global_bowl3d_9n_critical_points_s", "bowl3",
+                      lambda m: m["bowl3"].critical_points())
+
+
+def global_tt_critical(b, s):
+    return global_row(b, s, "global_tt3d_r8_critical_points_s", "tt",
+                      lambda m: m["tt"].critical_points())
+
+
+def global_solve(b, s):
+    return global_row(b, s, "global_circle_line_solve_system_s", "circle",
+                      lambda m: solve_system([m["circle"], m["line"]]))
+
+
+def global_osc5(b, s):
+    """The 21^5 oscillatory search (tol 1e-7, 5,000 boxes), held to a
+    witness: the min of the model's f64 path over 2^20 points must not
+    beat the certified bound value - gap (check_witness's inequality;
+    for a minimum its two forms are one)."""
+    osc = global_models(b, s, b.device)["osc5"]
+    last = {}
+
+    def run():
+        with searches() as rec:
+            last["out"] = osc.minimize(tol=1e-7, max_boxes=b.w.osc_boxes)
+        last["rec"] = rec
+
+    row = b.seconds("global_osc5d_21n_min_s", run, n=0)
+    (value, point), fields = last["out"], search_fields(last["rec"])
+    gap = 1e-7 if fields["certified"] else fields["gap"]
+    pts = b.on(sample_points(b.w.n, 41 + b.seed, [[-1.0, 1.0]] * 5))
+    witness = float(osc.eval_batch_device(pts).min())
+    scale = float(osc.tensor_values.abs().max())
+    at_point = float(osc.eval_batch_host(point[None], [0] * 5)[0])
+    return dict(row, **fields, n=fields["boxes"],
+                deviation=max(0.0, value - gap - witness) / scale,
+                ceiling=WITNESS_EPS,
+                against=f"the min of the f64 path over {b.w.n:,} points "
+                        f"(seed 41): value - gap within 1e-10 x scale of "
+                        f"it or below",
+                optimum=float(value), point=[float(x) for x in point],
+                witness=witness, scale=scale,
+                checks={"value_vs_eval_at_point": [
+                    abs(at_point - value) / scale, GLOBAL_VS_CPU]})
+
+
+def tt_search_chain(b, s):
+    """bench_tt_minimize.py's chain (:47-71): the 10-D surrogate by
+    TT-Cross, 7 nodes, max_rank 8, tolerance 1e-12."""
+    if "ttmin" not in s:
+        nodes, rank, _ = b.w.tt_search
+        tt = ChebyshevTT(surrogate_np, 10, [[-1.0, 1.0]] * 10, [nodes] * 10,
+                         max_rank=rank, tolerance=1e-12, vectorized=True,
+                         device=b.device)
+        tt.build(verbose=False, seed=0 + b.seed)
+        s["ttmin"] = tt
+    return s["ttmin"]
+
+
+def tt_search(b, s):
+    """``minimize_tt_cores`` of the chain (host NumPy), held to a
+    witness of 2^20 uniform points through the f64 chain on the card."""
+    tt = tt_search_chain(b, s)
+    cores = [np.asarray(c, dtype=np.float64) for c in tt._coeff_cores]
+    max_boxes = b.w.tt_search[2]
+    last = {}
+
+    def run():
+        last["res"] = subdivision.minimize_tt_cores(cores, tol=1e-9,
+                                                    max_boxes=max_boxes)
+
+    row = b.seconds("ttmin10d_7n_r8_certified_min_s", run, n=0, host=True)
+    res = last["res"]
+    chain = tt._cores_on_device(torch.float64)
+    dom = np.asarray(tt.domain)
+    pts = np.random.default_rng(TT_SEARCH_WITNESS_SEED + b.seed).uniform(
+        -1.0, 1.0, (b.w.n, 10))
+    vals = tt_eval.tt_eval_batch(chain, dom, b.on(pts))
+    witness, scale = float(vals.min()), float(vals.abs().max())
+    at_loc = float(tt_eval.tt_eval_batch(chain, dom,
+                                         b.on(res.location[None]))[0])
+    return dict(row, n=int(res.boxes),
+                deviation=max(0.0, res.value - res.gap - witness) / scale,
+                ceiling=WITNESS_EPS,
+                against=f"the min of the f64 chain over {b.w.n:,} uniform "
+                        f"points (seed {TT_SEARCH_WITNESS_SEED}): value - gap "
+                        f"within 1e-10 x scale of it or below",
+                optimum=float(res.value), gap=float(res.gap),
+                certified=bool(res.certified), boxes=int(res.boxes),
+                max_boxes=max_boxes, witness=witness, scale=scale,
+                ranks=tt.tt_ranks,
+                checks={"value_vs_chain_at_location": [
+                    abs(at_loc - res.value) / scale, GLOBAL_VS_CPU]})
+
+
+def zero_isolation(b, s, base, case):
+    """``isolate_common_zeros`` of an interpolant's gradient system (host
+    NumPy), timed where ``critical_points()`` of the same interpolant
+    calls it on the same tensors with the script's delta and
+    ``max_boxes``, so one call gives the row and its check: each
+    critical point within delta of a surviving centre, its gradient
+    zero."""
+    n, d, freq, delta, max_boxes = b.w.zeros[case]
+    interp = ChebyshevApproximation(oscillating_np(freq), d, [[-1.0, 1.0]] * d,
+                                    [n] * d, vectorized=True, device=b.device)
+    interp.build(verbose=False)
+    isolate = globalcalc.isolate_common_zeros
+    isolations, last = [], {}
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        last["centres"] = isolate(*args, **kwargs)
+        isolations.append((time.perf_counter() - t0) * 1e3)
+        return last["centres"]
+
+    def run():
+        globalcalc.isolate_common_zeros = timed
+        try:
+            last["found"] = interp.critical_points(delta=delta,
+                                                   max_boxes=max_boxes)
+        finally:
+            globalcalc.isolate_common_zeros = isolate
+
+    calls = b.measure(base, lambda _: run(), [None], host=True)
+    ms = isolations[-len(calls):]   # the timed calls' (warm-ups first)
+    centres = last["centres"]
+    specs = globalcalc._grad_specs(d)
+    pts = np.array([c.point for c in last["found"]]).reshape(-1, d)
+    missed = sum(1 for p in pts
+                 if np.abs(centres - p).max(axis=1).min() > delta)
+    grads = (np.abs(interp.vectorized_eval_batch_multi(pts, specs))
+             if len(pts) else np.zeros((0, d)))
+    grad_scale = max(float(interp.differentiate(spec).tensor_values
+                           .abs().max()) for spec in specs)
+    return timing(ms, value=float(np.median(ms)) / 1e3, unit="s",
+                  n=int(centres.shape[0]),
+                  deviation=float(grads.max(initial=0.0)) / grad_scale,
+                  ceiling=GRAD_AT_CRITICAL,
+                  against="the points critical_points() returns from "
+                          "these boxes: max |gradient| there over its max "
+                          "on the grid; each within delta of a surviving "
+                          "centre (checks)",
+                  critical_points_ms=float(np.median(calls)),
+                  boxes=int(centres.shape[0]), critical_points=len(pts),
+                  delta=delta, max_boxes=max_boxes, host_cpu=b.cpu,
+                  checks={"critical_points_missed": [missed, 0]})
+
+
+def zeros_3d(b, s):
+    return zero_isolation(b, s, "zeros_31n_3d_isolation_s", 0)
+
+
+def zeros_4d(b, s):
+    return zero_isolation(b, s, "zeros_25n_4d_isolation_s", 1)
+
+
+# --- grouped TT chains (scripts/bench_tt_book_grouped.py, bench_tt_grouped.py,
+# bench_highd_grouping.py) --------------------------------------------------
+
+
+def tt_book(b, s):
+    """bench_tt_book_grouped.py's book (:60-66): price and the five
+    first-order ``differentiate()`` specs of ``to_tt(1e-13)``."""
+    if "tt_book" not in s:
+        comp = compressed(b, s)
+        models = [comp] + [comp.differentiate(list(spec))
+                           for spec in FIRST_ORDER]
+        s["tt_book"] = [tuple(m._cores_on_device(torch.float64))
+                        for m in models]
+    return s["tt_book"]
+
+
+def tt_book_row(b, s, base, groups):
+    cores = tt_book(b, s)
+    n = b.w.n // 2
+    pts = [b.on(h) for h in b.batches(
+        3, lambda rng: sample_points(n, rng=rng), n * 5 * 8)]
+    dom = np.asarray(DOMAIN)
+    run = tt_eval_dd.tt_dd_book_runner(cores, dom, groups=groups)
+    sub = pts[0][:CHAIN_CHECK]
+    got = run(sub)
+    other = tt_eval_dd.tt_dd_book_runner(
+        cores, dom, groups=None if groups else "auto")(sub)
+    d_f64 = max(dev(got[m], tt_eval.tt_eval_batch(c, dom, sub))
+                for m, c in enumerate(cores))
+    d_groups = max(dev(got[m], other[m]) for m in range(len(cores)))
+    return b.rate(base, run, pts, n, "sets/s", deviation=d_f64, ceiling=DD,
+                  against=f"each model's f64 chain (ops.tt_eval."
+                          f"tt_eval_batch) on {len(sub):,} points of the "
+                          f"first batch (seed 3), on its own scale",
+                  models=len(cores), groups=groups,
+                  checks={"grouped_vs_perdim": [d_groups, TO_TT]})
+
+
+def book_perdim(b, s):
+    return tt_book_row(b, s, "bs5d_to_tt_dd_book6_perdim_sets_per_sec", None)
+
+
+def book_grouped(b, s):
+    return tt_book_row(b, s, "bs5d_to_tt_dd_book6_grouped_sets_per_sec",
+                       "auto")
+
+
+def trimmed(b, s):
+    """bench_tt_grouped.py's compression C (:64): trimmed per bond to a
+    measured sup deviation of 3e-12 on the grid."""
+    if "trim" not in s:
+        s["trim"] = dense(b, s).to_tt(tolerance=1e-13,
+                                      sup_target=b.w.sup_target)
+    return s["trim"]
+
+
+def to_tt_points(b, s):
+    """bench_tt_grouped.py's points (seed 7) and the dense f64 path on
+    its probe, the first 65,536 (:70-71, 124-126)."""
+    cheb = dense(b, s)
+    if "tg64" not in s:
+        host = b.batches(7, lambda rng: sample_points(b.w.n, rng=rng),
+                         b.w.n * 5 * 8)
+        s["tg64"] = [b.on(h) for h in host]
+        s["tg_ref"] = eval_ops.eval_batch(
+            cheb.tensor_values, *s["grid"], s["tg64"][0][:TO_TT_PROBE],
+            (0,) * 5)
+    return s["tg64"], s["tg_ref"]
+
+
+def to_tt_row(b, s, base, comp, groups, dtype=torch.float64):
+    """One configuration of bench_tt_grouped.py: dd (native f64) or
+    f32 per-dim, explicitly grouped or ``"auto"``."""
+    pts, ref = to_tt_points(b, s)
+    cores = comp._cores_on_device(dtype)
+    dom = np.asarray(comp.domain, dtype=np.float64)
+    if dtype == torch.float64:
+        def run(p):
+            return tt_eval_dd.tt_eval_batch_dd(cores, dom, p, groups=groups)
+        ceiling, what = TO_TT, "dd"
+    else:
+        pts = [p.float() for p in pts]
+
+        def run(p):
+            return tt_eval.tt_eval_batch(cores, dom, p, groups=groups)
+        ceiling, what = F32, "f32"
+    shown = (list(tt_eval_dd.tt_dd_auto_groups(tt_eval.core_shapes(cores)))
+             if groups == "auto" else groups)
+    return b.rate(base, run, pts, b.w.n, "queries/s",
+                  deviation=dev(run(pts[0][:len(ref)]), ref),
+                  ceiling=ceiling,
+                  against=f"the dense f64 path on the first {len(ref):,} "
+                          f"points (seed 7)",
+                  ranks=comp.tt_ranks, groups=shown, tier=what)
+
+
+def trim_fields(b, s) -> dict:
+    diag = trimmed(b, s).compression_diagnostics
+    return {"sup_target": b.w.sup_target, "compression_diagnostics": {
+        k: [int(x) for x in v] if isinstance(v, list) else float(v)
+        for k, v in diag.items()}}
+
+
+def perdim_dd(b, s):
+    return to_tt_row(b, s, "bs5d_11n_to_tt_perdim_dd_queries_per_sec",
+                     compressed(b, s), None)
+
+
+def g221_dd(b, s):
+    return to_tt_row(b, s, "bs5d_11n_to_tt_g221_dd_queries_per_sec",
+                     compressed(b, s), [2, 2, 1])
+
+
+def g122_dd(b, s):
+    return to_tt_row(b, s, "bs5d_11n_to_tt_g122_dd_queries_per_sec",
+                     compressed(b, s), [1, 2, 2])
+
+
+def trim_perdim_dd(b, s):
+    return dict(to_tt_row(b, s,
+                          "bs5d_11n_to_tt_trim_perdim_dd_queries_per_sec",
+                          trimmed(b, s), None), **trim_fields(b, s))
+
+
+def trim_grouped_dd(b, s):
+    return dict(to_tt_row(b, s,
+                          "bs5d_11n_to_tt_trim_grouped_dd_queries_per_sec",
+                          trimmed(b, s), "auto"), **trim_fields(b, s))
+
+
+def perdim_f32(b, s):
+    return to_tt_row(b, s, "bs5d_11n_to_tt_perdim_f32_queries_per_sec",
+                     compressed(b, s), None, torch.float32)
+
+
+def grouped_f32(b, s):
+    return to_tt_row(b, s, "bs5d_11n_to_tt_grouped_f32_queries_per_sec",
+                     compressed(b, s), "auto", torch.float32)
+
+
+def highd_slider_chain(b, s, d):
+    """bench_highd_grouping.py's d-D basket slider (:47-57; at d = 10,
+    config 4's), converted with ``to_tt()``: f64 cores and points of
+    seed 11 in [-1, 1]^d."""
+    key = ("highd", d)
+    if key not in s:
+        slider = ChebyshevSlider(basket_np, d, [[-1.0, 1.0]] * d, [9] * d,
+                                 [[i] for i in range(d)], [0.0] * d,
+                                 vectorized=True, device=b.device)
+        slider.build(verbose=False)
+        tt = slider.to_tt()
+        n = b.w.n
+        pts = b.batches(11, lambda rng: rng.uniform(-1, 1, (n, d)), n * d * 8)
+        s[key] = (tt._cores_on_device(torch.float64), tt.tt_ranks,
+                  [b.on(p) for p in pts])
+    return s[key]
+
+
+def synthetic_chain(b, s):
+    """The script's 14-D rank-8 chain (:77-90): 7 nodes, decayed random
+    cores, then the points, from one seed-3 stream."""
+    if "synthetic" not in s:
+        d, nn, r = 14, 7, 8
+        rng = np.random.default_rng(3 + b.seed)
+        raw = []
+        for k in range(d):
+            c = rng.normal(size=(1 if k == 0 else r, nn,
+                                 1 if k == d - 1 else r))
+            c[:, 2:, :] *= np.exp(-1.2 * np.arange(nn - 2))[None, :, None]
+            raw.append(c / (1.1 * np.abs(c).sum(axis=1).max()))
+        n = b.w.n
+        pts = b.batches(None, lambda g: g.uniform(-1, 1, (n, d)), n * d * 8,
+                        rng=rng)
+        s["synthetic"] = (tuple(b.on(c) for c in raw),
+                          [1] + [c.shape[2] for c in raw],
+                          [b.on(p) for p in pts])
+    return s["synthetic"]
+
+
+def highd_row(b, base, chain, groups):
+    cores, ranks, pts = chain
+    dom = np.asarray([[-1.0, 1.0]] * len(cores))
+
+    def run(p):
+        return tt_eval_dd.tt_eval_batch_dd(cores, dom, p, groups=groups)
+
+    sub = pts[0][:CHAIN_CHECK]
+    return b.rate(base, run, pts, b.w.n, "queries/s",
+                  deviation=dev(run(sub), tt_eval.tt_eval_batch(cores, dom,
+                                                                sub)),
+                  ceiling=DD,
+                  against=f"the per-dim f64 chain of the same cores on "
+                          f"{len(sub):,} points of the first batch",
+                  ranks=ranks, groups=groups, auto_groups=list(
+                      tt_eval_dd.tt_dd_auto_groups(
+                          tt_eval.core_shapes(cores))))
+
+
+def highd10_perdim(b, s):
+    return highd_row(b, "highd_slider10d_9n_to_tt_dd_perdim_queries_per_sec",
+                     highd_slider_chain(b, s, 10), None)
+
+
+def highd10_auto(b, s):
+    return highd_row(b, "highd_slider10d_9n_to_tt_dd_auto_queries_per_sec",
+                     highd_slider_chain(b, s, 10), "auto")
+
+
+def highd14_perdim(b, s):
+    return highd_row(b, "highd_slider14d_9n_to_tt_dd_perdim_queries_per_sec",
+                     highd_slider_chain(b, s, 14), None)
+
+
+def highd14_auto(b, s):
+    return highd_row(b, "highd_slider14d_9n_to_tt_dd_auto_queries_per_sec",
+                     highd_slider_chain(b, s, 14), "auto")
+
+
+def synthetic_perdim(b, s):
+    return highd_row(b, "highd_tt14d_7n_r8_dd_perdim_queries_per_sec",
+                     synthetic_chain(b, s), None)
+
+
+def synthetic_auto(b, s):
+    return highd_row(b, "highd_tt14d_7n_r8_dd_auto_queries_per_sec",
+                     synthetic_chain(b, s), "auto")
+
+
 ROWS = (
     ("bs5d_11n_build_cold_s", build_cold),
     ("bs5d_11n_build_warm_s", build_warm),
@@ -1641,9 +2528,41 @@ ROWS = (
     ("bs5d_11n_integrate_book_boxes_per_sec", book_integrals),
     ("bs5d_11n_scenario_roots_per_sec", scenario_roots),
     ("bs5d_11n_scenario_minima_per_sec", scenario_minima),
+    ("fit3d_9n_host_samples_per_sec", fit_host),
+    ("fit3d_9n_f32_samples_per_sec", fit_f32),
+    ("fit3d_9n_dd_samples_per_sec", fit_dd),
+    ("ttfit5d_7n_r5_device_sample_sweeps_per_sec", tt_fit_device),
+    ("ttfit5d_7n_r5_host_sample_sweeps_per_sec", tt_fit_host),
+    ("global_waves2d_21n_min_s", global_waves),
+    ("global_bowl3d_9n_min_s", global_bowl3),
+    ("global_osc5d_21n_min_s", global_osc5),
+    ("global_spline2d_kink_min_s", global_spline),
+    ("global_slider10d_9n_min_s", global_slider),
+    ("global_tt3d_r8_min_s", global_tt),
+    ("global_bowl3d_9n_critical_points_s", global_bowl3_critical),
+    ("global_tt3d_r8_critical_points_s", global_tt_critical),
+    ("global_circle_line_solve_system_s", global_solve),
+    ("ttmin10d_7n_r8_certified_min_s", tt_search),
+    ("zeros_31n_3d_isolation_s", zeros_3d),
+    ("zeros_25n_4d_isolation_s", zeros_4d),
+    ("bs5d_to_tt_dd_book6_perdim_sets_per_sec", book_perdim),
+    ("bs5d_to_tt_dd_book6_grouped_sets_per_sec", book_grouped),
+    ("bs5d_11n_to_tt_perdim_dd_queries_per_sec", perdim_dd),
+    ("bs5d_11n_to_tt_g221_dd_queries_per_sec", g221_dd),
+    ("bs5d_11n_to_tt_g122_dd_queries_per_sec", g122_dd),
+    ("bs5d_11n_to_tt_trim_perdim_dd_queries_per_sec", trim_perdim_dd),
+    ("bs5d_11n_to_tt_trim_grouped_dd_queries_per_sec", trim_grouped_dd),
+    ("bs5d_11n_to_tt_perdim_f32_queries_per_sec", perdim_f32),
+    ("bs5d_11n_to_tt_grouped_f32_queries_per_sec", grouped_f32),
+    ("highd_slider10d_9n_to_tt_dd_perdim_queries_per_sec", highd10_perdim),
+    ("highd_slider10d_9n_to_tt_dd_auto_queries_per_sec", highd10_auto),
+    ("highd_slider14d_9n_to_tt_dd_perdim_queries_per_sec", highd14_perdim),
+    ("highd_slider14d_9n_to_tt_dd_auto_queries_per_sec", highd14_auto),
+    ("highd_tt14d_7n_r8_dd_perdim_queries_per_sec", synthetic_perdim),
+    ("highd_tt14d_7n_r8_dd_auto_queries_per_sec", synthetic_auto),
 )
 #: Rows that time the host through the C kernels (``utils.ceval``).
-HOST_ROWS = {base for base, _ in ROWS if "_host_" in base}
+HOST_ROWS = {base for base, _ in ROWS if base.endswith("_us")}
 KERNEL_ROWS = {"bs5d_11n_f32_batched_queries_per_sec": "K1",
                "bs5d_11n_dd_queries_per_sec": "K3"}
 

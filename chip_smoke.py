@@ -95,7 +95,8 @@ example of ``examples_torch/`` run on the card, whose K1 and K3
 launches join the kernels line.
 
 Then the benchmark and the JAX package's on-chip tests: every row of
-``bench_torch.py`` at full widths with a few timed calls a row, each
+``bench_torch.py`` at full widths with a few timed calls a row but the
+host searches too long for this script's time (``BENCH_ALONE``), each
 line parsed and held to its ceiling (its K1 and K3 launches join the
 kernels line); and the checks of ``tests/test_tpu_hardware.py`` that no
 phase above holds (the 21^5 grid, the kernels' operand caches under an
@@ -177,6 +178,19 @@ from pychebyshev_tpu_torch.utils import ceval
 from pychebyshev_tpu_torch.utils import fitting as fit_ops
 from pychebyshev_tpu_torch.utils import globalcalc
 from pychebyshev_tpu_torch.utils.calculus import normalize_bounds_batch
+
+from bench_torch import (  # the benchmark's workloads, shared
+    bowl3_np,
+    bowl10_np,
+    circle_np,
+    fit_target_np,
+    kinked_np,
+    line_np,
+    osc5_np,
+    q3_np,
+    value_scale,
+    waves_np,
+)
 
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
@@ -1190,11 +1204,6 @@ def calculus(card: str, ms: dict, cheb, tt, comp, spline, slider) -> None:
           flush=True)
 
 
-def fit_f(p):
-    """The dense fit's target (scripts/bench_fit.py:41-43)."""
-    return np.sin(2 * p[:, 0]) * np.cos(p[:, 1]) + p[:, 2] ** 3
-
-
 def fit_df0(p):
     """Its derivative along x0, the gradient-enhanced block's values."""
     return 2 * np.cos(2 * p[:, 0]) * np.cos(p[:, 1])
@@ -1235,7 +1244,7 @@ def fitting(card: str, ms: dict):
     samples = {}
     for engine, n in FIT_SAMPLES:
         pts = np.stack([rng.uniform(a, b, n) for a, b in dom], axis=1)
-        samples[engine] = pts, fit_f(pts) + rng.normal(0, FIT_NOISE, n)
+        samples[engine] = pts, fit_target_np(pts) + rng.normal(0, FIT_NOISE, n)
     fits, fit_s, busy = {}, {}, {}
     for engine, (pts, y) in samples.items():
         kw = dict(l2=1e-8, engine=engine, device=DEVICE)
@@ -1306,7 +1315,7 @@ def fitting(card: str, ms: dict):
     e32, edd = dev(out32, f64), dev(out_dd, f64)
     check(e32 <= F32_CEILING, f"fitted f32 vs f64 {e32:.3e}")
     check(edd <= DD_CEILING, f"fitted dd vs f64 {edd:.3e}")
-    truth = fit_f(q.cpu().numpy())
+    truth = fit_target_np(q.cpu().numpy())
     err_fn = dev(f64, truth)
     ms["fitted 9^3 f32 (eval_batch_f32, K1)"] = cuda_ms(
         lambda: model.eval_batch_f32(q32, [0, 0, 0]))
@@ -1542,56 +1551,6 @@ def fitting(card: str, ms: dict):
     return k1_fit, k3_fit
 
 
-def waves_np(p, _data=None):
-    """scripts/bench_global_calculus.py's 2-D "waves" row (host f64)."""
-    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
-    return (np.sin(3 * p[:, 0]) + np.cos(4 * p[:, 1])
-            + 0.5 * p[:, 0] * p[:, 1])
-
-
-def bowl3_np(p, _data=None):
-    """The bench's 3-D "bowl3" row: minima at x0 = +-1/sqrt(2)."""
-    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
-    return ((p[:, 0] ** 2 - 0.5) ** 2 + (p[:, 1] - 0.2) ** 2
-            + np.exp(0.5 * p[:, 2]) * 0.1)
-
-
-def osc5_np(p, _data=None):
-    """The bench's oscillatory 5-D row, built on 21^5 nodes."""
-    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
-    return (np.sin(3 * p[:, 0]) * np.cos(2 * p[:, 1])
-            + np.sin(2 * p[:, 2] + p[:, 3]) + 0.5 * np.cos(4 * p[:, 4])
-            + 0.2 * np.sin(p[:, 0] * p[:, 4] * 2)
-            + 0.1 * np.cos(p[:, 1] + p[:, 2] * p[:, 3]))
-
-
-def kinked_np(p, _data=None):
-    """The bench's 2-piece spline row: a kink minimum on the knot."""
-    p = np.asarray(p, dtype=np.float64)
-    return np.abs(p[:, 0]) + (p[:, 1] - 0.2) ** 2
-
-
-def bowl10_np(p, _data=None):
-    """The bench's 10-D additive slider row."""
-    p = np.atleast_2d(np.asarray(p, dtype=np.float64))
-    return sum((p[:, i] - 0.05 * i) ** 2 for i in range(10))
-
-
-def q3_np(p, _data=None):
-    """The bench's 3-D TT row (rank <= 8)."""
-    p = np.asarray(p, dtype=np.float64)
-    return ((p[:, 0] ** 2 - 0.25) ** 2 + (p[:, 1] - 0.3) ** 2
-            + (p[:, 2] + 0.4) ** 2)
-
-
-def circle_np(p, _data=None):
-    return p[:, 0] ** 2 + p[:, 1] ** 2 - 0.64
-
-
-def line_np(p, _data=None):
-    return p[:, 0] - p[:, 1]
-
-
 def dyadic_boxes(n, d, seed):
     """``n`` sub-boxes of [-1, 1]^d shaped as a search makes them: per
     dim a dyadic interval of depth 0-6, one dim in eight collapsed to a
@@ -1670,20 +1629,6 @@ def recorded(fn, profiled=False):
     texts = [str(w.message) for w in caught
              if issubclass(w.category, RuntimeWarning)]
     return out, seconds, results, texts, device_boxes[0], busy
-
-
-def value_scale(model) -> float:
-    """A bound on |f| over the model's box, from its node values: the
-    scale of the values-within tolerances."""
-    if isinstance(model, ChebyshevTT):
-        return float(np.abs(model.to_dense()).max())
-    if isinstance(model, ChebyshevSpline):
-        return max(value_scale(p) for p in model._pieces)
-    if isinstance(model, ChebyshevSlider):
-        pivot = float(model.pivot_value)
-        return abs(pivot) + sum(value_scale(s) + abs(pivot)
-                                for s in model.slides)
-    return float(model.tensor_values.abs().max())
 
 
 def check_witness(what, value, gap, witness, mode, slack):
@@ -2247,7 +2192,7 @@ def gloo_results(mesh_fn):
     rng = np.random.default_rng(SEED + 91)
     fit_pts = np.stack([rng.uniform(a, b, 5000) for a, b in FIT_DOMAIN],
                        axis=1)
-    fit_y = fit_f(fit_pts) + rng.normal(0, FIT_NOISE, 5000)
+    fit_y = fit_target_np(fit_pts) + rng.normal(0, FIT_NOISE, 5000)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         saved = fit_ops._DD_MAX_CHUNK
@@ -2504,7 +2449,7 @@ def mesh_fits_and_builds(card: str, ms: dict, meshes):
     lines = []
     for engine, n in MESH_FITS:
         pts = np.stack([rng.uniform(a, b, n) for a, b in FIT_DOMAIN], axis=1)
-        y = fit_f(pts) + rng.normal(0, FIT_NOISE, n)
+        y = fit_target_np(pts) + rng.normal(0, FIT_NOISE, n)
         kw = dict(l2=1e-8, engine=engine, device=DEVICE)
         plain, plain_s = timed_s(lambda: ChebyshevApproximation.fit(
             pts, y, 3, FIT_DOMAIN, FIT_NODES, **kw))
@@ -2772,25 +2717,39 @@ def examples(card: str):
 
 
 BENCH_REPS = 5
+#: Rows phase 57 leaves to ``python3 bench_torch.py`` alone: the host
+#: NumPy searches, no card in their timed calls, one call of which took
+#: 48-51 s (the 10-D TT search), 34-36 s (31^3) and 353-399 s (25^4) on
+#: the card's hosts (H100 80GB HBM3 machines, 700 W).  Without the 25^4
+#: isolation alone this script took 1,028 s of its 1,200.
+BENCH_ALONE = ("ttmin10d_", "zeros_")
+#: The rows of the scripts beyond bench.py, the baseline table and the
+#: calculus benches: the fits, global calculus, the TT search, zero
+#: isolation and the grouped TT chains.
+SCRIPT_ROWS = ("fit3d_", "ttfit5d_", "global_", "ttmin10d_", "zeros_",
+               "bs5d_to_tt_dd_book6_", "bs5d_11n_to_tt_perdim_",
+               "bs5d_11n_to_tt_g", "bs5d_11n_to_tt_trim_", "highd_")
 
 
 def bench_rows(card: str):
     """Phase 57: ``bench_torch.main(device="cuda")`` at full widths with
-    ``BENCH_REPS`` timed calls a row, its standard output held aside:
-    every line parses, every row is there and holds its ceiling, K1 and
-    K3 launched on their rows.  Returns the K1 and K3 launches of the
-    run (from zero)."""
+    ``BENCH_REPS`` timed calls a row, every row but ``BENCH_ALONE``'s,
+    its standard output held aside: every line parses, every row is
+    there and holds its ceiling, K1 and K3 launched on their rows.
+    Returns the K1 and K3 launches of the run (from zero)."""
     import contextlib
     import io
 
     import bench_torch
+    selected = [base for base, _ in bench_torch.ROWS
+                if not base.startswith(BENCH_ALONE)]
     buf = io.StringIO()
     fused_eval.launches = 0
     fused_dd.launches = 0
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
-            bench_torch.main(device=DEVICE, reps=BENCH_REPS)
+            bench_torch.main(device=DEVICE, reps=BENCH_REPS, rows=selected)
     finally:
         k1, k3 = fused_eval.launches, fused_dd.launches
         for line in buf.getvalue().splitlines():
@@ -2799,19 +2758,23 @@ def bench_rows(card: str):
     lines = [json.loads(line) for line in buf.getvalue().splitlines()]
     rows = [line for line in lines if "metric" in line]
     names = [row["metric"] for row in rows]
-    check(names == [base for base, _ in bench_torch.ROWS],
-          f"bench_torch rows {names}")
+    check(names == selected, f"bench_torch rows {names}")
     for row in rows:
         check(row["ok"] and row["deviation"] <= row["ceiling"],
               f"bench_torch {row['metric']}: {row}")
     for base in bench_torch.KERNEL_ROWS:
         check(next(r for r in rows if r["metric"] == base)["launches"] > 0,
               f"bench_torch {base} never launched its kernel")
-    check(lines[-1] == {"ok": True, "rows": len(bench_torch.ROWS),
-                        "failed": []}, f"bench_torch last line {lines[-1]}")
+    check(lines[-1] == {"ok": True, "rows": len(selected), "failed": []},
+          f"bench_torch last line {lines[-1]}")
     busy = sum(1 for line in lines if "busy_share" in line)
     hosts = {row["host_cpu"] for row in rows if "host_cpu" in row}
-    print(f"[57 bench_torch] {len(rows)} rows at full widths, "
+    scripts = [row for row in rows if row["metric"].startswith(SCRIPT_ROWS)]
+    alone = len(bench_torch.ROWS) - len(selected)
+    print(f"[57 bench_torch] {len(rows)} rows at full widths ({alone} left "
+          f"to the benchmark alone: {', '.join(BENCH_ALONE)}), "
+          f"{len(scripts)} of them from the rest of scripts/ "
+          f"({sum(row['row_s'] for row in scripts):.1f} s), at most "
           f"{BENCH_REPS} timed calls each, every line parsed, every row "
           f"within its ceiling, {busy} busy-share lines; K1 {k1} K3 {k3} "
           f"launches; host rows on {', '.join(sorted(hosts))}; "
@@ -3624,7 +3587,8 @@ def main() -> None:
     # 56. Every example on the card; their K1 and K3 launches count.
     k1_examples, k3_examples = examples(card)
 
-    # 57. bench_torch.py at full widths; its K1 and K3 launches count.
+    # 57. bench_torch.py at full widths but BENCH_ALONE's rows; its K1
+    # and K3 launches count.
     k1_bench, k3_bench = bench_rows(card)
 
     # 58. The JAX package's on-chip tests that no phase above holds.

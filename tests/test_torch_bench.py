@@ -8,7 +8,9 @@ the calls the rows make, held to the JAX package's f64 calls (its dd
 paths are not the yardstick; ROADMAP.md queue 3), the rank-15 cross's
 ranks and evaluation count, and config 5's TT-ALS builds (bitwise the
 JAX package's).  The host rows' C and NumPy single-point values are
-bitwise the JAX package's (the same C source, the same NumPy steps).
+bitwise the JAX package's (the same C source, the same NumPy steps), as
+are the host fits, the TT search and the zero isolators (host NumPy
+copies); the global searches agree within 1e-12 of each model's scale.
 (d) No card: ``main`` and the command line refuse, naming the cause.
 (e) ``--rows``: a prefix runs exactly its rows.
 """
@@ -30,10 +32,14 @@ from pychebyshev_tpu import ChebyshevApproximation as JaxApproximation
 from pychebyshev_tpu import ChebyshevSlider as JaxSlider
 from pychebyshev_tpu import ChebyshevSpline as JaxSpline
 from pychebyshev_tpu import ChebyshevTT as JaxTT
+from pychebyshev_tpu import solve_system as jax_solve_system
 from pychebyshev_tpu.ops import eval as jax_eval
 from pychebyshev_tpu.ops import integrate as jax_integrate
+from pychebyshev_tpu.ops import subdivision as jax_subdivision
+from pychebyshev_tpu.ops import tt_eval_dd as jax_tt_eval_dd
 from pychebyshev_tpu.ops.tt_eval import tt_eval_batch as jax_tt_eval_batch
 from pychebyshev_tpu.serving import integrate_book as jax_integrate_book
+from pychebyshev_tpu.utils import fitting as jax_fitting
 from pychebyshev_tpu_torch import (
     BatchedEvaluator,
     ChebyshevApproximation,
@@ -47,9 +53,15 @@ from pychebyshev_tpu_torch.ops import (
     fused_eval,
     integrate,
     slider_eval,
+    subdivision,
     tt_eval,
     tt_eval_dd,
 )
+from pychebyshev_tpu_torch.ops.chebyshev import (
+    barycentric_weights_np,
+    nodes_for_dim_np,
+)
+from pychebyshev_tpu_torch.utils import fitting, globalcalc
 
 REPO = Path(__file__).resolve().parent.parent
 _spec = importlib.util.spec_from_file_location("bench_torch",
@@ -77,7 +89,40 @@ NEW_BASES = [
     "bs5d_11n_f64_cond_exp_scenarios_per_sec",
     "bs5d_tt11_r15_dd_cond_exp_scenarios_per_sec",
     "bs5d_11n_integrate_book_boxes_per_sec",
-    "bs5d_11n_scenario_roots_per_sec", "bs5d_11n_scenario_minima_per_sec"]
+    "bs5d_11n_scenario_roots_per_sec", "bs5d_11n_scenario_minima_per_sec",
+    # the rest of scripts/: the fits, global calculus, the TT search,
+    # zero isolation, the grouped TT chains
+    "fit3d_9n_host_samples_per_sec", "fit3d_9n_f32_samples_per_sec",
+    "fit3d_9n_dd_samples_per_sec",
+    "ttfit5d_7n_r5_device_sample_sweeps_per_sec",
+    "ttfit5d_7n_r5_host_sample_sweeps_per_sec",
+    "global_waves2d_21n_min_s", "global_bowl3d_9n_min_s",
+    "global_osc5d_21n_min_s", "global_spline2d_kink_min_s",
+    "global_slider10d_9n_min_s", "global_tt3d_r8_min_s",
+    "global_bowl3d_9n_critical_points_s", "global_tt3d_r8_critical_points_s",
+    "global_circle_line_solve_system_s", "ttmin10d_7n_r8_certified_min_s",
+    "zeros_31n_3d_isolation_s", "zeros_25n_4d_isolation_s",
+    "bs5d_to_tt_dd_book6_perdim_sets_per_sec",
+    "bs5d_to_tt_dd_book6_grouped_sets_per_sec",
+    "bs5d_11n_to_tt_perdim_dd_queries_per_sec",
+    "bs5d_11n_to_tt_g221_dd_queries_per_sec",
+    "bs5d_11n_to_tt_g122_dd_queries_per_sec",
+    "bs5d_11n_to_tt_trim_perdim_dd_queries_per_sec",
+    "bs5d_11n_to_tt_trim_grouped_dd_queries_per_sec",
+    "bs5d_11n_to_tt_perdim_f32_queries_per_sec",
+    "bs5d_11n_to_tt_grouped_f32_queries_per_sec",
+    "highd_slider10d_9n_to_tt_dd_perdim_queries_per_sec",
+    "highd_slider10d_9n_to_tt_dd_auto_queries_per_sec",
+    "highd_slider14d_9n_to_tt_dd_perdim_queries_per_sec",
+    "highd_slider14d_9n_to_tt_dd_auto_queries_per_sec",
+    "highd_tt14d_7n_r8_dd_perdim_queries_per_sec",
+    "highd_tt14d_7n_r8_dd_auto_queries_per_sec"]
+#: The rows that run only host NumPy: host clock, the CPU named, no
+#: busy-share line.
+HOST_NUMPY = ["fit3d_9n_host_samples_per_sec",
+              "ttfit5d_7n_r5_host_sample_sweeps_per_sec",
+              "ttmin10d_7n_r8_certified_min_s", "zeros_31n_3d_isolation_s",
+              "zeros_25n_4d_isolation_s"]
 
 
 def dev(a, ref, floor=0.0) -> float:
@@ -125,12 +170,12 @@ def test_every_row_is_there_with_every_key(rehearsal):
     assert headline["vs_baseline"] == pytest.approx(
         headline["value"] * bench.BASELINE_SINGLE_QUERY_S)
     assert "CPU" in headline["baseline"]
-    assert BASES[:19] + NEW_BASES == BASES and len(BASES) == 41
+    assert BASES[:19] + NEW_BASES == BASES and len(BASES) == 73
 
 
 def test_host_rows_time_the_host_and_name_its_cpu(rehearsal):
     rows, lines = rehearsal
-    assert bench.HOST_ROWS == {b for b in NEW_BASES if "_host_" in b}
+    assert bench.HOST_ROWS == {b for b in NEW_BASES if b.endswith("_us")}
     setup = [line for line in lines if "setup" in line]
     assert [line["ok"] for line in setup] == [True]
     assert "hosteval.c" in setup[0]["setup"]
@@ -170,6 +215,61 @@ def test_config_and_calculus_rows_report_their_fields(rehearsal):
     assert rows["bs5d_11n_scenario_roots_per_sec"]["roots_found"] > 0
     assert rows["bs5d_11n_scenario_minima_per_sec"]["checks"][
         "value_vs_single"][0] <= bench.F64
+    cpu = bench.host_cpu()
+    for base in HOST_NUMPY:
+        assert rows[base]["host_cpu"] == cpu
+    for base in BASES:
+        if base not in HOST_NUMPY and base not in bench.HOST_ROWS:
+            assert "host_cpu" not in rows[base], base
+    for base, limit in (("fit3d_9n_f32_samples_per_sec", bench.FIT_GRAM_F32),
+                        ("fit3d_9n_dd_samples_per_sec", bench.FIT_GRAM_DD)):
+        gram = rows[base]["checks"]["gram_vs_host_f64"]
+        assert gram[1] == limit and gram[0] <= limit
+    assert rows["fit3d_9n_host_samples_per_sec"]["ceiling"] == 2e-3
+    tt_host = rows["ttfit5d_7n_r5_host_sample_sweeps_per_sec"]
+    # one call on the host clock, as the builds are
+    assert tt_host["samples"] == 1 and tt_host["sweeps"] == 1
+    assert tt_host["rms"] == rows[
+        "ttfit5d_7n_r5_device_sample_sweeps_per_sec"]["rms"]
+    for base in NEW_BASES:
+        if base.startswith("global_"):
+            row = rows[base]
+            assert {"certified", "gap", "boxes", "searches",
+                    "device_box_stats"} <= row.keys(), base
+            # the median seconds a call, the optimum beside it
+            assert row["value"] == pytest.approx(row["median_ms"] / 1e3)
+    for base in ("global_bowl3d_9n_min_s", "global_osc5d_21n_min_s",
+                 "ttmin10d_7n_r8_certified_min_s"):
+        assert np.isfinite(rows[base]["optimum"])
+    assert rows["global_bowl3d_9n_min_s"]["certified"] is True
+    assert rows["global_bowl3d_9n_min_s"]["searches"] == 1
+    assert rows["global_slider10d_9n_min_s"]["searches"] == 0   # exact
+    assert len(rows["global_circle_line_solve_system_s"]["roots"]) == 2
+    assert rows["global_tt3d_r8_critical_points_s"]["kinds"] == [
+        "minimum", "minimum", "saddle"]
+    assert "witness" in rows["global_osc5d_21n_min_s"]
+    tt_min = rows["ttmin10d_7n_r8_certified_min_s"]
+    assert {"certified", "gap", "boxes", "witness", "ranks"} <= tt_min.keys()
+    assert tt_min["boxes"] == tt_min["n"] > 0
+    for base in ("zeros_31n_3d_isolation_s", "zeros_25n_4d_isolation_s"):
+        row = rows[base]
+        assert row["boxes"] >= row["critical_points"] > 0
+        assert row["checks"]["critical_points_missed"] == [0, 0]
+    for base in ("bs5d_to_tt_dd_book6_perdim_sets_per_sec",
+                 "bs5d_to_tt_dd_book6_grouped_sets_per_sec"):
+        assert rows[base]["models"] == 6
+        assert rows[base]["checks"]["grouped_vs_perdim"][1] == bench.TO_TT
+    assert rows["bs5d_11n_to_tt_g221_dd_queries_per_sec"]["groups"] == [
+        2, 2, 1]
+    trim = rows["bs5d_11n_to_tt_trim_perdim_dd_queries_per_sec"]
+    assert trim["ranks"][1:-1] == trim["compression_diagnostics"][
+        "bond_ranks"]
+    assert trim["compression_diagnostics"]["grid_sup_dev"] <= trim[
+        "sup_target"]
+    for base in NEW_BASES:
+        if base.startswith("highd_"):
+            assert rows[base]["groups"] in (None, "auto")
+            assert sum(rows[base]["auto_groups"]) in (10, 14)
 
 
 @pytest.mark.parametrize("base", BASES)
@@ -186,8 +286,12 @@ def test_header_busy_lines_and_last_line(rehearsal):
     assert header["allow_tf32"] is False
     assert header["float32_matmul_precision"] == "highest"
     busy = [line for line in lines if "busy_share" in line]
-    # the device rates; the builds and the host rows are not traced
-    timed = [r["metric"] for r in rows if r["unit"].endswith("/s")]
+    # the rows that touch the device: its rates and the global searches
+    # (their box statistics run there); the builds and the host rows
+    # are not traced
+    timed = [r["metric"] for r in rows if "host_cpu" not in r and (
+        r["unit"].endswith("/s") or r["metric"].startswith(
+            "rehearsal.global_"))]
     kernel_rows = [f"rehearsal.{base}" for base in bench.KERNEL_ROWS]
     # the kernel rows are traced first, then the rest in the rows' order
     assert [line["of"] for line in busy] == kernel_rows + [
@@ -663,6 +767,263 @@ def _new_rows(inputs, jax_models, port_models, models):
     }
 
 
+@pytest.fixture(scope="module")
+def script_models():
+    """Both packages' models of the rest of scripts/ at rehearsal widths,
+    as (JAX package's, port's) pairs: bench_global_calculus.py's, the
+    10-D TT search's chain, the zero-isolation interpolants, the
+    trimmed compression of the 9^5 call, the 10-D and 14-D basket
+    sliders (full width: 9 nodes a dim)."""
+    w = bench.SMALL
+    k = w.search_nodes
+    nodes, rank, _ = w.tt_search
+    pairs = {
+        "waves": (lambda cls, **kw: cls(
+            bench.waves_np, 2, [[-1.5, 1.5], [-1, 2]], [k, k],
+            vectorized=True, **kw), None),
+        "bowl3": (lambda cls, **kw: cls(
+            bench.bowl3_np, 3, [[-1, 1]] * 3, [9] * 3, vectorized=True,
+            **kw), None),
+        "osc5": (lambda cls, **kw: cls(
+            bench.osc5_np, 5, [[-1, 1]] * 5, [k] * 5, vectorized=True,
+            **kw), None),
+        "spline": (lambda cls, **kw: cls(
+            bench.kinked_np, 2, [[-1, 1], [-1, 1]], [[9, 9], [9]],
+            knots=[[0.0], []], vectorized=True, **kw), "spline"),
+        "slider": (lambda cls, **kw: cls(
+            bench.bowl10_np, 10, [[-1, 1]] * 10, [9] * 10,
+            partition=[[i] for i in range(10)], pivot_point=[0.0] * 10,
+            vectorized=True, **kw), "slider"),
+        "circle": (lambda cls, **kw: cls(
+            bench.circle_np, 2, [[-1, 1]] * 2, [7, 7], vectorized=True,
+            **kw), None),
+        "line": (lambda cls, **kw: cls(
+            bench.line_np, 2, [[-1, 1]] * 2, [7, 7], vectorized=True,
+            **kw), None),
+        "tt": (lambda cls, **kw: cls(
+            bench.q3_np, 3, [[-1, 1]] * 3, [9] * 3, tolerance=1e-12,
+            max_rank=8, vectorized=True, **kw), "tt"),
+        "chain": (lambda cls, **kw: cls(
+            bench.surrogate_np, 10, [[-1.0, 1.0]] * 10, [nodes] * 10,
+            max_rank=rank, tolerance=1e-12, vectorized=True, **kw), "tt"),
+        "basket14": (lambda cls, **kw: cls(
+            bench.basket_np, 14, [[-1.0, 1.0]] * 14, [9] * 14,
+            [[i] for i in range(14)], [0.0] * 14, vectorized=True, **kw),
+            "slider"),
+    }
+    classes = {None: (JaxApproximation, ChebyshevApproximation),
+               "spline": (JaxSpline, ChebyshevSpline),
+               "slider": (JaxSlider, ChebyshevSlider),
+               "tt": (JaxTT, ChebyshevTT)}
+    with one_thread():
+        out = {name: _pair(make, lambda m: m.build(verbose=False),
+                           *classes[family])
+               for name, (make, family) in pairs.items()}
+        for case, (n, d, freq, _, _) in enumerate(w.zeros):
+            out[f"zeros{case}"] = _pair(lambda cls, **kw: cls(
+                bench.oscillating_np(freq), d, [[-1.0, 1.0]] * d, [n] * d,
+                vectorized=True, **kw), lambda m: m.build(verbose=False))
+    return out
+
+
+def _grad_coeffs(model, d):
+    return [globalcalc.dense_coeff_tensor(
+        model.differentiate(spec).tensor_values)
+        for spec in globalcalc._grad_specs(d)]
+
+
+def _jax_host_gram(pts):
+    """The dense fit's f64 Gram from the JAX package's design rows."""
+    nodes = [nodes_for_dim_np(lo, hi, n)
+             for (lo, hi), n in zip(bench.FIT_DOMAIN, bench.FIT_NODES)]
+    design = jax_fitting._DimDesign(
+        nodes, [barycentric_weights_np(x) for x in nodes])
+    rows = np.asarray(jax_eval._khatri_rao(
+        [design.rows(pts[:, k], k) for k in range(len(nodes))]))
+    return rows.T @ rows
+
+
+def _script_rows(inputs, jax_models, port_models, script):
+    """name -> (the port's call as a row of the rest of scripts/ makes
+    it, the JAX package's, ceiling[, absolute]), lazily."""
+    w = bench.SMALL
+    cheb, comp = port_models[0], port_models[1]
+    jcheb = jax_models[0]
+    fit = bench.fit_samples(bench.Bench("cpu", True, 1, 0, "cpu"), {})
+    pts, y = fit["host"]
+    sub_pts, sub_y = (a[:w.fit_subset] for a in fit["device"])
+    tt_pts, tt_y = bench.tt_fit_samples(bench.Bench("cpu", True, 1, 0,
+                                                    "cpu"), {})
+    fit_kw = dict(l2=bench.FIT_L2, engine="host")
+    tt_kw = dict(max_rank=5, sweeps=w.tt_fit_sweeps, l2=1e-8,
+                 engine="host")
+    block = [(sub_pts, (0, 0, 0), sub_y, np.ones(len(sub_y)))]
+    nodes = [nodes_for_dim_np(lo, hi, n)
+             for (lo, hi), n in zip(bench.FIT_DOMAIN, bench.FIT_NODES)]
+    weights = [barycentric_weights_np(x) for x in nodes]
+    design = fitting._DimDesign(nodes, weights)
+
+    def gram(accumulate):
+        return accumulate(block, nodes, weights, design, 729,
+                          device="cpu")[0]
+
+    def search(name, method="minimize", **kw):
+        """The call on each package's model: the optimum, or the count of
+        critical points and their values, over the port model's scale
+        (bench.value_scale)."""
+        jm, pm = script[name]
+        scale = bench.value_scale(pm)
+
+        def on(m):
+            out = getattr(m, method)(**kw)
+            if method == "minimize":
+                return [out[0] / scale]
+            return [len(out)] + [c.value / scale for c in out]
+        return lambda: on(pm), lambda: on(jm), bench.GLOBAL_VS_CPU, True
+
+    def tt_search(m):
+        res = m([np.asarray(c, dtype=np.float64)
+                 for c in script["chain"][1]._coeff_cores], tol=1e-9,
+                max_boxes=w.tt_search[2])
+        return [res.value, float(res.certified), res.boxes]
+
+    def isolate(m, case):
+        _, d, _, delta, max_boxes = w.zeros[case]
+        return m(_grad_coeffs(script[f"zeros{case}"][1], d), delta=delta,
+                 max_boxes=max_boxes)
+
+    specs = [list(spec) for spec in bench.FIRST_ORDER]
+    book = [comp] + [comp.differentiate(spec) for spec in specs]
+    cores = [tuple(m._cores_on_device(torch.float64)) for m in book]
+    dom = np.asarray(GATE_DOMAIN)
+    bpts = bench.sample_points(512, 3)
+
+    jbook = []
+
+    def jax_book():
+        """The JAX package's dd book (grouped "auto"), one compile for
+        both of the port's routes."""
+        if not jbook:
+            jcomp = jcheb.to_tt(tolerance=1e-13)
+            jbook.append(np.asarray(jax_tt_eval_dd.tt_eval_batch_dd_models(
+                [tuple(m._cores_on_device(np.float64)) for m in [jcomp] + [
+                    jcomp.differentiate(spec) for spec in specs]], dom,
+                bpts, groups="auto")))
+        return jbook[0]
+
+    trims = {}
+
+    def trimmed(m):
+        if id(m) not in trims:
+            trims[id(m)] = m.to_tt(tolerance=1e-13, sup_target=w.sup_target)
+        return trims[id(m)]
+
+    def chain_values(tt, n_dims):
+        p = np.random.default_rng(11).uniform(-1, 1, (2048, n_dims))
+        return tt.eval_batch(p)
+
+    def slider10(pkg):
+        return (jax_models[2], port_models[3])[pkg]
+
+    def shapes(cores_):
+        return [tuple(int(x) for x in c.shape) for c in cores_]
+
+    return {
+        "dense fit, host engine": (
+            lambda: fitting.fit_dense_tensor(pts, y, bench.FIT_DOMAIN,
+                                             bench.FIT_NODES, **fit_kw)[0],
+            lambda: jax_fitting.fit_dense_tensor(
+                pts, y, bench.FIT_DOMAIN, bench.FIT_NODES, **fit_kw)[0],
+            0.0, True),
+        "dense fit, f32 Gram": (
+            lambda: gram(fitting._device_normal_accumulation),
+            lambda: _jax_host_gram(sub_pts), bench.FIT_GRAM_F32),
+        "dense fit, dd Gram": (
+            lambda: gram(fitting._device_normal_accumulation_dd),
+            lambda: _jax_host_gram(sub_pts), bench.FIT_GRAM_DD),
+        "TT fit, host engine": (
+            lambda: np.concatenate([c.ravel() for c in fitting.fit_tt_cores(
+                tt_pts, tt_y, [[0.0, 1.0]] * 5, [7] * 5, **tt_kw)[0]]),
+            lambda: np.concatenate([np.asarray(c).ravel() for c in
+                                    jax_fitting.fit_tt_cores(
+                tt_pts, tt_y, [[0.0, 1.0]] * 5, [7] * 5, **tt_kw)[0]]),
+            0.0, True),
+        "global waves minimize": search("waves", tol=1e-9),
+        "global bowl3 minimize": search("bowl3", tol=1e-9),
+        "global osc5 minimize": search("osc5", tol=1e-7,
+                                       max_boxes=w.osc_boxes),
+        "global spline minimize": search("spline", tol=1e-9),
+        "global slider minimize": search("slider", tol=1e-9),
+        "global TT minimize": search("tt", tol=1e-9),
+        "global bowl3 critical_points": search("bowl3", "critical_points"),
+        "global TT critical_points": search("tt", "critical_points"),
+        "global solve_system": (
+            lambda: bench.solve_system([script["circle"][1],
+                                        script["line"][1]]),
+            lambda: jax_solve_system([script["circle"][0],
+                                      script["line"][0]]),
+            bench.GLOBAL_VS_CPU, True),
+        "minimize_tt_cores, 10-D chain": (
+            lambda: tt_search(subdivision.minimize_tt_cores),
+            lambda: tt_search(jax_subdivision.minimize_tt_cores), 0.0, True),
+        "isolate_common_zeros, 3-D case": (
+            lambda: isolate(subdivision.isolate_common_zeros, 0),
+            lambda: isolate(jax_subdivision.isolate_common_zeros, 0), 0.0,
+            True),
+        "isolate_common_zeros, 4-D case": (
+            lambda: isolate(subdivision.isolate_common_zeros, 1),
+            lambda: isolate(jax_subdivision.isolate_common_zeros, 1), 0.0,
+            True),
+        "TT dd book, per-dim": (
+            lambda: tt_eval_dd.tt_dd_book_runner(cores, dom,
+                                                 groups=None)(bpts),
+            jax_book, bench.DD),
+        "TT dd book, grouped": (
+            lambda: tt_eval_dd.tt_dd_book_runner(cores, dom,
+                                                 groups="auto")(bpts),
+            jax_book, bench.DD),
+        "to_tt(sup_target) ranks": (
+            lambda: trimmed(cheb).tt_ranks, lambda: trimmed(jcheb).tt_ranks,
+            0.0, True),
+        "to_tt(sup_target) values": (
+            lambda: trimmed(cheb).eval_batch(inputs[0]),
+            lambda: np.asarray(trimmed(jcheb).eval_batch(inputs[0])),
+            bench.TO_TT),
+        "10-D slider to_tt chain": (
+            lambda: chain_values(slider10(1).to_tt(), 10),
+            lambda: np.asarray(chain_values(slider10(0).to_tt(), 10)),
+            bench.DD),
+        "14-D slider to_tt chain": (
+            lambda: chain_values(script["basket14"][1].to_tt(), 14),
+            lambda: np.asarray(chain_values(script["basket14"][0].to_tt(),
+                                            14)), bench.DD),
+        "tt_dd_auto_groups, 10-D slider": (
+            lambda: tt_eval_dd.tt_dd_auto_groups(shapes(
+                slider10(1).to_tt()._coeff_cores)),
+            lambda: jax_tt_eval_dd.tt_dd_auto_groups(tuple(shapes(
+                slider10(0).to_tt()._coeff_cores))), 0.0, True),
+        "tt_dd_auto_groups, 14-D slider": (
+            lambda: tt_eval_dd.tt_dd_auto_groups(shapes(
+                script["basket14"][1].to_tt()._coeff_cores)),
+            lambda: jax_tt_eval_dd.tt_dd_auto_groups(tuple(shapes(
+                script["basket14"][0].to_tt()._coeff_cores))), 0.0, True),
+    }
+
+
+SCRIPT_CALLS = [
+    "dense fit, host engine", "dense fit, f32 Gram", "dense fit, dd Gram",
+    "TT fit, host engine", "global waves minimize", "global bowl3 minimize",
+    "global osc5 minimize", "global spline minimize",
+    "global slider minimize", "global TT minimize",
+    "global bowl3 critical_points", "global TT critical_points",
+    "global solve_system", "minimize_tt_cores, 10-D chain",
+    "isolate_common_zeros, 3-D case", "isolate_common_zeros, 4-D case",
+    "TT dd book, per-dim", "TT dd book, grouped", "to_tt(sup_target) ranks",
+    "to_tt(sup_target) values", "10-D slider to_tt chain",
+    "14-D slider to_tt chain", "tt_dd_auto_groups, 10-D slider",
+    "tt_dd_auto_groups, 14-D slider"]
+
+
 ROW_CALLS = ["f32 plain", "f32 K1 route", "f64", "f64 Delta",
              "f64 price + 5 Greeks", "f64 8-model book", "dd (K3 route)",
              "to_tt(1e-13) dd chain", "TT f64 chain", "TT f64 Delta",
@@ -682,15 +1043,18 @@ ROW_CALLS = ["f32 plain", "f32 K1 route", "f64", "f64 Delta",
              "TT dd conditional expectations (native f64)",
              "integrate_book, price + 5 Greeks", "scenario roots along S",
              "scenario minima along S, locations",
-             "scenario minima along S, values"]
+             "scenario minima along S, values"] + SCRIPT_CALLS
 
 
 @pytest.fixture(scope="module")
-def row_calls(inputs, jax_models, port_models, baseline_models):
+def row_calls(inputs, jax_models, port_models, baseline_models,
+              script_models):
     with one_thread():
         return {**_rows(inputs, jax_models, port_models),
                 **_new_rows(inputs, jax_models, port_models,
-                            baseline_models)}
+                            baseline_models),
+                **_script_rows(inputs, jax_models, port_models,
+                               script_models)}
 
 
 @pytest.mark.parametrize("name", ROW_CALLS)
@@ -708,6 +1072,22 @@ def test_row_calls_match_the_jax_package(row_calls, name):
             -1, want.shape[-1])
         d = max(dev(g, w, 1e-3) for g, w in zip(got, want))
     assert d <= ceiling, (name, d)
+
+
+def test_auto_groups_of_the_14d_rank8_chain():
+    """bench_highd_grouping.py's 14-D rank-8 chain at full shape: the
+    packages plan "auto" by different rules.  The JAX package's DP
+    scores the TPU's matrix unit and pairs the cores; the port picks
+    the grouping that moves the fewest intermediate elements a point
+    (``ops.tt_eval_dd._elements_moved``), which is the per-dim chain
+    here, as its 12-core enumeration cap would give anyway."""
+    shapes = tuple((1 if k == 0 else 8, 7, 1 if k == 13 else 8)
+                   for k in range(14))
+    jax_groups = jax_tt_eval_dd.tt_dd_auto_groups(shapes)
+    assert jax_groups == (2,) * 7
+    assert tt_eval_dd.tt_dd_auto_groups(shapes) == (1,) * 14
+    assert tt_eval_dd._elements_moved(shapes, (1,) * 14) < \
+        tt_eval_dd._elements_moved(shapes, jax_groups)
 
 
 def test_portfolio_als_builds_are_bitwise_the_jax_packages(baseline_models):
@@ -763,6 +1143,19 @@ def test_rows_runs_exactly_the_rows_a_prefix_names(capsys):
     assert bench.passed(rows, 3) and not bench.passed(rows)
     assert [base for base, _ in bench.select(["bs5d_11n_scenario_"])] == [
         "bs5d_11n_scenario_roots_per_sec", "bs5d_11n_scenario_minima_per_sec"]
+    # the new prefixes select their own rows and no older prefix grows
+    assert [base for base, _ in bench.select(["highd_"])] == [
+        b for b in NEW_BASES if b.startswith("highd_")] and len(
+            bench.select(["highd_"])) == 6
+    assert [base for base, _ in bench.select(["slider10d_9n_"])] == [
+        "slider10d_9n_dd_greek_report_sets_per_sec", "slider10d_9n_build_s",
+        "slider10d_9n_f32_queries_per_sec", "slider10d_9n_dd_queries_per_sec",
+        "slider10d_9n_f64_queries_per_sec"]
+    for prefix, count in (("fit3d_", 3), ("ttfit5d_", 2), ("global_", 9),
+                          ("ttmin10d_", 1), ("zeros_", 2),
+                          ("bs5d_to_tt_dd_book6_", 2),
+                          ("bs5d_11n_to_tt_", 9)):
+        assert len(bench.select([prefix])) == count, prefix
     assert bench.select(None) is bench.ROWS
     with pytest.raises(SystemExit, match="names no row"):
         bench.select(["bs5d_11n_f32_plain", "no_such_row"])
