@@ -48,9 +48,8 @@ metric as soon as it is measured (``metric``, ``value``, ``unit``,
 ``n``, ``median_ms``, ``p75_ms``, ``samples``, ``deviation``,
 ``ceiling``, ``against``, ``device``, ``ok``; ``launches`` and
 ``kernel_ms`` on the K1 and K3 rows; ``host_cpu`` on the host rows);
-then one ``busy_share`` line per timed device row from a separate
-``torch.profiler`` pass; last ``{"ok": ..., "rows": ..., "failed":
-[...]}``, counting the rows selected.  Diagnostics go to
+last ``{"ok": ..., "rows": ..., "failed": [...]}``, counting the rows
+selected.  Diagnostics go to
 standard error.  The exit code is non-zero if any row breaks its
 ceiling, raises, or is missing; a row that fails does not stop the
 rows after it.
@@ -59,7 +58,7 @@ Timing: CUDA events around each call, 3 warm-ups then ``--reps`` timed
 calls, each row rotating over at least three input batches whose total
 exceeds the card's 50 MB L2 (a server's next request arrives cold);
 the median and the 75th percentile with the sample count (a call over
-a second takes one warm-up, at most 5 timed calls and one traced call;
+a second takes one warm-up and at most 5 timed calls;
 a call over 20 s is its own one sample).  Builds are timed on the host
 clock around a build that ends in ``torch.cuda.synchronize()``; so are
 the rows that run host NumPy only (the host fits, the TT search, the
@@ -123,9 +122,8 @@ from pychebyshev_tpu_torch.utils import ceval, fitting, globalcalc
 BASELINE_SINGLE_QUERY_S = 0.065e-3
 L2_BYTES = 50 * 2 ** 20
 WARMUP = 3
-BUSY_CALLS = 5
 #: A row whose warm call takes longer takes one warm call and at most
-#: ``LONG_REPS`` samples, and one traced call in the busy pass.
+#: ``LONG_REPS`` samples.
 LONG_CALL_S = 1.0
 LONG_REPS = 5
 #: A warm call longer than this is the row's one sample, as a build's
@@ -459,7 +457,6 @@ class Bench:
         self.card = card
         self.cpu = host_cpu()
         self.rows = []
-        self.timed = []   # (base name, fn, batches) for the busy shares
 
     def name(self, base: str) -> str:
         """Full-width card numbers keep the metric's name; any other
@@ -486,10 +483,10 @@ class Bench:
         if self.cuda:
             torch.cuda.synchronize()
 
-    def samples(self, fn, batches, host=False) -> tuple:
-        """(milliseconds of ``reps`` calls after ``WARMUP``, rotating over
-        ``batches``, and whether the call is long): CUDA events on a
-        card, the host clock on the CPU or with ``host``.  A warm call
+    def samples(self, fn, batches, host=False) -> list:
+        """Milliseconds of ``reps`` calls after ``WARMUP``, rotating over
+        ``batches``: CUDA events on a card, the host clock on the CPU or
+        with ``host`` (a row that runs host NumPy only).  A warm call
         longer than ``LONG_CALL_S`` ends the warm-up and the call takes
         at most ``LONG_REPS``; one longer than ``ONE_CALL_S`` is itself
         the one sample."""
@@ -499,11 +496,11 @@ class Bench:
             self.sync()
             warm_s = time.perf_counter() - t0
             if warm_s > ONE_CALL_S:
-                return [warm_s * 1e3], True
+                return [warm_s * 1e3]
             if warm_s > LONG_CALL_S:
                 break
-        long = warm_s > LONG_CALL_S
-        reps = min(self.reps, LONG_REPS) if long else self.reps
+        reps = (min(self.reps, LONG_REPS) if warm_s > LONG_CALL_S
+                else self.reps)
         times = []
         for i in range(reps):
             b = batches[i % len(batches)]
@@ -520,7 +517,7 @@ class Bench:
                 fn(b)
                 self.sync()
                 times.append((time.perf_counter() - t0) * 1e3)
-        return times, long
+        return times
 
     def build_s(self, build) -> float:
         t0 = time.perf_counter()
@@ -528,27 +525,18 @@ class Bench:
         self.sync()
         return time.perf_counter() - t0
 
-    def measure(self, base, fn, batches, host=False) -> list:
-        """A row's ``samples``.  A row that touches the card joins the
-        busy pass (one traced call if its call is long); a ``host`` row
-        (host NumPy only) runs on the host clock and is not traced."""
-        ms, long = self.samples(fn, batches, host)
-        if not host:
-            self.timed.append((base, fn, batches, 1 if long else BUSY_CALLS))
-        return ms
-
-    def rate(self, base, fn, batches, n, unit, per_call=1, host=False,
+    def rate(self, fn, batches, n, unit, per_call=1, host=False,
              **check):
         """A throughput row: ``per_call * n`` results a call; a ``host``
         row names the host's CPU."""
-        ms = self.measure(base, fn, batches, host)
+        ms = self.samples(fn, batches, host)
         row = timing(ms, value=per_call * n / (np.median(ms) / 1e3),
                      unit=unit, n=n, **check)
         return dict(row, host_cpu=self.cpu) if host else row
 
-    def seconds(self, base, fn, n, host=False, **check):
+    def seconds(self, fn, n, host=False, **check):
         """A row of seconds a call of ``fn()``: the median."""
-        ms = self.measure(base, lambda _: fn(), [None], host)
+        ms = self.samples(lambda _: fn(), [None], host)
         row = timing(ms, value=float(np.median(ms)) / 1e3, unit="s", n=n,
                      **check)
         return dict(row, host_cpu=self.cpu) if host else row
@@ -568,53 +556,6 @@ class Bench:
             ms.append((time.perf_counter() - t0) * 1e3 / per_block)
         return timing(ms, value=float(np.median(ms)) * 1e3, unit="us", n=1,
                       calls=per_block * self.reps, host_cpu=self.cpu)
-
-    def busy_shares(self) -> None:
-        """device time over wall time across ``BUSY_CALLS`` calls of each
-        timed row (one of a long call), under ``torch.profiler``; after
-        the timed pass, so tracing never touches a timed number.  The
-        kernel rows go first: on the card, once traces have recorded
-        many kernels, later traces miss launches of the kernels this
-        repository builds, more of them each time, down to none
-        (torch's own kernels are still recorded)."""
-        for base, fn, batches, calls in sorted(
-                self.timed, key=lambda row: row[0] not in KERNEL_ROWS):
-            line = {"busy_share": "not measured", "of": self.name(base),
-                    "calls": calls, "device": self.card}
-            t0 = time.perf_counter()
-            if self.cuda:
-                try:
-                    line.update(_profiled(fn, batches, base in KERNEL_ROWS,
-                                          calls))
-                except Exception as e:   # the one line allowed to miss
-                    log(f"busy share of {base}: {type(e).__name__}: {e}")
-            self.emit(dict(line, trace_s=time.perf_counter() - t0))
-
-
-def _profiled(fn, batches, kernel_row, calls) -> dict:
-    """The device time ``torch.profiler`` records over ``calls`` calls,
-    and the wall time.  A kernel row whose trace lacks any of its
-    launches is not measured (see ``Bench.busy_shares``).  A long call
-    is warm from its timed pass; a short one gets one more warm call."""
-    from torch.profiler import ProfilerActivity, profile
-    if calls > 1:
-        fn(batches[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(calls):
-            fn(batches[i % len(batches)])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    device_ms = sum(e.device_time_total for e in events) / 1e3
-    seen = sum(e.count for e in events if "fused_eval_kernel" in e.key)
-    out = {"device_ms": device_ms, "wall_ms": wall_ms}
-    if kernel_row:
-        out["kernel_launches_traced"] = seen
-    if device_ms > 0 and (seen == calls or not kernel_row):
-        out["busy_share"] = device_ms / wall_ms
-    return out
 
 
 def timing(ms, **fields) -> dict:
@@ -720,7 +661,7 @@ def f32_plain(b, s):
     def run(p):
         return eval_ops.eval_batch(t32, *g32, p, (0,) * 5)
 
-    return b.rate("bs5d_11n_f32_plain_queries_per_sec", run, pts32, b.w.n,
+    return b.rate(run, pts32, b.w.n,
                   "queries/s", deviation=dev(run(pts32[0]), dense_f64(s)),
                   ceiling=F32, against="f64 ops.eval.eval_batch on the "
                                        "first batch")
@@ -738,7 +679,7 @@ def f32_fused(b, s):
 
     before = fused_eval.launches
     d = dev(run(pts32[0]), dense_f64(s))
-    row = b.rate("bs5d_11n_f32_batched_queries_per_sec", run, pts32,
+    row = b.rate(run, pts32,
                  b.w.n, "queries/s", deviation=d, ceiling=F32,
                  against="f64 ops.eval.eval_batch on the first batch")
     row["launches"] = fused_eval.launches - before
@@ -758,7 +699,7 @@ def kernel_ms(b, packed, shape, batches):
     if not b.cuda:
         return "not measured"
     return float(np.median(b.samples(
-        lambda p: fused_eval._launch(*packed, shape, p), batches)[0]))
+        lambda p: fused_eval._launch(*packed, shape, p), batches)))
 
 
 def f32_delta(b, s):
@@ -768,7 +709,7 @@ def f32_delta(b, s):
     def run(p):
         return eval_ops.eval_batch(s["tensor32"], *s["grid32"], p, orders)
 
-    return b.rate("bs5d_11n_f32_delta_queries_per_sec", run, pts32, b.w.n,
+    return b.rate(run, pts32, b.w.n,
                   "queries/s",
                   deviation=dev(run(pts32[0]), dense_f64(s, orders)),
                   ceiling=F32, against="f64 Delta (ops.eval.eval_batch, "
@@ -787,7 +728,7 @@ def f32_greeks(b, s):
     ref = eval_ops.eval_batch_multi(cheb.tensor_values, *s["grid"],
                                     pts64[0], GREEKS)
     d = max(dev(got[k], ref[k]) for k in range(len(GREEKS)))
-    return b.rate("bs5d_11n_f32_price_greeks_sets_per_sec", run, pts32,
+    return b.rate(run, pts32,
                   b.w.n, "Greek-sets/s", deviation=d, ceiling=F32,
                   against="f64 ops.eval.eval_batch_multi, each of the 6 "
                           "specs on its own scale, first batch")
@@ -860,7 +801,7 @@ def tt_f32(b, s):
     def run(p):
         return tt_eval.tt_eval_batch(cores32, dom, p)
 
-    return b.rate("bs5d_tt_r15_f32_queries_per_sec", run, tt32, b.w.n,
+    return b.rate(run, tt32, b.w.n,
                   "queries/s", deviation=dev(run(tt32[0]), tt_f64_chain(s)),
                   ceiling=F32, against="the TT f64 chain on the first "
                                        "batch", ranks=tt.tt_ranks)
@@ -903,7 +844,7 @@ def tt_delta(b, s):
     def run(p):
         return tt_eval.tt_eval_batch(cores32, dom, p)
 
-    return b.rate("bs5d_tt_r15_f32_delta_queries_per_sec", run, tt32,
+    return b.rate(run, tt32,
                   b.w.n, "queries/s",
                   deviation=dev(run(tt32[0]), tt_f64_chain(s, "tt_delta")),
                   ceiling=F32, against="the f64 chain of the "
@@ -920,7 +861,7 @@ def f32_book(b, s):
     got = run(pts32[0])
     ref = dense_f64(s)
     d = max(dev(got[i], (1.0 + 0.1 * i) * ref) for i in range(BOOK))
-    return b.rate("bs5d_11n_f32_book8_model_evals_per_sec", run, pts32,
+    return b.rate(run, pts32,
                   b.w.n, "model-evals/s", per_call=BOOK, deviation=d,
                   ceiling=F32, against="each model's f64 values on the "
                                        "first batch, on its own scale")
@@ -937,7 +878,7 @@ def dd(b, s):
 
     before = fused_dd.launches
     d = dev(run(pts64[0]), dense_f64(s))
-    row = b.rate("bs5d_11n_dd_queries_per_sec", run, pts64, b.w.n,
+    row = b.rate(run, pts64, b.w.n,
                  "queries/s", deviation=d, ceiling=DD,
                  against="f64 ops.eval.eval_batch on the first batch")
     row["launches"] = fused_dd.launches - before
@@ -963,7 +904,7 @@ def to_tt_dd(b, s):
     def run(p):
         return tt_eval_dd.tt_eval_batch_dd(cores, dom, p, groups="auto")
 
-    return b.rate("bs5d_11n_to_tt_dd_queries_per_sec", run, pts64, b.w.n,
+    return b.rate(run, pts64, b.w.n,
                   "queries/s", deviation=dev(run(pts64[0]), dense_f64(s)),
                   ceiling=TO_TT,
                   against="the dense f64 path on the first batch",
@@ -1007,7 +948,7 @@ def tt_dd_masses(b, s):
                                                    groups="auto")
 
     ref = integrate.tt_integrate_box_batch(cores, dom, boxes[0])
-    return b.rate("bs5d_to_tt_dd_bucket_masses_boxes_per_sec", run, boxes,
+    return b.rate(run, boxes,
                   b.w.boxes, "boxes/s",
                   deviation=dev(run(boxes[0]), ref, 1e-300), ceiling=DD,
                   against="the f64 TT box integrals "
@@ -1026,7 +967,7 @@ def dd_cond(b, s):
 
     ref = integrate.partial_integrate_eval_batch(
         cheb.tensor_values, dom, *grid, (0, 2), cond[0][0], cond[0][1])
-    return b.rate("bs5d_11n_dd_cond_exp_scenarios_per_sec", run, cond,
+    return b.rate(run, cond,
                   b.w.boxes, "scenarios/s",
                   deviation=dev(run(cond[0]), ref, 1e-300), ceiling=DD,
                   against="f64 ops.integrate.partial_integrate_eval_batch "
@@ -1047,7 +988,7 @@ def tt_dd(b, s):
         return tt_eval_dd.tt_eval_batch_dd(cores, dom, p)
 
     ref = tt_eval.tt_eval_batch(cores, dom, pts[0])
-    return b.rate("bs5d_tt_r15_dd_queries_per_sec", run, pts, w.n,
+    return b.rate(run, pts, w.n,
                   "queries/s", deviation=dev(run(pts[0]), ref), ceiling=DD,
                   against="the TT f64 chain on the first batch (seed 9)")
 
@@ -1077,7 +1018,7 @@ def slider_dd_report(b, s):
     got = _host(run(pts[0][:w.check]))
     d = max(dev(got[:, m], slider.eval_batch(host[0][:w.check], list(spec)),
                 1e-3) for m, spec in enumerate(SLIDER_SPECS))
-    return b.rate("slider10d_9n_dd_greek_report_sets_per_sec", run, pts, ns,
+    return b.rate(run, pts, ns,
                   "report-sets/s", deviation=d, ceiling=DD,
                   against=f"the class path (ChebyshevSlider.eval_batch) "
                           f"per spec on {w.check:,} points, scale at "
@@ -1092,7 +1033,7 @@ def f64_dense(b, s):
         return eval_ops.eval_batch(cheb.tensor_values, *grid, p, (0,) * 5)
 
     sub = pts64[0][:b.w.check]
-    return b.rate("bs5d_11n_f64_queries_per_sec", run, pts64, b.w.n,
+    return b.rate(run, pts64, b.w.n,
                   "queries/s",
                   deviation=dev(run(sub), cheb.eval_batch_host(sub, [0] * 5)),
                   ceiling=F64, against=f"the host path (eval_batch_host) "
@@ -1110,7 +1051,7 @@ def tt_f64(b, s):
 
     sub = tt64[0][:b.w.check]
     host = [tt.eval(p) for p in _host(sub)]
-    return b.rate("bs5d_tt_r15_f64_queries_per_sec", run, tt64, b.w.n,
+    return b.rate(run, tt64, b.w.n,
                   "queries/s", deviation=dev(run(sub), host), ceiling=F64,
                   against=f"the host chain (ChebyshevTT.eval) on "
                           f"{b.w.check:,} points")
@@ -1312,7 +1253,7 @@ def spline_f64(b, s):
 
     sub = pts[0][:b.w.check]
     host = [spline.eval(p, [0, 0]) for p in _host(sub)]
-    return b.rate("spline2d_17n_f64_queries_per_sec", run, pts, b.w.n,
+    return b.rate(run, pts, b.w.n,
                   "queries/s", deviation=dev(run(sub), host), ceiling=F64,
                   against=f"the class host path (ChebyshevSpline.eval) at "
                           f"{b.w.check:,} points")
@@ -1323,7 +1264,7 @@ def spline_f32(b, s):
     pts = spline_points(b, s)
     engine = BatchedEvaluator(spline, dtype=torch.float32, device=b.device)
     ref = spline.eval_batch_device(pts[0], [0, 0])
-    return b.rate("spline2d_17n_f32_queries_per_sec", engine, pts, b.w.n,
+    return b.rate(engine, pts, b.w.n,
                   "queries/s", deviation=dev(engine(pts[0]), ref),
                   ceiling=F32, against="the f64 class path "
                                        "(eval_batch_device), first batch",
@@ -1372,7 +1313,7 @@ def slider_f32(b, s):
     pts64 = slider_points(b, s)
     pts32 = [p.float() for p in pts64]
     engine = BatchedEvaluator(slider, dtype=torch.float32, device=b.device)
-    return b.rate("slider10d_9n_f32_queries_per_sec", engine, pts32, b.w.n,
+    return b.rate(engine, pts32, b.w.n,
                   "queries/s", deviation=dev(engine(pts32[0]),
                                              slider.eval_batch_device(
                                                  pts64[0])),
@@ -1390,7 +1331,7 @@ def slider_dd(b, s):
                                            p)
 
     sub = pts[0][:b.w.check]
-    return b.rate("slider10d_9n_dd_queries_per_sec", run, pts, b.w.n,
+    return b.rate(run, pts, b.w.n,
                   "queries/s",
                   deviation=dev(run(sub), slider.eval_batch(sub)),
                   ceiling=DD, against=f"the f64 class path "
@@ -1403,7 +1344,7 @@ def slider_f64(b, s):
     pts = slider_points(b, s)
     engine = BatchedEvaluator(slider, dtype=torch.float64, device=b.device)
     sub = pts[0][:b.w.check]
-    return b.rate("slider10d_9n_f64_queries_per_sec", engine, pts, b.w.n,
+    return b.rate(engine, pts, b.w.n,
                   "queries/s",
                   deviation=dev(engine(sub), slider.eval_batch(sub)),
                   ceiling=F64, against=f"the class path "
@@ -1502,7 +1443,7 @@ def box_f64(b, s):
         return integrate.integrate_box_batch(cheb.tensor_values, dom, bx)
 
     d = dev(run(boxes[0][:8]), per_call_integrals(cheb, boxes[0][:8]))
-    row = b.rate("bs5d_11n_f64_box_integrals_per_sec", run, boxes,
+    row = b.rate(run, boxes,
                  b.w.boxes, "boxes/s", deviation=d, ceiling=F64,
                  against="cheb.integrate(bounds=...) one call a box, 8 "
                          "boxes of the first batch")
@@ -1529,7 +1470,7 @@ def box_f32(b, s):
                                              dtype=torch.float32)
 
     ref = integrate.integrate_box_batch(cheb.tensor_values, dom, boxes[0])
-    return b.rate("bs5d_11n_f32_box_integrals_per_sec", run, boxes32,
+    return b.rate(run, boxes32,
                   b.w.boxes, "boxes/s", deviation=dev(run(boxes32[0]), ref),
                   ceiling=F32, against="the f64 box integrals, first batch")
 
@@ -1543,7 +1484,7 @@ def box_dd(b, s):
         return integrate.integrate_box_batch_dd(cheb.tensor_values, dom, bx)
 
     ref = integrate.integrate_box_batch(cheb.tensor_values, dom, boxes[0])
-    return b.rate("bs5d_11n_dd_box_integrals_per_sec", run, boxes,
+    return b.rate(run, boxes,
                   b.w.boxes, "boxes/s", deviation=dev(run(boxes[0]), ref),
                   ceiling=DD, against="the f64 box integrals, first batch")
 
@@ -1559,7 +1500,7 @@ def tt_box_f64(b, s):
 
     got = _host(run(boxes[0][:8]))
     dense_per_call = per_call_integrals(dense(b, s), boxes[0][:8])
-    return b.rate("bs5d_tt11_r15_f64_box_integrals_per_sec", run, boxes,
+    return b.rate(run, boxes,
                   b.w.boxes, "boxes/s",
                   deviation=dev(got, per_call_integrals(tt, boxes[0][:8])),
                   ceiling=F64, against="the same TT's integrate(bounds=...) "
@@ -1590,7 +1531,7 @@ def cond_f64(b, s):
                                 bary_row_np(px[i, 1], nodes[3]),
                                 bary_row_np(px[i, 2], nodes[4])])
            for i in range(len(bx))]
-    return b.rate("bs5d_11n_f64_cond_exp_scenarios_per_sec", run, cond,
+    return b.rate(run, cond,
                   b.w.boxes, "scenarios/s",
                   deviation=dev(run((sub, pts)), ref), ceiling=F64,
                   against=f"NumPy quadrature and barycentric rows "
@@ -1610,7 +1551,7 @@ def tt_cond_dd(b, s):
 
     ref = integrate.tt_partial_integrate_eval_batch(cores, dom, (0, 2),
                                                     *cond[0])
-    return b.rate("bs5d_tt11_r15_dd_cond_exp_scenarios_per_sec", run, cond,
+    return b.rate(run, cond,
                   b.w.boxes, "scenarios/s", deviation=dev(run(cond[0]), ref),
                   ceiling=DD, against="the TT f64 conditional expectations "
                                       "(tt_partial_integrate_eval_batch), "
@@ -1629,7 +1570,7 @@ def book_integrals(b, s):
     got = run(boxes[0])
     d = max(dev(got[k], m.integrate_batch(boxes[0]))
             for k, m in enumerate(book))
-    return b.rate("bs5d_11n_integrate_book_boxes_per_sec", run, boxes,
+    return b.rate(run, boxes,
                   b.w.boxes, "boxes/s", deviation=d, ceiling=F64,
                   against="each model's integrate_batch on the first batch, "
                           "on its own scale", models=len(book))
@@ -1672,7 +1613,7 @@ def scenario_roots(b, s):
                              f"against {single.size} single ones")
         if single.size:
             worst = max(worst, float(np.abs(single - roots[i]).max()))
-    return b.rate("bs5d_11n_scenario_roots_per_sec", run, scen,
+    return b.rate(run, scen,
                   b.w.scenarios, "scenarios/s", deviation=worst,
                   ceiling=ROOTS_VS_SINGLE,
                   against=f"single roots(dim=0) on {SINGLE_CHECKS} "
@@ -1695,7 +1636,7 @@ def scenario_minima(b, s):
         val, loc = gamma.minimize(dim=0, fixed=pinned(scen[0], i))
         loc_err = max(loc_err, abs(loc - locations[i]))
         val_err = max(val_err, abs(val - values[i]) / scale)
-    return b.rate("bs5d_11n_scenario_minima_per_sec", run, scen,
+    return b.rate(run, scen,
                   b.w.scenarios, "scenarios/s", deviation=float(loc_err),
                   ceiling=LOCATION_VS_SINGLE,
                   against=f"single minimize(dim=0) on {SINGLE_CHECKS} "
@@ -1742,7 +1683,7 @@ def gram_vs_host(b, engine, pts, y) -> float:
     return dev(gram, rows.T @ rows)
 
 
-def dense_fit(b, s, base, engine):
+def dense_fit(b, s, engine):
     pts, y = fit_samples(b, s)[engine]
     fitted = {}
 
@@ -1752,7 +1693,7 @@ def dense_fit(b, s, base, engine):
             engine=engine, device=b.device)
 
     host = engine == "host"
-    row = b.rate(base, run, [None], len(y), "samples/s", host=host)
+    row = b.rate(run, [None], len(y), "samples/s", host=host)
     rms = fitted["model"].fit_diagnostics["rms"]
     row.update(deviation=rms, ceiling=2 * FIT_NOISE,
                against=f"the fit's rms residual over its samples, held to "
@@ -1769,15 +1710,15 @@ def dense_fit(b, s, base, engine):
 
 
 def fit_host(b, s):
-    return dense_fit(b, s, "fit3d_9n_host_samples_per_sec", "host")
+    return dense_fit(b, s, "host")
 
 
 def fit_f32(b, s):
-    return dense_fit(b, s, "fit3d_9n_f32_samples_per_sec", "device")
+    return dense_fit(b, s, "device")
 
 
 def fit_dd(b, s):
-    return dense_fit(b, s, "fit3d_9n_dd_samples_per_sec", "device-dd")
+    return dense_fit(b, s, "device-dd")
 
 
 def tt_fit_samples(b, s):
@@ -1834,7 +1775,7 @@ def tt_fit_device(b, s):
     def run(_):
         fitted["model"] = tt_fit(b, s, "device")
 
-    ms = b.measure("ttfit5d_7n_r5_device_sample_sweeps_per_sec", run, [None])
+    ms = b.samples(run, [None])
     model, n = fitted["model"], b.w.tt_fit_samples
     s["ttfit_device"] = model
     return timing(ms, value=n * sweeps_of(model) / (np.median(ms) / 1e3),
@@ -2029,7 +1970,7 @@ def search_fields(rec) -> dict:
             "device_box_stats": rec["device_boxes"]}
 
 
-def global_row(b, s, base, key, call):
+def global_row(b, s, key, call):
     """One of bench_global_calculus.py's calls on the card's model,
     timed, held to the same call on a CPU build of the same model: a
     value within 1e-12 x the model's scale and the same certificate;
@@ -2042,7 +1983,7 @@ def global_row(b, s, base, key, call):
             last["out"] = call(models)
         last["rec"] = rec
 
-    row = b.seconds(base, run, n=0)
+    row = b.seconds(run, n=0)
     with searches() as want_rec:
         want = call(global_models(b, s, "cpu"))
     got, rec = last["out"], last["rec"]
@@ -2077,42 +2018,42 @@ def global_row(b, s, base, key, call):
     return dict(row, **fields)
 
 
-def global_min(b, s, base, key):
-    return global_row(b, s, base, key, lambda m: m[key].minimize(tol=1e-9))
+def global_min(b, s, key):
+    return global_row(b, s, key, lambda m: m[key].minimize(tol=1e-9))
 
 
 def global_waves(b, s):
-    return global_min(b, s, "global_waves2d_21n_min_s", "waves")
+    return global_min(b, s, "waves")
 
 
 def global_bowl3(b, s):
-    return global_min(b, s, "global_bowl3d_9n_min_s", "bowl3")
+    return global_min(b, s, "bowl3")
 
 
 def global_spline(b, s):
-    return global_min(b, s, "global_spline2d_kink_min_s", "spline")
+    return global_min(b, s, "spline")
 
 
 def global_slider(b, s):
-    return global_min(b, s, "global_slider10d_9n_min_s", "slider")
+    return global_min(b, s, "slider")
 
 
 def global_tt(b, s):
-    return global_min(b, s, "global_tt3d_r8_min_s", "tt")
+    return global_min(b, s, "tt")
 
 
 def global_bowl3_critical(b, s):
-    return global_row(b, s, "global_bowl3d_9n_critical_points_s", "bowl3",
+    return global_row(b, s, "bowl3",
                       lambda m: m["bowl3"].critical_points())
 
 
 def global_tt_critical(b, s):
-    return global_row(b, s, "global_tt3d_r8_critical_points_s", "tt",
+    return global_row(b, s, "tt",
                       lambda m: m["tt"].critical_points())
 
 
 def global_solve(b, s):
-    return global_row(b, s, "global_circle_line_solve_system_s", "circle",
+    return global_row(b, s, "circle",
                       lambda m: solve_system([m["circle"], m["line"]]))
 
 
@@ -2129,7 +2070,7 @@ def global_osc5(b, s):
             last["out"] = osc.minimize(tol=1e-7, max_boxes=b.w.osc_boxes)
         last["rec"] = rec
 
-    row = b.seconds("global_osc5d_21n_min_s", run, n=0)
+    row = b.seconds(run, n=0)
     (value, point), fields = last["out"], search_fields(last["rec"])
     gap = 1e-7 if fields["certified"] else fields["gap"]
     pts = b.on(sample_points(b.w.n, 41 + b.seed, [[-1.0, 1.0]] * 5))
@@ -2173,7 +2114,7 @@ def tt_search(b, s):
         last["res"] = subdivision.minimize_tt_cores(cores, tol=1e-9,
                                                     max_boxes=max_boxes)
 
-    row = b.seconds("ttmin10d_7n_r8_certified_min_s", run, n=0, host=True)
+    row = b.seconds(run, n=0, host=True)
     res = last["res"]
     chain = tt._cores_on_device(torch.float64)
     dom = np.asarray(tt.domain)
@@ -2197,7 +2138,7 @@ def tt_search(b, s):
                     abs(at_loc - res.value) / scale, GLOBAL_VS_CPU]})
 
 
-def zero_isolation(b, s, base, case):
+def zero_isolation(b, s, case):
     """``isolate_common_zeros`` of an interpolant's gradient system (host
     NumPy), timed where ``critical_points()`` of the same interpolant
     calls it on the same tensors with the script's delta and
@@ -2225,7 +2166,7 @@ def zero_isolation(b, s, base, case):
         finally:
             globalcalc.isolate_common_zeros = isolate
 
-    calls = b.measure(base, lambda _: run(), [None], host=True)
+    calls = b.samples(lambda _: run(), [None], host=True)
     ms = isolations[-len(calls):]   # the timed calls' (warm-ups first)
     centres = last["centres"]
     specs = globalcalc._grad_specs(d)
@@ -2251,11 +2192,11 @@ def zero_isolation(b, s, base, case):
 
 
 def zeros_3d(b, s):
-    return zero_isolation(b, s, "zeros_31n_3d_isolation_s", 0)
+    return zero_isolation(b, s, 0)
 
 
 def zeros_4d(b, s):
-    return zero_isolation(b, s, "zeros_25n_4d_isolation_s", 1)
+    return zero_isolation(b, s, 1)
 
 
 # --- grouped TT chains (scripts/bench_tt_book_grouped.py, bench_tt_grouped.py,
@@ -2274,7 +2215,7 @@ def tt_book(b, s):
     return s["tt_book"]
 
 
-def tt_book_row(b, s, base, groups):
+def tt_book_row(b, s, groups):
     cores = tt_book(b, s)
     n = b.w.n // 2
     pts = [b.on(h) for h in b.batches(
@@ -2288,7 +2229,7 @@ def tt_book_row(b, s, base, groups):
     d_f64 = max(dev(got[m], tt_eval.tt_eval_batch(c, dom, sub))
                 for m, c in enumerate(cores))
     d_groups = max(dev(got[m], other[m]) for m in range(len(cores)))
-    return b.rate(base, run, pts, n, "sets/s", deviation=d_f64, ceiling=DD,
+    return b.rate(run, pts, n, "sets/s", deviation=d_f64, ceiling=DD,
                   against=f"each model's f64 chain (ops.tt_eval."
                           f"tt_eval_batch) on {len(sub):,} points of the "
                           f"first batch (seed 3), on its own scale",
@@ -2297,12 +2238,11 @@ def tt_book_row(b, s, base, groups):
 
 
 def book_perdim(b, s):
-    return tt_book_row(b, s, "bs5d_to_tt_dd_book6_perdim_sets_per_sec", None)
+    return tt_book_row(b, s, None)
 
 
 def book_grouped(b, s):
-    return tt_book_row(b, s, "bs5d_to_tt_dd_book6_grouped_sets_per_sec",
-                       "auto")
+    return tt_book_row(b, s, "auto")
 
 
 def trimmed(b, s):
@@ -2328,7 +2268,7 @@ def to_tt_points(b, s):
     return s["tg64"], s["tg_ref"]
 
 
-def to_tt_row(b, s, base, comp, groups, dtype=torch.float64):
+def to_tt_row(b, s, comp, groups, dtype=torch.float64):
     """One configuration of bench_tt_grouped.py: dd (native f64) or
     f32 per-dim, explicitly grouped or ``"auto"``."""
     pts, ref = to_tt_points(b, s)
@@ -2346,7 +2286,7 @@ def to_tt_row(b, s, base, comp, groups, dtype=torch.float64):
         ceiling, what = F32, "f32"
     shown = (list(tt_eval_dd.tt_dd_auto_groups(tt_eval.core_shapes(cores)))
              if groups == "auto" else groups)
-    return b.rate(base, run, pts, b.w.n, "queries/s",
+    return b.rate(run, pts, b.w.n, "queries/s",
                   deviation=dev(run(pts[0][:len(ref)]), ref),
                   ceiling=ceiling,
                   against=f"the dense f64 path on the first {len(ref):,} "
@@ -2362,40 +2302,31 @@ def trim_fields(b, s) -> dict:
 
 
 def perdim_dd(b, s):
-    return to_tt_row(b, s, "bs5d_11n_to_tt_perdim_dd_queries_per_sec",
-                     compressed(b, s), None)
+    return to_tt_row(b, s, compressed(b, s), None)
 
 
 def g221_dd(b, s):
-    return to_tt_row(b, s, "bs5d_11n_to_tt_g221_dd_queries_per_sec",
-                     compressed(b, s), [2, 2, 1])
+    return to_tt_row(b, s, compressed(b, s), [2, 2, 1])
 
 
 def g122_dd(b, s):
-    return to_tt_row(b, s, "bs5d_11n_to_tt_g122_dd_queries_per_sec",
-                     compressed(b, s), [1, 2, 2])
+    return to_tt_row(b, s, compressed(b, s), [1, 2, 2])
 
 
 def trim_perdim_dd(b, s):
-    return dict(to_tt_row(b, s,
-                          "bs5d_11n_to_tt_trim_perdim_dd_queries_per_sec",
-                          trimmed(b, s), None), **trim_fields(b, s))
+    return dict(to_tt_row(b, s, trimmed(b, s), None), **trim_fields(b, s))
 
 
 def trim_grouped_dd(b, s):
-    return dict(to_tt_row(b, s,
-                          "bs5d_11n_to_tt_trim_grouped_dd_queries_per_sec",
-                          trimmed(b, s), "auto"), **trim_fields(b, s))
+    return dict(to_tt_row(b, s, trimmed(b, s), "auto"), **trim_fields(b, s))
 
 
 def perdim_f32(b, s):
-    return to_tt_row(b, s, "bs5d_11n_to_tt_perdim_f32_queries_per_sec",
-                     compressed(b, s), None, torch.float32)
+    return to_tt_row(b, s, compressed(b, s), None, torch.float32)
 
 
 def grouped_f32(b, s):
-    return to_tt_row(b, s, "bs5d_11n_to_tt_grouped_f32_queries_per_sec",
-                     compressed(b, s), "auto", torch.float32)
+    return to_tt_row(b, s, compressed(b, s), "auto", torch.float32)
 
 
 def highd_slider_chain(b, s, d):
@@ -2437,7 +2368,7 @@ def synthetic_chain(b, s):
     return s["synthetic"]
 
 
-def highd_row(b, base, chain, groups):
+def highd_row(b, chain, groups):
     cores, ranks, pts = chain
     dom = np.asarray([[-1.0, 1.0]] * len(cores))
 
@@ -2445,7 +2376,7 @@ def highd_row(b, base, chain, groups):
         return tt_eval_dd.tt_eval_batch_dd(cores, dom, p, groups=groups)
 
     sub = pts[0][:CHAIN_CHECK]
-    return b.rate(base, run, pts, b.w.n, "queries/s",
+    return b.rate(run, pts, b.w.n, "queries/s",
                   deviation=dev(run(sub), tt_eval.tt_eval_batch(cores, dom,
                                                                 sub)),
                   ceiling=DD,
@@ -2457,33 +2388,27 @@ def highd_row(b, base, chain, groups):
 
 
 def highd10_perdim(b, s):
-    return highd_row(b, "highd_slider10d_9n_to_tt_dd_perdim_queries_per_sec",
-                     highd_slider_chain(b, s, 10), None)
+    return highd_row(b, highd_slider_chain(b, s, 10), None)
 
 
 def highd10_auto(b, s):
-    return highd_row(b, "highd_slider10d_9n_to_tt_dd_auto_queries_per_sec",
-                     highd_slider_chain(b, s, 10), "auto")
+    return highd_row(b, highd_slider_chain(b, s, 10), "auto")
 
 
 def highd14_perdim(b, s):
-    return highd_row(b, "highd_slider14d_9n_to_tt_dd_perdim_queries_per_sec",
-                     highd_slider_chain(b, s, 14), None)
+    return highd_row(b, highd_slider_chain(b, s, 14), None)
 
 
 def highd14_auto(b, s):
-    return highd_row(b, "highd_slider14d_9n_to_tt_dd_auto_queries_per_sec",
-                     highd_slider_chain(b, s, 14), "auto")
+    return highd_row(b, highd_slider_chain(b, s, 14), "auto")
 
 
 def synthetic_perdim(b, s):
-    return highd_row(b, "highd_tt14d_7n_r8_dd_perdim_queries_per_sec",
-                     synthetic_chain(b, s), None)
+    return highd_row(b, synthetic_chain(b, s), None)
 
 
 def synthetic_auto(b, s):
-    return highd_row(b, "highd_tt14d_7n_r8_dd_auto_queries_per_sec",
-                     synthetic_chain(b, s), "auto")
+    return highd_row(b, synthetic_chain(b, s), "auto")
 
 
 ROWS = (
@@ -2672,7 +2597,6 @@ def main(device="cuda", small=False, reps=40, seed=0,
                 + (row.get("error") or f"deviation {row['deviation']:.3e} "
                                        f"(ceiling {row['ceiling']:g}), "
                                        f"checks {row.get('checks', {})}"))
-    b.busy_shares()
     b.emit({"ok": passed(b.rows, len(selected)), "rows": len(b.rows),
             "failed": [r["metric"] for r in b.rows if not r["ok"]]})
     return b.rows

@@ -58,6 +58,7 @@ from pychebyshev_tpu_torch.ops.eval import (
     apply_derivative_passes,
     barycentric_coefficients,
 )
+from pychebyshev_tpu_torch.utils.tracing import span
 
 __all__ = ["fused_eval_batch", "fused_eval_batch_reference",
            "supports_fused", "clear_fused_cache", "refuse_grad",
@@ -168,23 +169,26 @@ def clear_fused_cache() -> None:
 
 def _packed_operands(cache, tensor, nodes, weights, diff_matrices, orders,
                      shape, dtype):
-    """``_pack``'s operands through the LRU list ``cache``."""
-    keyed = (tensor, *nodes, *weights,
-             *(diff_matrices if any(orders) else ()))
-    versions = tuple(t._version for t in keyed)
-    with _cache_lock:
-        for i, (e_keyed, e_versions, e_orders, packed) in enumerate(cache):
-            if (e_orders == orders and e_versions == versions
-                    and len(e_keyed) == len(keyed)
-                    and all(a is b for a, b in zip(e_keyed, keyed))):
-                cache.insert(0, cache.pop(i))
-                return packed
-    packed = _pack(tensor, nodes, weights, diff_matrices, orders, shape,
-                   dtype)
-    with _cache_lock:
-        cache.insert(0, (keyed, versions, orders, packed))
-        del cache[_CACHE_SLOTS:]
-    return packed
+    """``_pack``'s operands through the LRU list ``cache``, in the
+    ``route.operands`` span."""
+    with span("route.operands"):
+        keyed = (tensor, *nodes, *weights,
+                 *(diff_matrices if any(orders) else ()))
+        versions = tuple(t._version for t in keyed)
+        with _cache_lock:
+            for i, (e_keyed, e_versions, e_orders, packed) in enumerate(
+                    cache):
+                if (e_orders == orders and e_versions == versions
+                        and len(e_keyed) == len(keyed)
+                        and all(a is b for a, b in zip(e_keyed, keyed))):
+                    cache.insert(0, cache.pop(i))
+                    return packed
+        packed = _pack(tensor, nodes, weights, diff_matrices, orders, shape,
+                       dtype)
+        with _cache_lock:
+            cache.insert(0, (keyed, versions, orders, packed))
+            del cache[_CACHE_SLOTS:]
+        return packed
 
 
 def _tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -316,23 +320,26 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _launch(t3, nodes_cat, weights_cat, shape, points):
-    """Launch the kernel's ``t3.dtype`` instance on the current stream.
-    Raises on a refused launch; counting it is the caller's job."""
+    """Launch the kernel's ``t3.dtype`` instance on the current stream,
+    in the ``route.kernel_launch`` span.  Raises on a refused launch;
+    counting it is the caller's job."""
     entry = _ENTRY[t3.dtype]
     n = points.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"{n} points exceed the kernel's int32 count")
-    out = torch.empty(n, dtype=t3.dtype, device=points.device)
-    if n == 0:
-        return out
-    lib = _library()
-    dims = (ctypes.c_int * len(shape))(*shape)
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = getattr(lib, entry)(
-            points.data_ptr(), nodes_cat.data_ptr(), weights_cat.data_ptr(),
-            t3.data_ptr(), out.data_ptr(), n, len(shape),
-            ctypes.cast(dims, ctypes.c_void_p), _split_index(shape), stream)
+    with span("route.kernel_launch"):
+        out = torch.empty(n, dtype=t3.dtype, device=points.device)
+        if n == 0:
+            return out
+        lib = _library()
+        dims = (ctypes.c_int * len(shape))(*shape)
+        with torch.cuda.device(points.device):
+            stream = torch.cuda.current_stream(points.device).cuda_stream
+            err = getattr(lib, entry)(
+                points.data_ptr(), nodes_cat.data_ptr(),
+                weights_cat.data_ptr(), t3.data_ptr(), out.data_ptr(), n,
+                len(shape), ctypes.cast(dims, ctypes.c_void_p),
+                _split_index(shape), stream)
     if err != 0:
         msg = lib.fused_eval_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: {msg} "

@@ -28,6 +28,7 @@ import torch
 
 from pychebyshev_tpu_torch.models.tt_algorithms import tt_merge_cores
 from pychebyshev_tpu_torch.ops.chebyshev import chebyshev_polynomial_matrix
+from pychebyshev_tpu_torch.utils.tracing import span
 
 __all__ = ["tt_eval_batch", "tt_eval_batch_models", "stack_rank_padded",
            "merged_cores", "core_shapes", "group_slices",
@@ -231,31 +232,38 @@ def tt_eval_batch(coeff_cores, domain, points, groups=None) -> torch.Tensor:
         results agree to dtype-level rounding.
 
     Returns (N,) values on the cores' device, in the widest of the
-    points' and the cores' dtypes.
+    points' and the cores' dtypes.  The set-up before the chain runs in
+    the ``route.tt_prepare`` span.
     """
-    coeff_cores = tuple(coeff_cores)
-    device, dtype, points = _resolve(coeff_cores, points)
-    dom = torch.as_tensor(np.asarray(domain, dtype=np.float64),
-                          dtype=dtype, device=device)
-    shapes = core_shapes(coeff_cores)
-    if isinstance(groups, str) and groups == "auto":
-        from pychebyshev_tpu_torch.ops.tt_eval_dd import tt_dd_auto_groups
-        groups = tt_dd_auto_groups(shapes)
-    groups = validated_groups(groups, len(shapes))
-    if groups is not None:
-        merged = _merged_cores_device(coeff_cores, groups, dtype, device)
-        dims_n = tuple(s[1] for s in shapes)
-        slices = group_slices(groups)
-        per_point = max(c.shape[1] * c.shape[2] for c in merged)
-        return _sliced(
-            lambda p: _chain_grouped(merged, dims_n, slices, dom[:, 0],
-                                     dom[:, 1], p),
-            points, per_point, (), dtype)
-    cores = tuple(torch.as_tensor(c, device=device).to(dtype)
-                  for c in coeff_cores)
-    per_point = max(s[1] * s[2] for s in shapes)
-    return _sliced(lambda p: _chain(cores, dom[:, 0], dom[:, 1], p),
-                   points, per_point, (), dtype)
+    with span("route.tt_prepare"):
+        coeff_cores = tuple(coeff_cores)
+        device, dtype, points = _resolve(coeff_cores, points)
+        dom = torch.as_tensor(np.asarray(domain, dtype=np.float64),
+                              dtype=dtype, device=device)
+        shapes = core_shapes(coeff_cores)
+        if isinstance(groups, str) and groups == "auto":
+            from pychebyshev_tpu_torch.ops.tt_eval_dd import (
+                tt_dd_auto_groups,
+            )
+            groups = tt_dd_auto_groups(shapes)
+        groups = validated_groups(groups, len(shapes))
+        if groups is not None:
+            merged = _merged_cores_device(coeff_cores, groups, dtype, device)
+            dims_n = tuple(s[1] for s in shapes)
+            slices = group_slices(groups)
+            per_point = max(c.shape[1] * c.shape[2] for c in merged)
+
+            def chain(p):
+                return _chain_grouped(merged, dims_n, slices, dom[:, 0],
+                                      dom[:, 1], p)
+        else:
+            cores = tuple(torch.as_tensor(c, device=device).to(dtype)
+                          for c in coeff_cores)
+            per_point = max(s[1] * s[2] for s in shapes)
+
+            def chain(p):
+                return _chain(cores, dom[:, 0], dom[:, 1], p)
+    return _sliced(chain, points, per_point, (), dtype)
 
 
 def stack_rank_padded(models_cores, dtype, device):

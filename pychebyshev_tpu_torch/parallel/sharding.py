@@ -49,6 +49,7 @@ import torch.distributed as dist
 from pychebyshev_tpu_torch.config import NODE_COINCIDENCE_TOL
 from pychebyshev_tpu_torch.ops import eval as eval_ops
 from pychebyshev_tpu_torch.ops.chebyshev import nodes_for_dim_np
+from pychebyshev_tpu_torch.utils.tracing import span
 
 __all__ = [
     "make_mesh",
@@ -161,13 +162,14 @@ def _all_reduce(t: torch.Tensor, group, op=None) -> torch.Tensor:
 
 def _all_gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
     """Equal-sized (n, ...) pieces of every rank in ``group`` stacked in
-    rank order -> (size * n, ...)."""
-    x = _checked(x.contiguous(), group)
-    out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
-    gather = (getattr(dist, "all_gather_single", None)
-              or dist.all_gather_into_tensor)
-    gather(out, x, group=group)
-    return out
+    rank order -> (size * n, ...), in the ``serve.gather`` span."""
+    with span("serve.gather"):
+        x = _checked(x.contiguous(), group)
+        out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+        gather = (getattr(dist, "all_gather_single", None)
+                  or dist.all_gather_into_tensor)
+        gather(out, x, group=group)
+        return out
 
 
 def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:

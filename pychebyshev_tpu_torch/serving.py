@@ -60,6 +60,11 @@ mesh with a ``"tp"`` axis serves grids beyond ``supports_dd`` that the
 tensor-parallel plan accepts (``parallel.sharding.eval_batch_dd_tp``).
 ``build_book(mesh=)`` shards the grid rows of its one oracle call.
 
+While a torch profiler records, each call leaves spans in its trace
+(``utils.tracing``): ``serve`` around the call, ``serve.intake``,
+``serve.dd_check`` and ``serve.join`` inside it, and ``route.<route>``
+around each slice's run of the route the engine chose at construction.
+
 Example
 -------
 >>> engine = BatchedEvaluator(cheb, dtype=torch.float32, device="cuda")
@@ -85,6 +90,7 @@ from pychebyshev_tpu_torch.ops import (
     tt_eval_dd,
 )
 from pychebyshev_tpu_torch.parallel import sharding
+from pychebyshev_tpu_torch.utils.tracing import span
 
 __all__ = ["BatchedEvaluator", "MultiSpecEvaluator", "MultiModelEvaluator",
            "build_book", "integrate_book", "save_book", "load_book"]
@@ -405,12 +411,13 @@ class _Engine:
         # for a spline engine): a list of Python floats must not pass
         # through float32.
         dtype = torch.float64 if self._route_f64 else self.dtype
-        pts = torch.as_tensor(points, dtype=dtype, device=self.device)
-        if pts.dim() != 2 or pts.shape[1] != self.num_dimensions:
-            raise ValueError(
-                f"points must have shape (N, {self.num_dimensions}); "
-                f"got {tuple(pts.shape)}")
-        self._check_knots(pts)
+        with span("serve.intake"):
+            pts = torch.as_tensor(points, dtype=dtype, device=self.device)
+            if pts.dim() != 2 or pts.shape[1] != self.num_dimensions:
+                raise ValueError(
+                    f"points must have shape (N, {self.num_dimensions}); "
+                    f"got {tuple(pts.shape)}")
+            self._check_knots(pts)
         return pts
 
     def _check_knots(self, points: torch.Tensor) -> None:
@@ -451,6 +458,7 @@ class _Engine:
                 _check_slider_dd(interpolant)
         self._init_dd(interpolant, dtype, sibling)
         self._domain = [tuple(b) for b in interpolant.domain]
+        self._route = f"route.{self._kind}"
         runner = _SplineSpecs if self._kind == "spline" else _SliderSpecs
         self._specs_run = runner(interpolant, specs, self.dtype, self._dd,
                                  self.device)
@@ -485,28 +493,36 @@ class _Engine:
         if not self._dd:
             return None
         dom = self._dd_domain
-        if not bool(((points < dom[:, 0]) | (points > dom[:, 1]))
-                    .any().item()):
+        with span("serve.dd_check"):
+            outside = bool(((points < dom[:, 0]) | (points > dom[:, 1]))
+                           .any().item())
+        if not outside:
             return None
         if self._dd_fallback is None:
             self._dd_fallback = self._dd_fallback_ctor()
         return self._dd_fallback
 
+    def _routed(self, points: torch.Tensor) -> torch.Tensor:
+        """``_run`` in its route's span."""
+        with span(self._route):
+            return self._run(points)
+
     def _sliced(self, points: torch.Tensor) -> torch.Tensor:
         """Run ``_run`` over slices of at most the largest bucket and
         join the results along the points axis (the last one).  Under a
         mesh each slice is served data-parallel."""
-        run = self._run
+        run = self._routed
         if self._mesh is not None and not self._dd_tp:
             def run(p):
-                return sharding._dp_apply(self._run, p, self._mesh,
+                return sharding._dp_apply(self._routed, p, self._mesh,
                                           self._data_axis)
         step = self.bucket_sizes[-1]
         outs = [run(points[i:i + step])
                 for i in range(0, points.shape[0], step)]
         if not outs:
             return run(points)
-        return torch.cat(outs, dim=-1)
+        with span("serve.join"):
+            return torch.cat(outs, dim=-1)
 
     def warmup(self) -> None:
         """Run one smallest-bucket batch at the domain centre: builds the
@@ -608,12 +624,17 @@ class BatchedEvaluator(_Engine):
         elif use_fused and dtype != torch.float32:
             raise ValueError("use_fused needs dtype=torch.float32")
         self._use_fused = bool(use_fused)
+        self._route = ("route.eval_dd_tp" if self._dd_tp
+                       else "route.eval_dd" if self._dd
+                       else "route.fused_eval" if self._use_fused
+                       else "route.eval")
 
     def _init_tt(self, interpolant, dtype, derivative_order,
                  sibling) -> None:
         if dtype == "dd":
             _check_tt_dd(interpolant)
         self._init_dd(interpolant, dtype, sibling)
+        self._route = "route.tt_eval_dd" if self._dd else "route.tt_eval"
         self._use_fused = False
         self.num_dimensions = interpolant.num_dimensions
         orders = _validated_orders(derivative_order, self.num_dimensions)
@@ -653,7 +674,8 @@ class BatchedEvaluator(_Engine):
 
     def __call__(self, points) -> torch.Tensor:
         """Evaluate at (N, d) points -> (N,) tensor on the engine device."""
-        return self._serve(points)
+        with span("serve"):
+            return self._serve(points)
 
 
 class MultiSpecEvaluator(_Engine):
@@ -718,6 +740,7 @@ class MultiSpecEvaluator(_Engine):
         self.num_dimensions = interpolant.num_dimensions
         self._domain = [tuple(b) for b in interpolant.domain]
         self.specs = self._validated_specs(specs)
+        self._route = "route.eval_dd" if self._dd else "route.eval_models"
         if self._dd:
             self._dd_runner = eval_dd.dd_multi_runner(
                 interpolant.tensor_values.to(self.device), self._nodes,
@@ -745,11 +768,12 @@ class MultiSpecEvaluator(_Engine):
 
     def __call__(self, points) -> torch.Tensor:
         """(N, d) points -> (N, len(specs)) tensor on the engine device."""
-        points = self._intake(points)
-        sibling = self._dd_sibling(points)
-        if sibling is not None:
-            return sibling(points)
-        return self._sliced(points).T
+        with span("serve"):
+            points = self._intake(points)
+            sibling = self._dd_sibling(points)
+            if sibling is not None:
+                return sibling(points)
+            return self._sliced(points).T
 
 
 class MultiModelEvaluator(_Engine):
@@ -858,6 +882,7 @@ class MultiModelEvaluator(_Engine):
                             for m in interpolants]
         self._tt_domain = np.asarray(first.domain, dtype=np.float64)
         self._init_frame(first._dim_order)
+        self._route = "route.tt_eval_dd" if self._dd else "route.tt_eval"
         if self._dd:
             self._dd_book_runner = tt_eval_dd.tt_dd_book_runner(
                 tuple(tuple(torch.tensor(c, dtype=torch.float64,
@@ -873,6 +898,7 @@ class MultiModelEvaluator(_Engine):
 
     def _init_dense_book(self, interpolants, orders) -> None:
         first = interpolants[0]
+        self._route = "route.eval_dd" if self._dd else "route.eval_models"
         nodes, weights, diffs = first._grid_tuples()
         self._nodes, self._weights, self._diffs = (
             tuple(a.to(device=self.device, dtype=self.dtype) for a in grp)
@@ -902,7 +928,8 @@ class MultiModelEvaluator(_Engine):
     def __call__(self, points) -> torch.Tensor:
         """Evaluate every model at (N, d) points -> (M, N) tensor on the
         engine device."""
-        return self._serve(points)
+        with span("serve"):
+            return self._serve(points)
 
 
 def build_book(function, num_dimensions, domain, n_nodes, *,
