@@ -18,8 +18,9 @@ to its plain PyTorch version, checks every path against the
 repository's accuracy ceilings, and times the paths, the plain versions
 and a cuBLAS GEMM yardstick with CUDA events.
 
-Then the tensor-train family (plain PyTorch chains, no kernel of their
-own): a rank-15 TT-Cross build of the 5-D Black-Scholes price with
+Then the tensor-train family (plain PyTorch chains, and K4, the fused
+f32 TT kernel, on ``to_tt(1e-13)`` of the 11^5 interpolant, the
+benchmark's TT): a rank-15 TT-Cross build of the 5-D Black-Scholes price with
 dividend yield on 11 nodes per dim; the C single-point host path
 (``cpp/hosteval.c``, built here with the host compiler) under the dense
 and TT classes; the f32, f64 and grouped chains against the host chain;
@@ -144,6 +145,7 @@ from pychebyshev_tpu_torch.ops import (
     _build,
     fused_dd,
     fused_eval,
+    fused_tt,
     spline_eval,
     subdivision,
     tt_eval,
@@ -423,6 +425,18 @@ def bound(shape, n, itemsize, peak, passes=1):
     flop_ms = passes * 2.0 * nodes * n / peak * 1e3
     byte_ms = itemsize * (n * (len(shape) + 1) + nodes) \
         / HBM_BYTES_PER_S * 1e3
+    return max(flop_ms, byte_ms), ("operations" if flop_ms >= byte_ms
+                                   else "bytes")
+
+
+def tt_bound(shapes, n, peak, passes=1):
+    """(ms, what bounds it) of a TT chain of (r_l, n_k, r_r) cores: its
+    2 * sum(r_l * n_k * r_r) FLOP per point, ``passes`` times, over
+    ``peak``, or the f32 bytes moved (points in, values out, the cores
+    once) over the memory rate, whichever is larger."""
+    elems = sum(r_l * n_k * r_r for r_l, n_k, r_r in shapes)
+    flop_ms = passes * 2.0 * elems * n / peak * 1e3
+    byte_ms = 4 * (n * (len(shapes) + 1) + elems) / HBM_BYTES_PER_S * 1e3
     return max(flop_ms, byte_ms), ("operations" if flop_ms >= byte_ms
                                    else "bytes")
 
@@ -2879,6 +2893,110 @@ def hardware_counterparts(card: str, cheb) -> None:
           flush=True)
 
 
+def tt_kernel(card: str, ms: dict, comp) -> tuple:
+    """59. K4, the fused f32 TT kernel, on the benchmark's TT (the 11^5
+    interpolant's ``to_tt(1e-13)``, ranks 1, 11, 25, 54, 9, 1) at N =
+    2^20: its build report, its deviation from its plain version (the f32
+    chain of ``ops.tt_eval``) and from the f64 chain, one launch a call,
+    and its time beside its 3xTF32 bound, the f32 chain's time and the
+    chain's five stage GEMMs alone (``torch.matmul``, cuBLAS) as the
+    yardstick.  Returns (core shapes, max |kernel - plain|)."""
+    t0 = time.perf_counter()
+    lib = fused_tt._library()
+    build_s = time.perf_counter() - t0
+    log = _build.build_log(lib._name).read_text()
+    regs = re.search(r"Used (\d+) registers", log)
+    spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       log)
+    check(regs is not None and spills is not None,
+          "no ptxas report of fused_tt_kernel")
+    check(spills.group(1) == spills.group(2) == "0",
+          f"fused_tt_kernel spills: {spills.group(0)}")
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(_build.find_nvcc()).parent / "cuobjdump")
+    hmma = "SASS not read"
+    if Path(cuobjdump).is_file():
+        sass = subprocess.run([cuobjdump, "-sass", lib._name],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        hmma = len(re.findall(r"\bHMMA\.", sass))
+        check(hmma > 0, "no HMMA instruction in fused_tt_kernel's SASS")
+
+    shapes = tt_eval.core_shapes(comp._coeff_cores)
+    check(comp.tt_ranks == [1, 11, 25, 54, 9, 1],
+          f"to_tt(1e-13) gave ranks {comp.tt_ranks}")
+    check(fused_tt.supports_fused_tt(shapes, torch.float32),
+          f"K4 does not take {shapes}")
+    dom = np.asarray(comp.domain, dtype=np.float64)
+    c32 = tuple(torch.tensor(c, dtype=torch.float32, device=DEVICE)
+                for c in comp._coeff_cores)
+    c64 = tuple(torch.tensor(c, dtype=torch.float64, device=DEVICE)
+                for c in comp._coeff_cores)
+    pts = torch.tensor(sample_points(N, SEED + 59), dtype=torch.float32,
+                       device=DEVICE)
+    ref = tt_eval.tt_eval_batch(c64, dom, pts.double())
+    before = fused_tt.launches
+    got = checked(fused_tt.fused_tt_eval_batch(c32, dom, pts), (N,), "K4")
+    check(fused_tt.launches - before == 1, "K4 did not launch once a call")
+    chain = tt_eval.tt_eval_batch(c32, dom, pts)
+    max_abs = float((got - chain).abs().max())
+    d_ref, d_chain = dev(got, ref), dev(chain, ref)
+    check(d_ref <= F32_CEILING, f"K4 vs the f64 chain {d_ref:.3e}")
+
+    # The yardstick: the chain's stage GEMMs on ready operands, f32.
+    gemms = [(torch.randn((N, r_l * n), device=DEVICE),
+              torch.randn((r_l * n, r_r), device=DEVICE))
+             for r_l, n, r_r in shapes]
+    runs = {
+        "K4 f32 TT (fused_tt_eval_batch)":
+            lambda: fused_tt.fused_tt_eval_batch(c32, dom, pts),
+        "TT chain f32 (tt_eval_batch)":
+            lambda: tt_eval.tt_eval_batch(c32, dom, pts),
+        "TT stage GEMMs f32 (torch.matmul)":
+            lambda: [a @ b for a, b in gemms],
+    }
+    for name, fn in runs.items():
+        ms[name] = cuda_ms(fn)
+    bound_ms, bound_by = tt_bound(shapes, N, TF32_PEAK, passes=3)
+    # A design note: the kernel's padded tiles (ranks to multiples of 8)
+    # at three passes, what its MMAs would do if every tile ran as one.
+    padded = [(8 * -(-r_l // 8), n, 8 * -(-r_r // 8))
+              for r_l, n, r_r in shapes]
+    padded_ms = tt_bound(padded, N, TF32_PEAK, passes=3)[0]
+    k4 = ms["K4 f32 TT (fused_tt_eval_batch)"]
+    print(f"[59 K4 fused TT] build {build_s:.3f} s, {regs.group(1)} "
+          f"registers, 0 spills, HMMA {hmma}, "
+          f"{fused_tt._smem_bytes(shapes):,} bytes of shared memory; "
+          f"ranks {comp.tt_ranks}: K4 vs f64 chain {d_ref:.3e}, f32 chain "
+          f"vs f64 {d_chain:.3e}, max |K4 - f32 chain| {max_abs:.3e}; at "
+          f"2^20: K4 {k4:.4f} ms, 3xTF32 bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({100 * bound_ms / k4:.1f} %), padded-tile 3xTF32 "
+          f"bound {padded_ms:.4f} ms (design note), f32 chain "
+          f"{ms['TT chain f32 (tt_eval_batch)']:.4f} ms, stage GEMMs "
+          f"{ms['TT stage GEMMs f32 (torch.matmul)']:.4f} ms | {card}",
+          flush=True)
+    return shapes, max_abs
+
+
+def k4_row(ms: dict, launches: int, max_abs: float, shapes) -> dict:
+    """K4's entry of the kernels line."""
+    bound_ms, bound_by = tt_bound(shapes, N, TF32_PEAK, passes=3)
+    return {
+        "name": "K4 fused f32 tensor-train evaluator",
+        "route": "cuda",
+        "source": "pychebyshev_tpu_torch/csrc/fused_tt.cu",
+        "replaces": "none (XLA chain)",
+        "launches": launches,
+        "max_abs_err": max_abs,
+        "ms": ms["K4 f32 TT (fused_tt_eval_batch)"],
+        "plain_ms": ms["TT chain f32 (tt_eval_batch)"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bound_simt_ms": tt_bound(shapes, N, F32_SIMT_PEAK)[0],
+        "library_ms": ms["TT stage GEMMs f32 (torch.matmul)"],
+    }
+
+
 def main() -> None:
     # 1. The device.
     if not torch.cuda.is_available():
@@ -3417,13 +3535,15 @@ def main() -> None:
           f"out-of-domain batch on the f64 chain, {d_comp_ood:.3e} from "
           f"the dense f64 path | {card}", flush=True)
 
-    # 19. TT serving: engines, the six-model book, the FD report.
+    # 19. TT serving: engines, the six-model book, the FD report.  The
+    # f32 engines' run through K4 is its main-path count, from zero.
     delta = [1, 0, 0, 0, 0]
     cheb_div = ChebyshevApproximation(bs_div_np, 5, TT_DOMAIN, [11] * 5,
                                       vectorized=True, device=DEVICE)
     cheb_div.build(verbose=False)
     tt_delta_host = tt.differentiate(delta)
     engines = {}
+    fused_tt.launches = 0
     worst_tt = {"f32 vs f64": 0.0, "f64 vs host": 0.0, "dd vs f64": 0.0,
                 "delta vs differentiate on the host": 0.0}
     for spec_name, orders in (("value", None), ("delta", delta)):
@@ -3447,6 +3567,12 @@ def main() -> None:
             if n >= 1000:
                 worst_tt["f32 vs f64"] = max(worst_tt["f32 vs f64"],
                                              dev(v["f32"], v["f64"]))
+    torch.cuda.synchronize()
+    k4_launches = fused_tt.launches
+    check(all(engines[spec, "f32"]._route == "route.fused_tt_eval"
+              for spec in ("value", "delta")),
+          "the f32 TT engines left K4's route")
+    check(k4_launches > 0, "BatchedEvaluator(tt, f32) never launched K4")
     check(worst_tt["f32 vs f64"] <= F32_CEILING,
           f"TT f32 engine {worst_tt['f32 vs f64']:.3e}")
     for key in ("f64 vs host", "dd vs f64",
@@ -3492,6 +3618,7 @@ def main() -> None:
           f"requests of {sizes}: "
           + "; ".join(f"{k} {v:.3e}" for k, v in worst_tt.items())
           + f" (f32 <= {F32_CEILING:g}, the others <= {F64_CEILING:g}); "
+          f"K4 launches {k4_launches} (the f32 engines); "
           f"vs the dense 11^5 interpolant of the same function at N=2^20: "
           f"value {cross_value:.3e} <= {TT_CROSS_VALUE:g}, delta vs its "
           f"analytic delta {cross_delta:.3e} <= {TT_CROSS_DELTA:g} (the "
@@ -3503,9 +3630,10 @@ def main() -> None:
           f"on the card) vs per-point eval_multi on 64 points {d_fd:.3e} "
           f"<= {FD_REPORT:g} | {card}", flush=True)
 
-    # 20. Timing of the plain TT paths at N = 2^20 (CUDA events, median
-    # of 15 after 3 warm-up), and the share of each chain's time that
-    # the card's kernels were running.
+    # 20. Timing of the TT paths at N = 2^20 (CUDA events, median of 15
+    # after 3 warm-up; the f32 engine runs K4, the others plain chains),
+    # and the share of each chain's time that the card's kernels were
+    # running.
     comp_cores = comp._cores_on_device(torch.float64)
     comp_dom = np.asarray(comp.domain, dtype=np.float64)
     tt_runs = {
@@ -3513,7 +3641,7 @@ def main() -> None:
             lambda: tt_eval.tt_eval_batch(cores32, tt_dom, tt_pts32),
         "TT rank-15 chain f64 (tt_eval_batch)":
             lambda: tt_eval.tt_eval_batch(cores64, tt_dom, tt_pts64),
-        "TT rank-15 engine f32 (BatchedEvaluator)":
+        "TT rank-15 engine f32 (BatchedEvaluator, K4)":
             lambda: engines["value", "f32"](tt_pts32),
         "TT rank-15 engine dd (BatchedEvaluator)":
             lambda: engines["value", "dd"](tt_pts64),
@@ -3558,6 +3686,9 @@ def main() -> None:
     print(f"[20 timing] fastest to_tt route: {fastest}; the auto rule "
           f"(fewest intermediate elements per point) picks {auto_groups}",
           flush=True)
+
+    # 59. K4, the fused f32 TT kernel, on phase 18's to_tt(1e-13).
+    k4_shapes, k4_abs = tt_kernel(card, ms, comp)
 
     # 21-24. The spline and slider families.
     k3_spline_launches, spline, slider = spline_and_slider(card, ms)
@@ -3635,7 +3766,8 @@ def main() -> None:
         "bound_simt_ms": bound_simt_ms,
         "library_ms": ms[library],
     } for name, replaces, launches, err, kernel, plain, library,
-        (bound_ms, bound_by), bound_simt_ms in rows]}), flush=True)
+        (bound_ms, bound_by), bound_simt_ms in rows]
+        + [k4_row(ms, k4_launches, k4_abs, k4_shapes)]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -22,7 +22,9 @@ serves an out-of-domain call through an f64 sibling engine.
 
 A tensor-train engine runs the chain of ``ops.tt_eval`` at f32 or f64,
 and ``dtype="dd"`` through ``ops.tt_eval_dd`` (native f64, per-dim or
-grouped).  A derivative spec swaps in the analytic-derivative TT
+grouped).  On a CUDA device an f32 TT engine evaluates through the fused
+TT kernel (``ops.fused_tt``) wherever ``supports_fused_tt`` covers its
+cores.  A derivative spec swaps in the analytic-derivative TT
 (``differentiate``), and points are permuted on the device into the
 TT's storage frame.  ``MultiModelEvaluator`` serves a book of same-grid
 dense or TT models from one batch, e.g. a TT risk report: price plus
@@ -84,6 +86,7 @@ from pychebyshev_tpu_torch.ops import eval as eval_ops
 from pychebyshev_tpu_torch.ops import (
     eval_dd,
     fused_eval,
+    fused_tt,
     slider_eval,
     spline_eval,
     tt_eval,
@@ -550,12 +553,13 @@ class BatchedEvaluator(_Engine):
         TT engine serves it from the analytic-derivative TT
         (``differentiate``).
     bucket_sizes : ascending sizes; the largest caps one call's slice.
-    use_fused : dense engines only.  ``None`` = the fused kernel for f32
-        CUDA engines whose grid ``supports_fused`` covers; ``True``
-        forces it (raising outside the envelope), ``False`` the plain
-        path.  A dd engine picks its route itself (``ops.eval_dd``) and
-        refuses ``True``, as TT, spline and slider engines do (the JAX
-        package has no fused kernel for those families).  Under a mesh
+    use_fused : dense and TT engines.  ``None`` = the fused kernel for
+        f32 CUDA engines whose grid ``supports_fused`` (a TT's cores
+        ``supports_fused_tt``) covers; ``True`` forces it (f32 only,
+        raising outside the envelope), ``False`` the plain path.  A dd
+        engine picks its route itself (``ops.eval_dd``,
+        ``ops.tt_eval_dd``) and refuses ``True``, as spline and slider
+        engines do (they have no fused kernel).  Under a mesh
         each rank runs the same route on its block; the reference's
         refusal of ``use_fused`` with ``mesh`` (its kernel was
         single-device) does not apply.
@@ -583,13 +587,14 @@ class BatchedEvaluator(_Engine):
         if self._kind in ("tt", "spline", "slider"):
             _check_dtype("BatchedEvaluator", dtype)
             _check_built(interpolant, self._kind)
+            if self._tt:
+                self._init_tt(interpolant, dtype, derivative_order, sibling,
+                              use_fused)
+                return
             if use_fused:
                 raise ValueError(
-                    f"use_fused serves dense interpolants; the "
+                    f"use_fused serves dense and TT interpolants; the "
                     f"{type(interpolant).__name__} has no fused kernel")
-            if self._tt:
-                self._init_tt(interpolant, dtype, derivative_order, sibling)
-                return
             self._use_fused = False
             self.num_dimensions = interpolant.num_dimensions
             self._init_family(interpolant, [_validated_orders(
@@ -629,13 +634,16 @@ class BatchedEvaluator(_Engine):
                        else "route.fused_eval" if self._use_fused
                        else "route.eval")
 
-    def _init_tt(self, interpolant, dtype, derivative_order,
-                 sibling) -> None:
+    def _init_tt(self, interpolant, dtype, derivative_order, sibling,
+                 use_fused) -> None:
         if dtype == "dd":
             _check_tt_dd(interpolant)
+            if use_fused:
+                raise ValueError("dtype='dd' picks its own route; it does "
+                                 "not compose with use_fused")
+        elif use_fused and dtype != torch.float32:
+            raise ValueError("use_fused needs dtype=torch.float32")
         self._init_dd(interpolant, dtype, sibling)
-        self._route = "route.tt_eval_dd" if self._dd else "route.tt_eval"
-        self._use_fused = False
         self.num_dimensions = interpolant.num_dimensions
         orders = _validated_orders(derivative_order, self.num_dimensions)
         if any(o != 0 for o in orders):
@@ -649,6 +657,22 @@ class BatchedEvaluator(_Engine):
         self._tt_domain = np.asarray(interpolant.domain, dtype=np.float64)
         self._domain = [tuple(b) for b in interpolant.domain]  # storage
         self._init_frame(interpolant._dim_order)
+        # The kernel route is chosen on what the engine holds: its dtype,
+        # its device and its cores' shapes.
+        shapes = tt_eval.core_shapes(self._cores)
+        if use_fused is None:
+            use_fused = (dtype == torch.float32
+                         and self.device.type == "cuda"
+                         and fused_tt.supports_fused_tt(shapes, dtype))
+        elif use_fused and not fused_tt.supports_fused_tt(shapes, dtype):
+            raise ValueError(
+                f"TT core shapes {list(shapes)} are outside the fused TT "
+                f"kernel's envelope (ops.fused_tt.supports_fused_tt); "
+                f"use_fused=False serves them through the chain")
+        self._use_fused = bool(use_fused)
+        self._route = ("route.tt_eval_dd" if self._dd
+                       else "route.fused_tt_eval" if self._use_fused
+                       else "route.tt_eval")
 
     def _run(self, points: torch.Tensor) -> torch.Tensor:
         if self._kind in ("spline", "slider"):
@@ -657,6 +681,9 @@ class BatchedEvaluator(_Engine):
             if self._dd:
                 return tt_eval_dd.tt_eval_batch_dd(
                     self._cores, self._tt_domain, points, groups="auto")
+            if self._use_fused:
+                return fused_tt.fused_tt_eval_batch(
+                    self._cores, self._tt_domain, points)
             return tt_eval.tt_eval_batch(self._cores, self._tt_domain,
                                          points)
         if self._dd_tp:

@@ -18,8 +18,8 @@ A name's first dotted part is its layer:
 - ``route``: ``route.<route>`` around each slice's run of the route the
   engine chose at construction (``route.fused_eval``, ``route.eval``,
   ``route.eval_dd``, ``route.eval_dd_tp``, ``route.eval_models``,
-  ``route.tt_eval``, ``route.tt_eval_dd``, ``route.spline``,
-  ``route.slider``); inside it ``route.operands`` (the fused kernels'
+  ``route.tt_eval``, ``route.fused_tt_eval``, ``route.tt_eval_dd``,
+  ``route.spline``, ``route.slider``); inside it ``route.operands`` (the fused kernels'
   operand cache, packing on a miss), ``route.kernel_launch`` (a fused
   kernel's argument set-up and launch) and ``route.tt_prepare`` (the TT
   chain's per-call set-up).

@@ -112,6 +112,10 @@ def _engine(kind, dense, tt, spline, slider):
         return (BatchedEvaluator(tt, dtype=torch.float32,
                                  bucket_sizes=BUCKETS, device="cpu"),
                 points(20), "route.tt_eval")
+    if kind == "fused_tt":
+        return (BatchedEvaluator(tt, dtype=torch.float32, use_fused=True,
+                                 bucket_sizes=BUCKETS, device="cpu"),
+                points(20), "route.fused_tt_eval")
     if kind == "dd":
         return (BatchedEvaluator(dense, dtype="dd", bucket_sizes=BUCKETS,
                                  device="cpu"),
@@ -139,8 +143,8 @@ def _engine(kind, dense, tt, spline, slider):
             points(20, torch.float64, slider.domain), "route.slider")
 
 
-KINDS = ["dense", "fused", "tt", "dd", "specs", "book", "tt_book", "spline",
-         "slider"]
+KINDS = ["dense", "fused", "tt", "fused_tt", "dd", "specs", "book",
+         "tt_book", "spline", "slider"]
 
 
 @pytest.fixture
@@ -206,12 +210,13 @@ def test_one_serve_span_holds_intake_and_its_route(kind, dense, tt, spline,
     assert [s[0] for s in routes] == [route]
     intake = next(s for s in got if s[0] == "serve.intake")
     assert intake[2] <= routes[0][1]
-    if kind == "tt":
+    if kind in ("tt", "fused_tt"):   # fused_tt: the CPU runs the chain
         prepare = [s for s in got if s[0] == "route.tt_prepare"]
         assert len(prepare) == 1 and inside(prepare[0], routes[0])
     if kind == "fused":     # the CPU runs the plain contraction: no launch
         operands = [s for s in got if s[0] == "route.operands"]
         assert len(operands) == 1 and inside(operands[0], routes[0])
+    if kind in ("fused", "fused_tt"):
         assert "route.kernel_launch" not in [s[0] for s in got]
     join = [s for s in got if s[0] == "serve.join"]
     assert len(join) == 1 and routes[0][2] <= join[0][1]

@@ -159,8 +159,9 @@ def test_tt_engine_refusals(tts):
         [[0.5]]).shape == (1,)
     with pytest.raises(ValueError, match="'qd' is not a tier"):
         BatchedEvaluator(port, dtype="qd", device="cpu")
-    with pytest.raises(ValueError, match="no fused kernel"):
-        BatchedEvaluator(port, use_fused=True, device="cpu")
+    with pytest.raises(ValueError, match="use_fused needs dtype"):
+        BatchedEvaluator(port, dtype=torch.float64, use_fused=True,
+                         device="cpu")
     with pytest.raises(ValueError, match="derivative_order length 2"):
         BatchedEvaluator(port, derivative_order=[1, 0], device="cpu")
     unbuilt = ChebyshevTT(_f, 4, DOM, NS, device="cpu")
