@@ -7,8 +7,9 @@ For each program seed, the cell's engine (set up once, as a run sets it
 up) answers the first ``sample_requests`` requests of that seed's
 stream, at the cell's own size, and each ``dev.<spec>`` is read as a
 run reads it: the lower readings.  For each control seed, the plain
-reference computed in TF32 (the precision below the cells' float32)
-takes the program's place on the same requests: the upper readings.
+reference computed at the tier's ``control_precision`` (TF32, the
+precision below the cells' float32) takes the program's place on the
+same requests: the upper readings.
 One JSON line per seed.  A cell on several cards reads only the control
 here (its runs give the program's readings); ``--rehearsal`` runs on the
 CPU at the rehearsal size.
@@ -51,7 +52,7 @@ def main(argv=None) -> int:
         traffic.update(traffic["rehearsal"])
     device = torch.device("cpu" if args.rehearsal else "cuda", 0)
     sync = (lambda: None) if args.rehearsal else torch.cuda.synchronize
-    dtype = program.DTYPES[traffic["dtype"]]
+    dtype = program.points_dtype(traffic)
     config = cell.config
     ref = correctness.reference(config, device)
 
@@ -78,7 +79,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         sample = [(i, pts, None) for i, pts in enumerate(
             _requests(traffic, config, seed, device, dtype))]
-        numbers = correctness.deviations(ref, traffic, sample, "tf32")
+        numbers = correctness.deviations(
+            ref, traffic, sample, cells.tier(traffic)["control_precision"])
         print(json.dumps({"cell": cell.name, "side": "control",
                           "seed": seed, "numbers": numbers,
                           "seconds": time.perf_counter() - t0}), flush=True)

@@ -12,10 +12,22 @@ mix.  Everything that belongs to one of them sits in a file of its own:
 - ``benchmark/metrics/<metric>.py``: one reader for each per-layer
   metric;
 - ``benchmark/functions/<function>.py``: the function a configuration
-  interpolates.
+  interpolates;
+- ``benchmark/representations/<kind>.py``: how the program builds a
+  configuration's ``representation.kind`` through the port, its work
+  counts, and its plain reference;
+- ``benchmark/engines/<engine>.py``: how the program makes the serving
+  engine a traffic mix names;
+- ``benchmark/tiers/<dtype>.json``: a precision tier (a mix's
+  ``dtype``): the engine's dtype argument, the points' dtype, the key of
+  its peak in ``peaks.json`` and its bytes an item;
+- ``benchmark/kernels/<fragment>.json``: a hand-written kernel of the
+  port whose launches a trace is checked for: the fragment of its
+  device operations' names, and the port's counters of its launches.
 
-So a later cell, mix, metric or function is new files and entries, and
-no edit of a file that is here.
+So a later cell, mix, metric, function, representation, engine, tier
+or counted kernel is new files and entries, and no edit of a file that
+is here.
 """
 
 from __future__ import annotations
@@ -63,15 +75,45 @@ def function(name: str) -> Callable:
     return importlib.import_module(f"benchmark.functions.{name}").values
 
 
-def reader(metric: str) -> Callable:
-    """``read`` of ``benchmark/metrics/<metric>.py``, loaded from its
-    path (a metric's name may hold a dot)."""
-    path = HERE / "metrics" / f"{metric}.py"
+def _module(folder: str, name: str):
+    """``benchmark/<folder>/<name>.py``, loaded from its path (a name may
+    hold a dot, or begin with a capital)."""
+    path = HERE / folder / f"{name}.py"
+    if not path.is_file():
+        raise KeyError(f"no {path.relative_to(ROOT).as_posix()}")
     spec = importlib.util.spec_from_file_location(
-        f"benchmark.metrics._{metric.replace('.', '_')}", path)
+        f"benchmark.{folder}._{name.replace('.', '_')}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(metric: str) -> Callable:
+    """``read`` of ``benchmark/metrics/<metric>.py``."""
+    return _module("metrics", metric).read
+
+
+def representation(config: dict):
+    """``benchmark/representations/<kind>.py`` of ``config``'s
+    representation: ``build``, ``work_counts`` and ``reference``."""
+    return _module("representations", config["representation"]["kind"])
+
+
+def engine(traffic: dict):
+    """``benchmark/engines/<engine>.py`` of ``traffic``: ``make``."""
+    return _module("engines", traffic["engine"])
+
+
+def tier(traffic: dict) -> dict:
+    """``benchmark/tiers/<dtype>.json`` of ``traffic``."""
+    return load_json(HERE / "tiers" / f"{traffic['dtype']}.json")
+
+
+def counted_kernels() -> List[dict]:
+    """Every ``benchmark/kernels/<fragment>.json``, with its
+    ``fragment``."""
+    return [dict(load_json(path), fragment=path.stem)
+            for path in sorted((HERE / "kernels").glob("*.json"))]
 
 
 def _metrics(entries, cell: str, readers: bool) -> List[Metric]:

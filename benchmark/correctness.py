@@ -1,10 +1,11 @@
 """The comparison that decides ``correct``.
 
 Once the window has closed and the program's state is freed, the plain
-reference (``benchmark/reference``) evaluates the configuration's
-interpolant in float64 at the points of each sampled request, for each
-spec of the traffic, and the program's answers to those requests are
-held against it.  For each spec the number compared is the worst over
+reference (``benchmark/reference``, through the representation's file)
+evaluates the configuration's interpolant at the tier's
+``reference_precision`` (float64 for the float32 tier) at the points of
+each sampled request, for each spec of the traffic, and the program's
+answers to those requests are held against it.  For each spec the number compared is the worst over
 the sample of max |program - reference| / max |reference| (the name is
 ``dev.<spec name>``), and each has its limit in
 ``benchmark/checks/<cell>.json``, with the readings it was set from.
@@ -13,24 +14,21 @@ the sample of max |program - reference| / max |reference| (the name is
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from benchmark import cells
-from benchmark.reference.interpolant import (
-    Interpolant,
-    block_points_for,
-    deviation,
-)
+from benchmark.reference.interpolant import block_points_for, deviation
 
 # Bytes a reference block's intermediates may take on a card / the CPU.
 BLOCK_BYTES = {"cuda": 8 << 30, "cpu": 256 << 20}
 
 
-def reference(config: dict, device) -> Interpolant:
-    return Interpolant(cells.function(config["function"]), config["domain"],
-                       config["n_nodes"], device=device)
+def reference(config: dict, device):
+    """The plain reference of the configuration's representation
+    (``representations/<kind>.py``)."""
+    return cells.representation(config).reference(config, device)
 
 
 def _columns(output: torch.Tensor, specs: int) -> List[torch.Tensor]:
@@ -41,14 +39,15 @@ def _columns(output: torch.Tensor, specs: int) -> List[torch.Tensor]:
     return [output[:, m] for m in range(specs)]
 
 
-def deviations(ref: Interpolant, traffic: dict,
+def deviations(ref, traffic: dict,
                sample: List[Tuple[int, torch.Tensor, torch.Tensor]],
-               precision: str = "float64") -> Dict[str, float]:
-    """``dev.<spec>`` over ``sample``.  At ``precision="tf32"`` the
-    answers are the reference's own in TF32 (the control), and the
-    sample's outputs are not read."""
+               precision: Optional[str] = None) -> Dict[str, float]:
+    """``dev.<spec>`` over ``sample``: the program's answers, or, with a
+    ``precision`` (the tier's ``control_precision`` for the control), the
+    reference's own at that precision, the sample's outputs unread."""
     specs = [tuple(s) for s in traffic["specs"]]
     names = traffic["spec_names"]
+    exact_precision = cells.tier(traffic)["reference_precision"]
     block = block_points_for(ref.n_nodes, BLOCK_BYTES[ref.device.type])
     worst = {f"dev.{n}": 0.0 for n in names}
     if not sample:
@@ -56,8 +55,8 @@ def deviations(ref: Interpolant, traffic: dict,
     for _, points, output in sample:
         cols = _columns(output, len(specs)) if output is not None else None
         for m, (spec, name) in enumerate(zip(specs, names)):
-            exact = ref.evaluate(points, spec, "float64", block)
-            if precision == "float64":
+            exact = ref.evaluate(points, spec, exact_precision, block)
+            if precision is None:
                 got = cols[m]
             else:
                 got = ref.evaluate(points, spec, precision, block)

@@ -1,47 +1,58 @@
 """The program under test, built from a cell's files through the port's
-public entry points: ``ChebyshevApproximation`` (and ``to_tt``), the
-serving engines, and ``parallel.sharding.make_mesh``.
+public entry points: the configuration's representation
+(``representations/<kind>.py``), the traffic's serving engine
+(``engines/<engine>.py``) at its precision tier (``tiers/<dtype>.json``),
+and ``parallel.sharding.make_mesh``.
 
-This module and ``run.py`` are the only ones that import the port; the
-reference imports none of it.
+This module, ``run.py``, ``representations/`` and ``engines/`` are the
+only ones that import the port; the reference imports none of it.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+import importlib
+from typing import Callable, List, Tuple
 
 import torch
 
 from benchmark import cells
 
-DTYPES = {"float32": torch.float32, "float64": torch.float64}
+PORT = "pychebyshev_tpu_torch"
 
 
-def _build_once(config: dict, device):
-    from pychebyshev_tpu_torch import ChebyshevApproximation
-
-    values = cells.function(config["function"])
-    model = ChebyshevApproximation(
-        lambda points, _data=None: values(points), config["dims"],
-        config["domain"], config["n_nodes"], vectorized=True, device=device)
-    model.build(verbose=False)
-    rep = config["representation"]
-    if rep["kind"] == "dense":
-        return model
-    if rep["kind"] == "to_tt":
-        tt = model.to_tt(tolerance=rep["tolerance"])
-        if list(tt.tt_ranks) != list(rep["ranks"]):
-            raise RuntimeError(
-                f"to_tt(tolerance={rep['tolerance']}) gave ranks "
-                f"{list(tt.tt_ranks)}; the configuration states "
-                f"{rep['ranks']}, and its work counts follow from them")
-        return tt
-    raise ValueError(f"unknown representation {rep['kind']!r}")
+def import_port() -> None:
+    """Import the port, so that its import time is set-up's own phase."""
+    import pychebyshev_tpu_torch  # noqa: F401
 
 
-def build(config: dict, device, sync: Callable[[], None]):
-    """The configuration's model, built on ``device``."""
-    model = _build_once(config, device)
+def _dtype(name: str):
+    """A torch dtype by its name (``float32``), else ``name`` as it is
+    (the port's ``"dd"``)."""
+    dtype = getattr(torch, name, None)
+    return dtype if isinstance(dtype, torch.dtype) else name
+
+
+def points_dtype(traffic: dict) -> torch.dtype:
+    """The dtype a request's points are drawn in."""
+    return _dtype(cells.tier(traffic)["points_dtype"])
+
+
+# The points' dtype of every tier by the tier's name, for scripts outside
+# the harness that look a mix's ``dtype`` up here (``chip_spans.py``).
+DTYPES = {path.stem: _dtype(cells.load_json(path)["points_dtype"])
+          for path in sorted((cells.HERE / "tiers").glob("*.json"))}
+
+
+def specs(traffic: dict) -> List[Tuple[int, ...]]:
+    return [tuple(s) for s in traffic["specs"]]
+
+
+def build(config: dict, device, sync: Callable[[], None],
+          phase=contextlib.nullcontext):
+    """The configuration's model, built on ``device``; ``phase(name)``
+    times each step of it."""
+    model = cells.representation(config).build(config, device, phase)
     sync()
     return model
 
@@ -57,28 +68,30 @@ def mesh(config: dict, device_type: str):
                               device_type=device_type)
 
 
-def engine(model, traffic: dict, config: dict, device, device_mesh):
-    """The traffic's serving engine over ``model``."""
-    from pychebyshev_tpu_torch import serving
-
-    kw = dict(dtype=DTYPES[traffic["dtype"]],
+def engine_kwargs(traffic: dict, config: dict, device, device_mesh) -> dict:
+    """The arguments every engine takes: the tier's dtype, the traffic's
+    buckets, the device, and the mesh with its data axis."""
+    kw = dict(dtype=_dtype(cells.tier(traffic)["engine_dtype"]),
               bucket_sizes=tuple(traffic["bucket_sizes"]), device=device)
     if device_mesh is not None:
         kw.update(mesh=device_mesh, data_axis=config["mesh"]["data_axis"])
-    specs = [tuple(s) for s in traffic["specs"]]
-    if traffic["engine"] == "BatchedEvaluator":
-        if len(specs) != 1:
-            raise ValueError("a BatchedEvaluator serves one spec")
-        return serving.BatchedEvaluator(model, derivative_order=specs[0],
-                                        **kw)
-    if traffic["engine"] == "MultiSpecEvaluator":
-        return serving.MultiSpecEvaluator(model, specs, **kw)
-    raise ValueError(f"unknown engine {traffic['engine']!r}")
+    return kw
+
+
+def engine(model, traffic: dict, config: dict, device, device_mesh):
+    """The traffic's serving engine over ``model``."""
+    return cells.engine(traffic).make(model, traffic, config, device,
+                                      device_mesh)
 
 
 def kernel_launches() -> int:
     """Launches of the port's hand-written kernels that its own counters
-    have seen (``fused_eval.launches`` + ``fused_dd.launches``)."""
-    from pychebyshev_tpu_torch.ops import fused_dd, fused_eval
-
-    return int(fused_eval.launches) + int(fused_dd.launches)
+    have seen: every counter (``<module>:<attribute>`` under the port)
+    of every counted kernel (``benchmark/kernels/``)."""
+    total = 0
+    for kernel in cells.counted_kernels():
+        for counter in kernel["counters"]:
+            module, attribute = counter.split(":")
+            total += int(getattr(
+                importlib.import_module(f"{PORT}.{module}"), attribute))
+    return total

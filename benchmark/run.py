@@ -9,10 +9,11 @@ from the root of a checkout.  The cell (``BENCHMARK.json``'s
 1. refuses to run without as many CUDA cards as the cell asks for;
 2. sets up: builds the configuration's model through the port, its
    serving engine, under a mesh in a four-card cell, and warms up the
-   cell's shapes;
-3. offers the traffic's closed loop for ``--seconds`` (``traffic.py``):
-   ``queries_per_s`` (points answered over the window's seconds) and
-   ``request_p95_ms`` come from it, on the host clock;
+   cell's shapes, each phase timed on standard error;
+3. offers the traffic's closed loop for ``--seconds`` (``traffic.py``),
+   with Python's collector paused and, on a card, the driving thread on
+   one CPU: ``queries_per_s`` (points answered over the window's
+   seconds) and ``request_p95_ms`` come from it, on the host clock;
 4. with ``--trace 1``, serves the traffic's ``trace_requests`` more
    under ``torch.profiler`` (``tracing.py``) and reads the per-layer
    metrics (``metrics/<name>.py``);
@@ -40,6 +41,7 @@ import time
 _WALL0 = time.time()   # set-up runs from the start of the process
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -68,11 +70,19 @@ _CACHE = ROOT / ".bench_cache"
 os.environ["TORCH_EXTENSIONS_DIR"] = str(_CACHE / "torch_extensions")
 os.environ["TRITON_CACHE_DIR"] = str(_CACHE / "triton")
 os.environ["USE_FLAX"] = "0"
+# The bytecode of every module the run imports, torch's among them, kept
+# inside the checkout: where the environment writes none
+# (PYTHONDONTWRITEBYTECODE), each run would compile torch's sources
+# again, seconds of set-up that vary from run to run.
+sys.dont_write_bytecode = False
+sys.pycache_prefix = str(_CACHE / "pycache")
 
 import torch  # noqa: E402
 
 from benchmark import cells, correctness, program, tracing  # noqa: E402
 from benchmark import traffic as traffic_mod  # noqa: E402
+
+_IMPORTED = time.time()
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "pychebyshev_tpu")
 # The end-to-end metrics a run measures; a cell reports those of them
@@ -115,6 +125,28 @@ def _traffic(cell: cells.Cell, rehearsal: bool) -> dict:
     return traffic
 
 
+class Phases:
+    """Set-up's phases on the host clock, each printed on standard error
+    as it ends (``[bench] setup <phase> <seconds>``), so that a run whose
+    set-up reads far off shows which phase took the time."""
+
+    def __init__(self, loud: bool):
+        self.loud = loud
+        self.note("imports", _IMPORTED - _WALL0)
+        self.note("resolve", time.time() - _IMPORTED)
+
+    def note(self, name: str, seconds: float) -> None:
+        if self.loud:
+            print(f"[bench] setup {name} {seconds:.4f}", file=sys.stderr,
+                  flush=True)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.time()
+        yield
+        self.note(name, time.time() - t0)
+
+
 class _Rank:
     """One rank's view of the world: its device and the collectives a
     run needs."""
@@ -127,10 +159,21 @@ class _Rank:
                        else torch.device("cpu"))
         if self.on_card:
             torch.cuda.set_device(self.device)
+            torch.zeros(1, device=self.device)    # the context, now
+            self.sync()
 
     def sync(self) -> None:
         if self.on_card:
             torch.cuda.synchronize(self.device)
+
+    def pin(self) -> None:
+        """On a card, keep this thread, which drives the card's requests,
+        on one CPU of those the process may use, a CPU of its own under
+        a mesh: a thread that moves between CPUs reads its host time
+        differently from run to run (PERF.md, section 2)."""
+        if self.on_card:
+            cpus = sorted(os.sched_getaffinity(0))
+            os.sched_setaffinity(0, {cpus[-1 - self.rank % len(cpus)]})
 
     def barrier(self) -> None:
         """Waits until every rank is here (an all-reduce)."""
@@ -175,39 +218,53 @@ def run_rank(cell: cells.Cell, args: argparse.Namespace, rank: int = 0,
              world: int = 1, store: str = None):
     """One rank of a run; rank 0 returns the result (a dict), the others
     None."""
-    me = _Rank(rank, world, args.rehearsal)
+    phase = Phases(loud=rank == 0)
+    with phase("cuda_context"):
+        me = _Rank(rank, world, args.rehearsal)
     traffic = _traffic(cell, args.rehearsal)
     config = cell.config
-    dtype = program.DTYPES[traffic["dtype"]]
+    dtype = program.points_dtype(traffic)
     if world > 1:
         import datetime
         import torch.distributed as dist
-        dist.init_process_group(
-            "nccl" if me.on_card else "gloo", init_method=f"file://{store}",
-            world_size=world, rank=rank,
-            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        with phase("process_group"):
+            dist.init_process_group(
+                "nccl" if me.on_card else "gloo",
+                init_method=f"file://{store}", world_size=world, rank=rank,
+                timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    with phase("port_import"):
+        program.import_port()
     mesh = program.mesh(config, me.device.type)
 
-    model = program.build(config, me.device, me.sync)
-    engine = program.engine(model, traffic, config, me.device, mesh)
-    engine.warmup()
-    warm = traffic_mod.Client.warmup(traffic, config["domain"], args.seed,
-                                     me.device, dtype)
-    for _ in range(traffic["warmup_requests"]):
-        engine(warm.draw())
-    me.sync()
-    me.barrier()              # every rank set up before the window opens
+    model = program.build(config, me.device, me.sync, phase)
+    with phase("engine"):
+        engine = program.engine(model, traffic, config, me.device, mesh)
+    with phase("kernel_library_and_first_bucket"):
+        engine.warmup()
+    with phase("warmup_requests"):
+        warm = traffic_mod.Client.warmup(traffic, config["domain"],
+                                         args.seed, me.device, dtype)
+        for _ in range(traffic["warmup_requests"]):
+            engine(warm.draw())
+        me.sync()
+    with phase("barrier"):
+        me.barrier()          # every rank set up before the window opens
     setup_s = time.time() - _WALL0
+    phase.note("total", setup_s)
 
     client = traffic_mod.Client(traffic, config["domain"], args.seed,
                                 me.device, dtype)
     reservoir = (traffic_mod.Reservoir(traffic["sample_requests"], args.seed)
                  if rank == 0 else None)
-    window = traffic_mod.closed_loop(engine, client, args.seconds, me.sync,
-                                     me.proceed, reservoir)
+    me.pin()
+    with _collector_paused():
+        window = traffic_mod.closed_loop(engine, client, args.seconds,
+                                         me.sync, me.proceed, reservoir)
     metrics = dict(queries_per_s=window.points / window.seconds,
                    request_p95_ms=1e3 * _p95(window.latencies),
                    setup_s=setup_s)
+    if rank == 0:
+        _describe(window)
 
     record = None
     for _ in range(TRACE_TRIES if args.trace else 0):
@@ -219,6 +276,11 @@ def run_rank(cell: cells.Cell, args: argparse.Namespace, rank: int = 0,
             traffic["points_per_request"] // world, me.on_card,
             device_kind=_kind(me))
         del trace
+        if rank == 0:
+            print(f"[bench] trace: {record.counted_in_trace} launches of "
+                  f"the counted kernels, the port counted "
+                  f"{record.counted_by_program}; {record.unmatched} "
+                  f"unmatched", file=sys.stderr, flush=True)
         if not me.any(not record.complete):
             break
     peak = (torch.cuda.max_memory_allocated(me.device) if me.on_card else 0)
@@ -243,12 +305,50 @@ def run_rank(cell: cells.Cell, args: argparse.Namespace, rank: int = 0,
                 attempted=attempted, failed=failed)
 
 
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic collector frozen and off while the window runs, so
+    that no collection of set-up's objects lands inside it."""
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+        gc.unfreeze()
+
+
 def _p95(values) -> float:
     """The 95th percentile of ``values`` (``statistics.quantiles``,
     inclusive method)."""
     if len(values) < 2:
         return values[0] if values else float("nan")
     return statistics.quantiles(values, n=20, method="inclusive")[18]
+
+
+def _describe(window) -> None:
+    """The window's shape on standard error: where its time went, so that
+    a run whose rate reads far off shows whether a few stalls or every
+    request made it so; and the latency median of each quarter of the
+    requests, in order, so that it shows whether the pace moved inside
+    the window or held for the whole process."""
+    lat = sorted(window.latencies)
+    if not lat:
+        return
+    med = statistics.median(lat)
+    served = sum(lat)
+    q = max(1, len(lat) // 4)
+    quarters = " ".join(
+        f"{1e3 * statistics.median(window.latencies[i:i + q]):.4f}"
+        for i in range(0, q * (len(lat) // q), q))
+    print(f"[bench] window {window.seconds:.4f} s, {window.attempted} "
+          f"requests, latency median {1e3 * med:.4f} ms, mean "
+          f"{1e3 * served / len(lat):.4f} ms, max {1e3 * lat[-1]:.4f} ms, "
+          f"{sum(x > 2 * med for x in lat)} over twice the median "
+          f"({sum(x for x in lat if x > 2 * med):.4f} s), outside the "
+          f"requests {window.seconds - served:.4f} s; quarters' medians "
+          f"{quarters} ms", file=sys.stderr, flush=True)
 
 
 def _kind(me: _Rank) -> str:

@@ -30,7 +30,7 @@ def _traffic(cell, rehearsal):
 
 
 def _sample(cell, traffic, seed, device, answer=None):
-    dtype = program.DTYPES[traffic["dtype"]]
+    dtype = program.points_dtype(traffic)
     client = traffic_mod.Client(traffic, cell.config["domain"], seed,
                                 device, dtype)
     pts = [client.draw() for _ in range(traffic["sample_requests"])]
@@ -49,7 +49,8 @@ def test_the_control_fails_the_cells_limits(workload, seed):
     traffic = _traffic(cell, rehearsal=True)
     ref = correctness.reference(cell.config, "cpu")
     numbers = correctness.deviations(
-        ref, traffic, _sample(cell, traffic, seed, "cpu"), "tf32")
+        ref, traffic, _sample(cell, traffic, seed, "cpu"),
+        cells.tier(traffic)["control_precision"])
     assert _fails(numbers, cell.checks), numbers
 
 

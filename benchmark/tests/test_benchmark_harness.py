@@ -178,6 +178,17 @@ def test_work_counts_follow_from_the_shapes_and_ranks(workload):
     assert roofline.work_counts(config) == config["work"]
 
 
+@pytest.mark.parametrize("path", sorted(
+    p.name for p in (HERE / "configs").glob("*.json")))
+def test_each_representation_file_counts_its_configurations_work(path):
+    """Every configuration the benchmark keeps, in a cell or not: its
+    representation's file gives the work its file states."""
+    config = cells.load_json(HERE / "configs" / path)
+    rep = cells.representation(config)
+    assert rep.work_counts(config) == config["work"]
+    assert callable(rep.build) and callable(rep.reference)
+
+
 def test_dense_work_is_the_first_contraction_and_tt_is_its_chain():
     dense = cells.resolve("bs5d_11n.risk_2p20_f32").config
     tt = cells.resolve("bs5d_11n_to_tt.risk_2p20_f32").config
@@ -199,7 +210,9 @@ def test_least_time_of_the_dense_cell_is_compute_bound():
 @pytest.mark.parametrize("metric,want", [
     ("device_idle_share", 0.2), ("launches_per_request", 2.5),
     ("eval_roofline", 100 * 322102 * 4096 * 2 / 495e12 / 4e-3),
-    ("step_mfu", 100 * 322102 * 4096 * 2 / 495e12 / 5e-3)])
+    ("step_mfu", 100 * 322102 * 4096 * 2 / 495e12 / 5e-3),
+    ("serve_host_us", 140.0), ("route_host_us", 190.0),
+    ("port_idle_share", 0.15), ("host_syncs_per_request", 0.0)])
 def test_each_reader_reads_its_record(metric, want):
     from benchmark import tracing
     cell = cells.resolve("bs5d_11n.risk_2p20_f32")
@@ -207,36 +220,65 @@ def test_each_reader_reads_its_record(metric, want):
         requests=2, points_per_request=4096, window_us=5000.0,
         busy_us=4000.0, engine_busy_us=4000.0, engine_ops=5, device_ops=5,
         counted_in_trace=2, counted_by_program=2,
-        device_kind="NVIDIA H100 80GB HBM3")
+        device_kind="NVIDIA H100 80GB HBM3", serve_host_us=140.0,
+        route_host_us=190.0, port_idle_share=0.15,
+        host_syncs_per_request=0.0)
     assert cells.reader(metric)(record, cell) == pytest.approx(want)
     record.device_kind = "cpu"
     if metric in ("eval_roofline", "step_mfu"):
         assert cells.reader(metric)(record, cell) is None
+    # a record without the port's spans reads nothing of them
+    bare = tracing.Record(
+        requests=2, points_per_request=4096, window_us=5000.0,
+        busy_us=4000.0, engine_busy_us=4000.0, engine_ops=5, device_ops=5,
+        counted_in_trace=2, counted_by_program=2)
+    if metric in ("serve_host_us", "route_host_us", "port_idle_share",
+                  "host_syncs_per_request"):
+        assert cells.reader(metric)(bare, cell) is None
 
 
-def _trace(kernels):
-    """Two requests' spans, a launch in each call, and the device
-    operations of the launches whose correlation ids are in ``kernels``."""
+def _trace(kernels, name="k", launches=(0, 1)):
+    """Two requests' spans, a launch in each call whose correlation id is
+    in ``launches``, and the device operations, named ``name``, of the
+    launches whose correlation ids are in ``kernels``."""
     ev = []
     for i, t in enumerate((0.0, 100.0)):
         ev += [{"ph": "X", "cat": "user_annotation", "name": "engine.call",
                 "ts": t, "dur": 10.0},
                {"ph": "X", "cat": "user_annotation", "name": "sync",
-                "ts": t + 10.0, "dur": 40.0},
-               {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
-                "ts": t + 5.0, "dur": 1.0, "args": {"correlation": i}}]
+                "ts": t + 10.0, "dur": 40.0}]
+        if i in launches:
+            ev.append({"ph": "X", "cat": "cuda_runtime",
+                       "name": "cudaLaunchKernel", "ts": t + 5.0, "dur": 1.0,
+                       "args": {"correlation": i}})
         if i in kernels:
-            ev.append({"ph": "X", "cat": "kernel", "name": "k", "ts": t + 8.0,
-                       "dur": 30.0, "args": {"correlation": i}})
+            ev.append({"ph": "X", "cat": "kernel", "name": name,
+                       "ts": t + 8.0, "dur": 30.0,
+                       "args": {"correlation": i}})
     return {"traceEvents": ev}
 
 
-@pytest.mark.parametrize("kernels,unmatched", [((0, 1), 0), ((0,), 1)])
-def test_a_trace_that_lost_an_operation_is_incomplete(kernels, unmatched):
+K4 = "void (anonymous namespace)::fused_tt_kernel<5>(float const*)"
+
+
+@pytest.mark.parametrize("kernels,unmatched,name,counted,launches", [
+    ((0, 1), 0, "k", 0, (0, 1)), ((0,), 1, "k", 0, (0, 1)),
+    ((0, 1), 0, K4, 2, (0, 1)), ((0,), 1, K4, 2, (0, 1)),
+    ((0,), 0, K4, 2, (0,))],
+    ids=["complete", "an_operation_lost", "K4_complete",
+         "a_K4_operation_lost", "a_K4_launch_lost_whole"])
+def test_a_trace_that_lost_an_operation_is_incomplete(kernels, unmatched,
+                                                      name, counted,
+                                                      launches):
+    """The port counted ``counted`` launches of its kernels; a K4
+    (``fused_tt_kernel``) operation that the trace lost, with its launch
+    or without, leaves the record incomplete."""
     from benchmark import tracing
-    record = tracing.reduce(_trace(kernels), 0, 2, 4096, True)
+    record = tracing.reduce(_trace(kernels, name, launches), counted, 2,
+                            4096, True)
     assert record.unmatched == unmatched
-    assert record.complete is (unmatched == 0)
+    assert record.counted_in_trace == (len(kernels) if counted else 0)
+    assert record.complete is (len(kernels) == 2)
     assert record.engine_ops == len(kernels)
 
 
@@ -291,13 +333,20 @@ def test_no_file_imports_jax_or_the_jax_package(path):
 
 
 def test_only_the_program_module_imports_the_port():
-    """The tests plant faults in the port; no other file of the harness
-    imports it."""
+    """The tests plant faults in the port; only ``program.py``, ``run.py``
+    and the representations' and engines' files may import it, and the
+    reference none of it."""
     users = {p.relative_to(ROOT).as_posix() for p in HERE.rglob("*.py")
              if "tests" not in p.relative_to(HERE).parts
              and any(top == "pychebyshev_tpu_torch"
                      for top, _ in imported_top_names(p))}
-    assert users == {"benchmark/program.py"}
+    allowed = {"benchmark/program.py", "benchmark/run.py"} | {
+        p.relative_to(ROOT).as_posix()
+        for folder in ("representations", "engines")
+        for p in (HERE / folder).glob("*.py")}
+    assert "benchmark/program.py" in users
+    assert users <= allowed, users - allowed
+    assert not any(u.startswith("benchmark/reference/") for u in users)
 
 
 # --- runs ---------------------------------------------------------------
@@ -328,6 +377,13 @@ def test_a_rehearsal_prints_one_result_line(workload, trace):
         assert device["window_s"] > 0
         assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
         assert 0 < len(line["breakdown"]["device_ops"]) <= 10
+        # the port's spans, but no host syncs off the card
+        assert {m + ".rehearsal" for m in (
+            "serve_host_us", "route_host_us", "port_idle_share")} <= set(
+                line["metrics"])
+        assert "host_syncs_per_request.rehearsal" not in line["metrics"]
+        assert any(g[0].startswith(("serve", "route"))
+                   for g in line["breakdown"]["idle_gaps"])
     # the numbers compared, each beside its limit, end standard error
     tail = proc.stderr.strip().splitlines()[-len(line["checks"]):]
     assert all(t.startswith("check dev.") and "limit" in t for t in tail)
@@ -464,6 +520,14 @@ def test_a_short_traced_run_on_the_card(card, workload):
     assert line["device"]["platform"] == "gpu"
     assert line["device"]["busy_s"] > 0
     assert math.isfinite(line["metrics"]["device_idle_share"]["value"])
+    # every traced request's launch of the cell's kernel (K1 or K4) is in
+    # the trace, and the port's spans are on the line
+    requests = cells.resolve(workload).traffic["trace_requests"]
+    assert (f"[bench] trace: {requests} launches of the counted kernels, "
+            f"the port counted {requests}; 0 unmatched") in proc.stderr
+    for name in ("serve_host_us", "route_host_us", "port_idle_share",
+                 "host_syncs_per_request"):
+        assert math.isfinite(line["metrics"][name]["value"]), name
 
 
 @pytest.mark.parametrize("workload", KEPT_ONE_CARD)

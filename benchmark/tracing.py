@@ -15,10 +15,17 @@ exported trace into a ``Record``:
   once), the idle gaps between them, each named by the host span it
   began in, and the time by operation name;
 - what the trace lost: the launches of the port's hand-written kernels
-  that it holds, beside those the port's counters saw, and the launches
-  and device operations in the traced window that lack their other half
-  (matched by correlation id).  A trace that lost some under-reads
-  device time: the run traces again, and fails if every try lost some.
+  that it holds (every device operation whose name holds the fragment of
+  a counted kernel, ``benchmark/kernels/``), beside those the port's
+  counters saw, and the launches and device operations in the traced
+  window that lack their other half (matched by correlation id).  A
+  trace that lost some under-reads device time: the run traces again,
+  and fails if every try lost some;
+- the port's own spans (``port_spans.py``): the four numbers of
+  ``PortSpans.metrics()``, and the idle gaps named by the innermost
+  span, the port's or the benchmark's, in which the host launched the
+  operation that ends each gap.  A program without spans leaves the
+  four numbers None and names the gaps by the benchmark's spans.
 
 A run with no card (the rehearsal) traces the CPU, and its "device
 operations" are the CPU operations.
@@ -26,11 +33,14 @@ operations" are the CPU operations.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import tempfile
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
+
+from benchmark import cells
 
 SPANS = ("client.draw", "engine.call", "sync")
 GPU_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -38,8 +48,6 @@ LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
 # Host calls that put an operation on the device (cudaLaunchKernel,
 # cuLaunchKernel, cudaMemcpyAsync, cudaMemsetAsync, ...).
 DEVICE_WORK_CALLS = ("LaunchKernel", "Memcpy", "Memset")
-# Kernels of the port's own that its launch counters count.
-COUNTED_KERNEL = "fused_eval_kernel"
 TOP = 10
 
 
@@ -59,6 +67,11 @@ class Record:
     idle_gaps: List[Tuple[str, float]] = field(default_factory=list)
     device_kind: str = ""
     unmatched: int = 0            # launches or device ops without the other
+    # The port's spans (port_spans.PortSpans.metrics()); None without.
+    serve_host_us: Optional[float] = None
+    route_host_us: Optional[float] = None
+    port_idle_share: Optional[float] = None
+    host_syncs_per_request: Optional[float] = None
 
     @property
     def complete(self) -> bool:
@@ -180,6 +193,8 @@ def reduce(trace: dict, counted: int, requests: int, points: int,
         launch_at = {}
         ops = [e for e in events if e.get("cat") == "cpu_op"]
 
+    fragments = [k["fragment"] for k in cells.counted_kernels()]
+
     def launched(e) -> Optional[float]:
         if not on_card:
             return float(e["ts"])
@@ -190,7 +205,7 @@ def reduce(trace: dict, counted: int, requests: int, points: int,
     for e in ops:
         s = float(e["ts"])
         t = s + float(e["dur"])
-        if COUNTED_KERNEL in e.get("name", ""):
+        if any(f in e.get("name", "") for f in fragments):
             counted_in_trace += 1
         parts = _clip(s, t, served)
         if not parts:
@@ -216,7 +231,7 @@ def reduce(trace: dict, counted: int, requests: int, points: int,
             cursor = max(cursor, e)
     named.sort(key=lambda g: -g[1])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
-    return Record(
+    record = Record(
         requests=requests, points_per_request=points,
         window_us=_length(served), busy_us=_length(busy),
         engine_busy_us=_length(_union(engine_timeline)),
@@ -224,3 +239,10 @@ def reduce(trace: dict, counted: int, requests: int, points: int,
         counted_in_trace=counted_in_trace, counted_by_program=counted,
         top_ops=[(n, v * 1e-6) for n, v in top], idle_gaps=named[:TOP],
         device_kind=device_kind, unmatched=unmatched)
+    from benchmark import port_spans     # it reads this module's helpers
+
+    spans = port_spans.reduce(trace, on_card)
+    if spans is not None:
+        record = dataclasses.replace(record, idle_gaps=spans.idle_gaps,
+                                     **spans.metrics())
+    return record
