@@ -23,11 +23,14 @@ mix.  Everything that belongs to one of them sits in a file of its own:
   its peak in ``peaks.json`` and its bytes an item;
 - ``benchmark/kernels/<fragment>.json``: a hand-written kernel of the
   port whose launches a trace is checked for: the fragment of its
-  device operations' names, and the port's counters of its launches.
+  device operations' names, and the port's counters of its launches;
+- ``benchmark/counters/<name>.json``: a counter of the port
+  (``<module>:<attribute>`` under the port) whose change over the traced
+  requests the record carries under ``name`` for the readers.
 
-So a later cell, mix, metric, function, representation, engine, tier
-or counted kernel is new files and entries, and no edit of a file that
-is here.
+So a later cell, mix, metric, function, representation, engine, tier,
+counted kernel or counter is new files and entries, and no edit of a
+file that is here.
 """
 
 from __future__ import annotations
@@ -114,6 +117,13 @@ def counted_kernels() -> List[dict]:
     ``fragment``."""
     return [dict(load_json(path), fragment=path.stem)
             for path in sorted((HERE / "kernels").glob("*.json"))]
+
+
+def counters() -> Dict[str, str]:
+    """Every ``benchmark/counters/<name>.json``: its ``counter`` by
+    ``name``."""
+    return {path.stem: load_json(path)["counter"]
+            for path in sorted((HERE / "counters").glob("*.json"))}
 
 
 def _metrics(entries, cell: str, readers: bool) -> List[Metric]:

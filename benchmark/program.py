@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -84,14 +84,22 @@ def engine(model, traffic: dict, config: dict, device, device_mesh):
                                       device_mesh)
 
 
+def _counter(counter: str) -> int:
+    """The port's counter ``<module>:<attribute>``, now."""
+    module, attribute = counter.split(":")
+    return int(getattr(importlib.import_module(f"{PORT}.{module}"),
+                       attribute))
+
+
 def kernel_launches() -> int:
     """Launches of the port's hand-written kernels that its own counters
-    have seen: every counter (``<module>:<attribute>`` under the port)
-    of every counted kernel (``benchmark/kernels/``)."""
-    total = 0
-    for kernel in cells.counted_kernels():
-        for counter in kernel["counters"]:
-            module, attribute = counter.split(":")
-            total += int(getattr(
-                importlib.import_module(f"{PORT}.{module}"), attribute))
-    return total
+    have seen: every counter of every counted kernel
+    (``benchmark/kernels/``)."""
+    return sum(_counter(counter) for kernel in cells.counted_kernels()
+               for counter in kernel["counters"])
+
+
+def counters() -> Dict[str, int]:
+    """Every counter of ``benchmark/counters/``, now, by its name."""
+    return {name: _counter(counter)
+            for name, counter in cells.counters().items()}

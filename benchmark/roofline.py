@@ -3,7 +3,9 @@
 A configuration's file states its work counts (``work``), which follow
 from its shapes and ranks as its representation's file counts them
 (``representations/<kind>.py``, ``work_counts``): ``flop_per_point`` and
-``coefficients``.
+``coefficients``, and ``outputs_per_point`` where a point has more than
+one output a spec (a book of M models writes M), 1 where it is not
+stated.
 
 The least time of a batch is max(FLOP / peak FLOP/s, bytes / peak
 bytes/s), with bytes = the points read once + the outputs written once
@@ -49,9 +51,20 @@ def least_seconds(config: dict, traffic: dict, points: int, requests: int,
     peak = peaks(device_kind)
     if peak is None:
         return None
-    specs = len(traffic["specs"])
-    moved = cells.tier(traffic)["itemsize"] * (
-        points * (config["dims"] + specs)
-        + requests * specs * config["work"]["coefficients"])
     return max(flop_seconds(config, traffic, points, device_kind),
-               moved / peak["bytes_per_s"])
+               bytes_moved(config, traffic, points, requests)
+               / peak["bytes_per_s"])
+
+
+def bytes_moved(config: dict, traffic: dict, points: int,
+                requests: int) -> int:
+    """The bytes ``points`` points over ``requests`` requests of
+    ``traffic`` move at the least: each point's coordinates read once,
+    its ``outputs_per_point`` outputs a spec written once, and the
+    coefficients of every spec read once a request."""
+    work = config["work"]
+    specs = len(traffic["specs"])
+    outputs = specs * work.get("outputs_per_point", 1)
+    return cells.tier(traffic)["itemsize"] * (
+        points * (config["dims"] + outputs)
+        + requests * specs * work["coefficients"])

@@ -23,7 +23,9 @@ from the root of a checkout.  The cell (``BENCHMARK.json``'s
 6. fails if JAX or the JAX package was loaded, and prints each number
    compared beside its limit on standard error, then one JSON line on
    standard output: ``correct``, ``attempted``, ``failed``, ``metrics``,
-   ``device`` (with ``--trace 1`` also ``breakdown``), and ``checks``.
+   ``device`` (with ``--trace 1`` also ``breakdown``, and ``record``:
+   rank 0's ``self_by_span`` and ``idle_by_span`` in microseconds a
+   request and its ``counters`` a request), and ``checks``.
 
 A four-card cell runs one process a card: this process is rank 0, and
 spawns ranks 1-3 itself, over NCCL with a file store in a temporary
@@ -268,13 +270,15 @@ def run_rank(cell: cells.Cell, args: argparse.Namespace, rank: int = 0,
 
     record = None
     for _ in range(TRACE_TRIES if args.trace else 0):
+        before = program.counters()
         trace, counted = tracing.traced_requests(
             engine, client.draw, traffic["trace_requests"], me.sync,
             me.barrier, program.kernel_launches, me.on_card)
+        moved = {k: v - before[k] for k, v in program.counters().items()}
         record = tracing.reduce(
             trace, counted, traffic["trace_requests"],
             traffic["points_per_request"] // world, me.on_card,
-            device_kind=_kind(me))
+            device_kind=_kind(me), counters=moved)
         del trace
         if rank == 0:
             print(f"[bench] trace: {record.counted_in_trace} launches of "
@@ -408,6 +412,9 @@ def result(cell: cells.Cell, args, out: dict):
         line["breakdown"] = {"device_ops": [list(x) for x in records[0].top_ops],
                              "idle_gaps": [list(x) for x in records[0].idle_gaps]}
     line["device"] = device
+    if args.trace:
+        line["record"] = {k: getattr(records[0], k) for k in
+                          ("self_by_span", "idle_by_span", "counters")}
     checks = correctness.judge(out["numbers"], cell.checks)
     line["correct"] = bool(out["attempted"] > 0 and out["failed"] == 0
                            and checks

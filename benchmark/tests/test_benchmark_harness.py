@@ -13,6 +13,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -153,29 +154,81 @@ def test_every_file_under_the_benchmark_is_named_from_name_letters():
 # --- work counts --------------------------------------------------------
 
 
-def hand_counts(config):
-    """FLOP a point and coefficients, counted core by core."""
+def hand_counts(config, tests=HERE / "tests"):
+    """The work a configuration's file should state, counted by hand:
+    a dense grid's values, a tensor train core by core (a ``ranks``
+    key), a book (``models`` and ``member``) as M times its member with
+    M outputs a point.  Any other kind is counted by the ``hand_counts``
+    of ``tests/test_counts_<kind>.py``, a test file of its own; where
+    there is none, the count fails and names the file."""
     n = config["n_nodes"]
     rep = config["representation"]
+    if "member" in rep:
+        member = hand_counts(dict(config, representation=rep["member"]),
+                             tests)
+        models = rep["models"]
+        return {"flop_per_point": models * member["flop_per_point"],
+                "coefficients": models * member["coefficients"],
+                "outputs_per_point": models
+                * member.get("outputs_per_point", 1)}
     if rep["kind"] == "dense":
         size = 1
         for k in n:
             size *= k
-        return 2 * size, size
-    r = rep["ranks"]
-    flop = coef = 0
-    for k in range(len(n)):
-        flop += 2 * r[k] * n[k] * r[k + 1]
-        coef += r[k] * n[k] * r[k + 1]
-    return flop, coef
+        return {"flop_per_point": 2 * size, "coefficients": size}
+    if "ranks" in rep:
+        r = rep["ranks"]
+        flop = coef = 0
+        for k in range(len(n)):
+            flop += 2 * r[k] * n[k] * r[k + 1]
+            coef += r[k] * n[k] * r[k + 1]
+        return {"flop_per_point": flop, "coefficients": coef}
+    path = tests / f"test_counts_{rep['kind']}.py"
+    if not path.is_file():
+        pytest.fail(f"no hand count of the kind {rep['kind']!r}: add "
+                    f"benchmark/tests/{path.name} with hand_counts(config) "
+                    f"and tests of its own", pytrace=False)
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark.tests._counts_{rep['kind']}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.hand_counts(config)
 
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_work_counts_follow_from_the_shapes_and_ranks(workload):
     config = cells.resolve(workload).config
-    flop, coef = hand_counts(config)
-    assert config["work"] == {"flop_per_point": flop, "coefficients": coef}
+    assert config["work"] == hand_counts(config)
     assert roofline.work_counts(config) == config["work"]
+
+
+def test_a_kind_counted_by_no_hand_names_the_file_it_needs(tmp_path):
+    config = cells.load_json(HERE / "configs" / "bs5d_11n.json")
+    config["representation"] = {"kind": "spline"}
+    with pytest.raises(pytest.fail.Exception,
+                       match=r"benchmark/tests/test_counts_spline\.py"):
+        hand_counts(config, tmp_path)
+    # and a book of such a kind asks for its member's file
+    config["representation"] = {"kind": "book", "models": 4,
+                                "member": {"kind": "slider"}}
+    with pytest.raises(pytest.fail.Exception,
+                       match=r"test_counts_slider\.py"):
+        hand_counts(config, tmp_path)
+
+
+def test_the_count_defers_to_the_kind_s_own_test_file(tmp_path):
+    (tmp_path / "test_counts_spline.py").write_text(
+        "def hand_counts(config):\n"
+        "    return {'flop_per_point': 7, 'coefficients': 3}\n")
+    config = cells.load_json(HERE / "configs" / "bs5d_11n.json")
+    config["representation"] = {"kind": "spline"}
+    assert hand_counts(config, tmp_path) == {"flop_per_point": 7,
+                                             "coefficients": 3}
+    config["representation"] = {"kind": "book", "models": 5,
+                                "member": {"kind": "spline"}}
+    assert hand_counts(config, tmp_path) == {
+        "flop_per_point": 35, "coefficients": 15, "outputs_per_point": 5}
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -205,6 +258,104 @@ def test_least_time_of_the_dense_cell_is_compute_bound():
     assert least == pytest.approx(322102 * n / 495e12)
     assert roofline.least_seconds(cell.config, cell.traffic, n, 1,
                                   "cpu") is None
+
+
+def book3(config):
+    """``config`` as a book of three of its products."""
+    book = dict(config, representation={
+        "kind": "book", "models": 3, "member": config["representation"]})
+    book["work"] = hand_counts(book)
+    return book
+
+
+def test_a_book_of_three_writes_three_outputs_a_point(monkeypatch):
+    cell = cells.resolve("bs5d_11n.risk_2p20_f32")
+    book = book3(cell.config)
+    assert book["work"] == {"flop_per_point": 3 * 322102,
+                            "coefficients": 3 * 161051,
+                            "outputs_per_point": 3}
+    n, requests = 1 << 20, 2
+    moved = roofline.bytes_moved(book, cell.traffic, n, requests)
+    assert moved == 4 * (n * (5 + 3) + requests * 3 * 161051)
+    assert moved - roofline.bytes_moved(
+        dict(book, work=dict(book["work"], outputs_per_point=1)),
+        cell.traffic, n, requests) == 4 * n * 2
+    # bound by its FLOP at this size, by its bytes where the peak FLOP/s
+    # were far higher
+    h100 = "NVIDIA H100 80GB HBM3"
+    assert roofline.least_seconds(book, cell.traffic, n, requests,
+                                  h100) == 3 * 322102 * n / 495e12
+    fast = {"flop_per_s": {"float32": 1e30}, "bytes_per_s": 3.35e12}
+    monkeypatch.setattr(roofline, "peaks", lambda kind: fast)
+    assert roofline.least_seconds(book, cell.traffic, n, requests,
+                                  h100) == moved / 3.35e12
+
+
+# The parent's formulas, before a point could have several outputs.
+def _parent_least_seconds(config, traffic, points, requests, peak):
+    specs = len(traffic["specs"])
+    itemsize = cells.tier(traffic)["itemsize"]
+    flop = config["work"]["flop_per_point"] * specs * points
+    flop_s = flop / peak["flop_per_s"][cells.tier(traffic)["peak"]]
+    moved = itemsize * (points * (config["dims"] + specs)
+                        + requests * specs * config["work"]["coefficients"])
+    return max(flop_s, moved / peak["bytes_per_s"]), flop_s
+
+
+# The cells whose points have one output a spec: every cell before books.
+ONE_OUTPUT = [w["name"] for w in BENCH["workloads"] + KEPT
+              if "outputs_per_point" not in cells.load_json(
+                  HERE / "configs" / f"{w['config']}.json")["work"]]
+
+
+@pytest.mark.parametrize("workload", ONE_OUTPUT)
+def test_the_existing_cells_read_as_the_parent_s_formulas(
+        with_kept_cells, workload):
+    """Work, least time, the readers of both, and the comparison of a
+    one-model output: the same numbers, number for number."""
+    from benchmark import correctness, tracing
+    from benchmark.reference.interpolant import Interpolant, deviation
+    cell = cells.resolve(workload)
+    h100 = "NVIDIA H100 80GB HBM3"
+    peak = roofline.peaks(h100)
+    for points, requests in ((1 << 20, 1), (1 << 22, 24), (4096, 3)):
+        least, flop_s = _parent_least_seconds(cell.config, cell.traffic,
+                                              points, requests, peak)
+        assert roofline.least_seconds(cell.config, cell.traffic, points,
+                                      requests, h100) == least
+        assert roofline.flop_seconds(cell.config, cell.traffic, points,
+                                     h100) == flop_s
+    record = tracing.Record(
+        requests=24, points_per_request=cell.traffic["points_per_request"],
+        window_us=2.5e5, busy_us=2.2e5, engine_busy_us=2.1e5,
+        engine_ops=48, device_ops=50, counted_in_trace=24,
+        counted_by_program=24, device_kind=h100)
+    least, flop_s = _parent_least_seconds(
+        cell.config, cell.traffic, 24 * record.points_per_request, 24, peak)
+    assert cells.reader("eval_roofline")(record, cell) == (
+        100.0 * least / (record.engine_busy_us * 1e-6))
+    assert cells.reader("step_mfu")(record, cell) == (
+        100.0 * flop_s / (record.window_us * 1e-6))
+    # a one-model output is judged as before: max |got - ref| / max |ref|
+    ref = Interpolant(lambda p: (np.exp(p[:, 0]) * (1 + p[:, 1])
+                                 + p[:, 2] * p[:, 3] + p[:, 4] * p[:, 0]),
+                      [(0.5, 1.5)] * 5, [3] * 5, device="cpu")
+    traffic = dict(cell.traffic, **cell.traffic["rehearsal"])
+    gen = torch.Generator().manual_seed(3)
+    points = 0.5 + torch.rand((64, 5), generator=gen, dtype=torch.float64)
+    exact = {tuple(s): ref.evaluate(points, s) for s in traffic["specs"]}
+    noisy = torch.stack([v * (1 + 1e-5 * torch.randn(
+        v.shape, generator=gen, dtype=torch.float64))
+        for v in exact.values()], dim=-1).to(torch.float32)
+    output = noisy[:, 0] if len(exact) == 1 else noisy
+    numbers = correctness.deviations(ref, traffic, [(0, points, output)])
+    columns = [output] if len(exact) == 1 else [
+        output[:, m] for m in range(len(exact))]
+    assert numbers == {
+        f"dev.{name}": deviation(col.reshape(-1), e)
+        for name, col, e in zip(traffic["spec_names"], columns,
+                                exact.values())}
+    assert all(0 < v < 1e-4 for v in numbers.values())
 
 
 @pytest.mark.parametrize("metric,want", [
@@ -360,7 +511,7 @@ def test_a_rehearsal_prints_one_result_line(workload, trace):
     assert proc.returncode == 0, proc.stderr[-3000:]
     line = last_line(proc.stdout)
     keys = list(line)
-    want = LINE_KEYS + (["breakdown"] if trace else [])
+    want = LINE_KEYS + (["breakdown", "record"] if trace else [])
     assert sorted(keys[:-1]) == sorted(want) and keys[-1] == "checks"
     assert line["correct"] is True, line["checks"]
     assert line["attempted"] >= 1 and line["failed"] == 0
@@ -384,6 +535,12 @@ def test_a_rehearsal_prints_one_result_line(workload, trace):
         assert "host_syncs_per_request.rehearsal" not in line["metrics"]
         assert any(g[0].startswith(("serve", "route"))
                    for g in line["breakdown"]["idle_gaps"])
+        # the record's span times by name, and the port's counters
+        record = line["record"]
+        assert record["self_by_span"]["serve"] > 0
+        assert record["idle_by_span"] and all(
+            v >= 0 for v in record["idle_by_span"].values())
+        assert set(record["counters"]) == set(cells.counters())
     # the numbers compared, each beside its limit, end standard error
     tail = proc.stderr.strip().splitlines()[-len(line["checks"]):]
     assert all(t.startswith("check dev.") and "limit" in t for t in tail)
@@ -425,8 +582,11 @@ def _run_in_process(capsys, workload, entry=None, trace=0):
 
 
 def _engine_classes():
+    """Every engine of the port's serving layer with a route of its own
+    (``_run``), so that a cell on any of them gets the fault."""
     from pychebyshev_tpu_torch import serving
-    return (serving.BatchedEvaluator, serving.MultiSpecEvaluator)
+    return [c for c in vars(serving).values()
+            if isinstance(c, type) and "_run" in vars(c)]
 
 
 def _half_left_out(out):

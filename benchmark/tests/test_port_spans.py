@@ -78,12 +78,17 @@ def test_the_existing_readers_read_the_same_with_the_port_s_spans(metric):
     spanned = tracing.reduce(_trace(port=True), 2, 2, 4096, True)
     port = ("serve_host_us", "route_host_us", "port_idle_share",
             "host_syncs_per_request")
+    maps = ("self_by_span", "idle_by_span")
     assert all(getattr(bare, k) is None for k in port)
     assert all(getattr(spanned, k) is not None for k in port)
-    # beside the port's four numbers and the gaps' names, nothing moves
+    assert all(getattr(bare, k) == {} for k in maps)
+    assert all(getattr(spanned, k) for k in maps)
+    # beside the port's four numbers, its two maps and the gaps' names,
+    # nothing moves
     assert dataclasses.replace(
         spanned, idle_gaps=[g[1] for g in spanned.idle_gaps],
-        **{k: None for k in port}) == dataclasses.replace(
+        **{k: None for k in port}, **{k: {} for k in maps}
+    ) == dataclasses.replace(
         bare, idle_gaps=[g[1] for g in bare.idle_gaps])
     reader = cells.reader(metric)
     if metric not in port:
@@ -130,6 +135,32 @@ def test_idle_and_host_time_by_innermost_span():
         "engine.call": 2.0, "serve": 2.0, "serve.intake": 1.0,
         "route.fused_eval": 2.0, "route.operands": 1.0,
         "route.kernel_launch": 2.0, "sync": 40.0})
+
+
+def test_the_record_carries_span_times_and_counters():
+    """The record of the planted trace: host and idle time by innermost
+    span, by name, microseconds a request, as ``PortSpans`` reads them;
+    and each counter's change over the two requests, a request."""
+    record = tracing.reduce(_trace(), 2, 2, 4096, True,
+                            counters={"k1_launches": 2, "cache_misses": 0,
+                                      "bytes_packed": 5})
+    assert record.self_by_span == pytest.approx({
+        "engine.call": 2.0, "serve": 2.0, "serve.intake": 1.0,
+        "route.fused_eval": 2.0, "route.operands": 1.0,
+        "route.kernel_launch": 2.0, "sync": 40.0})
+    assert record.idle_by_span == pytest.approx({
+        "engine.call": 1.0, "serve": 1.0, "serve.intake": 1.0,
+        "route.fused_eval": 2.0, "route.operands": 1.0,
+        "route.kernel_launch": 2.0, "sync": 4.0})
+    # each request's 50 us of host time, 8 + 4 of them idle
+    assert sum(record.self_by_span.values()) == pytest.approx(50.0)
+    assert sum(record.idle_by_span.values()) == pytest.approx(12.0)
+    assert record.counters == {"k1_launches": 1.0, "cache_misses": 0.0,
+                               "bytes_packed": 2.5}
+    # a reader reads a span by name and a counter by name
+    assert record.self_by_span["route.kernel_launch"] == pytest.approx(2.0)
+    bare = tracing.reduce(_trace(port=False), 2, 2, 4096, True)
+    assert bare.self_by_span == bare.idle_by_span == bare.counters == {}
 
 
 def test_a_scalar_read_is_one_wait():

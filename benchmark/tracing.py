@@ -22,10 +22,17 @@ exported trace into a ``Record``:
   trace that lost some under-reads device time: the run traces again,
   and fails if every try lost some;
 - the port's own spans (``port_spans.py``): the four numbers of
-  ``PortSpans.metrics()``, and the idle gaps named by the innermost
-  span, the port's or the benchmark's, in which the host launched the
-  operation that ends each gap.  A program without spans leaves the
-  four numbers None and names the gaps by the benchmark's spans.
+  ``PortSpans.metrics()``, the idle gaps named by the innermost span,
+  the port's or the benchmark's, in which the host launched the
+  operation that ends each gap, and ``self_by_span`` and
+  ``idle_by_span``: host time and device idle time put down to the
+  innermost span open at each instant, by span name, in microseconds a
+  request.  A program without spans leaves the four numbers None and
+  the two maps empty, and names the gaps by the benchmark's spans;
+- ``counters``: by name, how far each of the port's counters
+  (``benchmark/counters/<name>.json``) moved over the traced requests,
+  a request; the run reads them before and after the segment
+  (``program.counters``).
 
 A run with no card (the rehearsal) traces the CPU, and its "device
 operations" are the CPU operations.
@@ -72,6 +79,12 @@ class Record:
     route_host_us: Optional[float] = None
     port_idle_share: Optional[float] = None
     host_syncs_per_request: Optional[float] = None
+    # Span name -> microseconds a request (port_spans.PortSpans); empty
+    # without the port's spans.
+    self_by_span: Dict[str, float] = field(default_factory=dict)
+    idle_by_span: Dict[str, float] = field(default_factory=dict)
+    # Counter name -> its change over the traced requests, a request.
+    counters: Dict[str, float] = field(default_factory=dict)
 
     @property
     def complete(self) -> bool:
@@ -154,11 +167,14 @@ def _inside(t: float, spans) -> bool:
 
 
 def reduce(trace: dict, counted: int, requests: int, points: int,
-           on_card: bool, device_kind: str = "") -> Record:
+           on_card: bool, device_kind: str = "",
+           counters: Optional[Dict[str, int]] = None) -> Record:
     """The record of a traced segment.  Its window is the requests'
     serving time: each request from the start of its ``engine.call`` to
     the end of its ``sync``, so that the client's draws, which are the
-    benchmark's and not the port's, do not read as the device idling."""
+    benchmark's and not the port's, do not read as the device idling.
+    ``counters`` are how far the port's counters moved over the
+    segment's ``requests``."""
     events = [e for e in trace.get("traceEvents", [])
               if e.get("ph") == "X" and "ts" in e]
     spans: Dict[str, List[Tuple[float, float]]] = {s: [] for s in SPANS}
@@ -238,11 +254,14 @@ def reduce(trace: dict, counted: int, requests: int, points: int,
         engine_ops=engine_ops, device_ops=device_ops,
         counted_in_trace=counted_in_trace, counted_by_program=counted,
         top_ops=[(n, v * 1e-6) for n, v in top], idle_gaps=named[:TOP],
-        device_kind=device_kind, unmatched=unmatched)
+        device_kind=device_kind, unmatched=unmatched,
+        counters={k: v / requests for k, v in (counters or {}).items()})
     from benchmark import port_spans     # it reads this module's helpers
 
     spans = port_spans.reduce(trace, on_card)
     if spans is not None:
-        record = dataclasses.replace(record, idle_gaps=spans.idle_gaps,
-                                     **spans.metrics())
+        record = dataclasses.replace(
+            record, idle_gaps=spans.idle_gaps,
+            self_by_span=dict(spans.self_by_span),
+            idle_by_span=dict(spans.idle_by_span), **spans.metrics())
     return record
