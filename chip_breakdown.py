@@ -1,35 +1,48 @@
-"""Where the fused evaluator's time goes, on one CUDA card.
+"""Where the fused evaluators' time goes, on one CUDA card.
 
 Builds variants of ``pychebyshev_tpu_torch/csrc/fused_eval.cu``, each the
 source with one part taken out or changed by a text substitution, and
-times each against the kernel as committed, at N = 2^20 points on random
-11^5 and 19^5 tensors, in f32 (K1, K2) and f64 (K3):
+times each against the kernels as committed, at N = 2^20 points on random
+11^5 and 19^5 tensors.
 
-- ``no A formation``: the stage loop forms no A (the MMAs read stale A);
-- ``no MMA``: no tensor-core work (rows, A, T copies and barriers only);
-- ``no T copies``: the ring is never refilled (the MMAs read stale T);
-- ``no T split``: the f32 MMAs take T unsplit, as if the pack held T's
-  TF32 big and small planes (the upper bound of what pre-splitting T at
-  pack time could save, before its doubled L2 traffic);
-- ``4-stage ring``: the ring one stage deeper (one f32 block per SM
-  then, by shared memory; a launch the cap refuses reads "refused" or
-  nan);
-- ``one f32 block per SM``: the f32 instance's registers not held to
-  two blocks per SM;
-- ``sums on the tensor cores``: f32 accumulates on the tensor cores
-  across the whole contraction instead of per k8 step in IEEE f32;
-- ``k8 steps unrolled``: the stage's two k8 steps unrolled into one
-  block of MMAs (more registers live at once).
+The f32 kernel (K1, K2: ``fused_eval_kernel_wgmma``, warp-specialised
+3xTF32 ``wgmma``):
 
-Variants that drop work compute wrong values by design; only the kernel
-and the variants that keep its function are held to the plain version
+- ``no A formation``: the producer warpgroups form no A (the products
+  read stale A);
+- ``no MMA``: the consumer warpgroups issue no ``wgmma`` (rows, A, T
+  copies and barriers only);
+- ``no T copies``: no stage's T is copied (the products read stale T);
+- ``copies only``: neither A nor products, only the T copies and the
+  barriers' round trips;
+- ``products only``: neither A nor T copies, only the products on
+  stale operands and the barriers' round trips;
+- ``2-stage ring``: every plan takes two ring stages, not three;
+- ``whole-depth sums``: the tensor cores sum the whole contraction
+  before the one IEEE add, instead of a 128-deep chunk at a time;
+- ``1-stage chunks``: an IEEE add after every 32-deep stage.
+
+The f64 kernel (K3, ``fused_eval_kernel<double>``, ``mma.sync`` DMMA):
+``f64 no A formation``, ``f64 no MMA``, ``f64 no T copies`` and
+``f64 4-stage ring`` (one stage deeper; a launch the shared-memory cap
+refuses reads "refused" or nan).
+
+The variants of the ``mma.sync`` f32 kernel that the ``wgmma`` one
+replaced (no T split, one f32 block per SM, sums on the tensor cores, k8
+steps unrolled) were retired with it: T is split at pack time now, a
+block takes an SM by design, and ``whole-depth sums`` is the new form of
+the tensor-core sums.
+
+Variants that drop work compute wrong values by design; only the kernels
+and the variants that keep their function are held to the plain versions
 (19^5, random tensor, first-dim derivative, 20,001 points).  Times are
 CUDA-event means over 7 calls after a warm-up, in the order kernel,
 variants, variants reversed, kernel, so each variant reads twice.
 
-Run from the repository root, with one CUDA card:
+Run from the repository root, with one CUDA card (names or prefixes of
+variants after the script select some; the kernels always run):
 
-    python3 chip_breakdown.py
+    python3 chip_breakdown.py [variant ...]
 """
 
 from __future__ import annotations
@@ -55,37 +68,48 @@ OUT = ROOT / "pychebyshev_tpu_torch" / "_build" / "variants"
 N = 1 << 20
 SEED = 0
 
+_NO_A = ("      for (int c4 = 0; c4 < kVals / 4; ++c4) {",
+         "      for (int c4 = 0; c4 < 0; ++c4) {")
+_NO_MMA = ("          for (int kk = 0; kk < 4; ++kk) {",
+           "          for (int kk = 0; kk < 0; ++kk) {")
+_NO_T = [("      mbar_arrive_expect_tx(&full[q], kCopyBytes);\n"
+          "      bulk_copy(ring + q * P::kStageBytes,\n"
+          "                pack + static_cast<size_t>(q) * (kCopyBytes / 4),\n"
+          "                kCopyBytes, &full[q]);\n",
+          "      mbar_arrive(&full[q]);\n"),
+         ("        mbar_arrive_expect_tx(&full[slot], kCopyBytes);\n"
+          "        bulk_copy(st, pack + static_cast<size_t>(q) * "
+          "(kCopyBytes / 4),\n"
+          "                  kCopyBytes, &full[slot]);\n",
+          "        mbar_arrive(&full[slot]);\n")]
+_CHUNK = "constexpr int kWgChunk = 4;"
+
+# name -> (dtype timed, substitutions)
 VARIANTS = {
-    "no A formation": [(
+    "no A formation": (torch.float32, [_NO_A]),
+    "no MMA": (torch.float32, [_NO_MMA]),
+    "no T copies": (torch.float32, _NO_T),
+    "copies only": (torch.float32, [_NO_A, _NO_MMA]),
+    "products only": (torch.float32, [_NO_A] + _NO_T),
+    "2-stage ring": (torch.float32, [(
+        "kWgPlans[4][2] = {{2, 3}, {2, 2}, {1, 3}, {1, 2}};",
+        "kWgPlans[4][2] = {{2, 2}, {2, 2}, {1, 2}, {1, 2}};")]),
+    "whole-depth sums": (torch.float32, [(
+        _CHUNK, "constexpr int kWgChunk = 1 << 20;")]),
+    "1-stage chunks": (torch.float32, [(
+        _CHUNK, "constexpr int kWgChunk = 1;")]),
+    "f64 no A formation": (torch.float64, [(
         "    if (q + 1 < n_q) form_a(ks + 1 == n_k ? 0 : ks + 1, "
-        "(q + 1) & 1);\n", "")],
-    "no MMA": [("      mma_k8(acc, a_q + k8 * S, t_q + k8 * S, g8, q4);\n",
-                "")],
-    "no T copies": [("    copy_stage(q + kStages - 1);\n",
-                     "    cp_async_commit();\n")],
-    "no T split": [(
-        "      bb[ni][h] = tf32(x);\n"
-        "      bs[ni][h] = tf32(x - __uint_as_float(bb[ni][h]));\n",
-        "      bb[ni][h] = __float_as_uint(x);\n"
-        "      bs[ni][h] = bb[ni][h];\n")],
-    "4-stage ring": [("constexpr int kStages = 3;", "constexpr int kStages = 4;")],
-    "one f32 block per SM": [("  static constexpr int kMinBlocks = 2;",
-                              "  static constexpr int kMinBlocks = 1;")],
-    "sums on the tensor cores": [(
-        "      float sum[4];\n"
-        "      mma0(sum, as, bb[ni][0], bb[ni][1]);\n"
-        "      mma(sum, ab, bs[ni][0], bs[ni][1]);\n"
-        "      mma(sum, ab, bb[ni][0], bb[ni][1]);\n"
-        "#pragma unroll\n"
-        "      for (int e = 0; e < 4; ++e) acc[mi][ni][e] += sum[e];\n",
-        "      mma(acc[mi][ni], as, bb[ni][0], bb[ni][1]);\n"
-        "      mma(acc[mi][ni], ab, bs[ni][0], bs[ni][1]);\n"
-        "      mma(acc[mi][ni], ab, bb[ni][0], bb[ni][1]);\n")],
-    "k8 steps unrolled": [("#pragma unroll 1\n    for (int k8 = 0;",
-                           "#pragma unroll\n    for (int k8 = 0;")],
+        "(q + 1) & 1);\n", "")]),
+    "f64 no MMA": (torch.float64, [(
+        "      mma_k8(acc, a_q + k8 * S, t_q + k8 * S, g8, q4);\n", "")]),
+    "f64 no T copies": (torch.float64, [(
+        "    copy_stage(q + kStages - 1);\n", "    cp_async_commit();\n")]),
+    "f64 4-stage ring": (torch.float64, [(
+        "constexpr int kStages = 3;", "constexpr int kStages = 4;")]),
 }
-SAME_FUNCTION = ("kernel", "4-stage ring", "one f32 block per SM",
-                 "sums on the tensor cores", "k8 steps unrolled")
+SAME_FUNCTION = ("kernel", "2-stage ring", "whole-depth sums",
+                 "1-stage chunks", "f64 4-stage ring")
 
 
 def build(name: str, source: str) -> ctypes.CDLL:
@@ -120,7 +144,7 @@ def mean_ms(fn, reps=7) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def main() -> None:
+def main(selected=()) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_breakdown: needs a CUDA card")
     card = subprocess.run(
@@ -130,22 +154,24 @@ def main() -> None:
     ).stdout.strip()
     print(card, flush=True)
     base = SOURCE.read_text()
-    libs = {"kernel": fused_eval._library()}
-    for name, subs in VARIANTS.items():
+    libs = {"kernel": (None, fused_eval._library())}
+    for name, (dtype, subs) in VARIANTS.items():
+        if selected and not any(name.startswith(s) for s in selected):
+            continue
         source = base
         for old, new in subs:
             if old not in source:
                 raise SystemExit(f"chip_breakdown: {name}: {old!r} is no "
                                  f"longer in {SOURCE.name}")
             source = source.replace(old, new)
-        libs[name] = build(name, source)
+        libs[name] = (dtype, build(name, source))
     log = _build.build_log
-    for name, lib in libs.items():
+    for name, (_, lib) in libs.items():
         report = [line.strip() for line in
                   log(lib._name).read_text().splitlines()
                   if "Used " in line or "spill" in line]
-        print(f"[build] {name} (f64, then f32): {' | '.join(report)}",
-              flush=True)
+        print(f"[build] {name} (the f32 kernels, then f64): "
+              f"{' | '.join(report)}", flush=True)
 
     rng = np.random.default_rng(SEED)
     runs = {torch.float32: fused_eval.fused_eval_batch,
@@ -159,7 +185,9 @@ def main() -> None:
         plain = plains[dtype](*ops19, p, (1, 0, 0, 0, 0)).double()
         line = []
         for name in SAME_FUNCTION:
-            fused_eval._library = lambda lib=libs[name]: lib
+            if name not in libs or libs[name][0] not in (None, dtype):
+                continue
+            fused_eval._library = lambda lib=libs[name][1]: lib
             try:
                 out = run(*ops19, p, (1, 0, 0, 0, 0)).double()
             except RuntimeError:   # refused: over the shared memory
@@ -170,15 +198,15 @@ def main() -> None:
         print(f"[accuracy] 19^5 {dtype} vs plain: {'; '.join(line)} | "
               f"{card}", flush=True)
 
-    order = list(libs) + list(reversed(libs))
     for shape in ((11,) * 5, (19,) * 5):
         ops = operands(shape, rng)
         pts = rng.uniform(-0.98, 0.98, (N, len(shape)))
         for dtype, run in runs.items():
+            names = [n for n, (t, _) in libs.items() if t in (None, dtype)]
             p = torch.tensor(pts, dtype=dtype, device="cuda")
             times = {}
-            for name in order:
-                fused_eval._library = lambda lib=libs[name]: lib
+            for name in names + names[::-1]:
+                fused_eval._library = lambda lib=libs[name][1]: lib
                 try:
                     t = mean_ms(lambda: run(*ops, p))
                 except RuntimeError:   # refused: over the shared memory
@@ -191,4 +219,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

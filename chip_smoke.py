@@ -444,8 +444,12 @@ def tt_bound(shapes, n, peak, passes=1):
 def build_report(lib) -> str:
     """Registers and spills of each kernel instance from the build's
     ``ptxas -v`` report, and the tensor-core instructions in its SASS
-    where ``cuobjdump`` exists.  Fails on a spill or a missing MMA."""
-    instances = {"fused_eval_kernelIfE": ("f32", "HMMA"),
+    where ``cuobjdump`` exists: the f32 ``wgmma`` kernel's two plans
+    (two consumer warpgroups, 128 points a block; one, 64 points) and
+    their ``HGMMA``, the f64 kernel's ``DMMA``.  Fails on a spill or a
+    missing MMA."""
+    instances = {"fused_eval_kernel_wgmmaILi2E": ("f32", "HGMMA"),
+                 "fused_eval_kernel_wgmmaILi1E": ("f32 64-point", "HGMMA"),
                  "fused_eval_kernelIdE": ("f64", "DMMA")}
     regs, spills, func = {}, {}, None
     for line in _build.build_log(lib._name).read_text().splitlines():
@@ -467,6 +471,11 @@ def build_report(lib) -> str:
               f"no ptxas report of the {name} instance")
         check(spills[name] == 0, f"{name} instance spills "
                                  f"{spills[name]} bytes")
+        if name == "f32 64-point":
+            parts.append(f"{name}: {regs[name]} registers, 0 spills, "
+                         f"{fused_eval._smem_bytes((3, 5, 200)):,} bytes of "
+                         f"dynamic shared memory at (3, 5, 200)")
+            continue
         dtype = torch.float32 if name == "f32" else torch.float64
         parts.append(f"{name}: {regs[name]} registers, 0 spills, "
                      f"{fused_eval._smem_bytes((11,) * 5, dtype):,} / "
@@ -3077,7 +3086,7 @@ def main() -> None:
                               (0,) * 5, (11,) * 5, torch.float32)
     ref64 = cheb.eval_batch_device(sub.double())
     emulated = {
-        "3xTF32": fused_eval._matmul_3xtf32,
+        "3xTF32": fused_eval._matmul_3xtf32_chunked,
         "one-pass TF32": lambda a, b: (fused_eval._tf32_round(a)
                                        @ fused_eval._tf32_round(b))}
     emulation = "; ".join(
@@ -3177,6 +3186,13 @@ def main() -> None:
         ms[name] = cuda_ms(fn)
         print(f"[9 timing] {name}: {ms[name]:.4f} ms per 2^20 points = "
               f"{N / ms[name] * 1e3:,.0f} /s | {card}", flush=True)
+    k1_bound = bound((11,) * 5, N, 4, TF32_PEAK, passes=3)[0]
+    print(f"[9 K1] the wgmma kernel at 11^5, plan "
+          f"{fused_eval._wg_plan((11,) * 5)}: "
+          f"{ms['K1 f32 (fused_eval_batch)']:.4f} ms, 3xTF32 bound "
+          f"{k1_bound:.4f} ms "
+          f"({100 * k1_bound / ms['K1 f32 (fused_eval_batch)']:.1f} %) | "
+          f"{card}", flush=True)
 
     # The 19^5 interpolant, for K3 (phase 10) and K2 (phase 13).
     t0 = time.perf_counter()
@@ -3364,6 +3380,12 @@ def main() -> None:
         ms[name] = cuda_ms(fn)
         print(f"[14 timing] {name}: {ms[name]:.4f} ms per 2^20 points = "
               f"{N / ms[name] * 1e3:,.0f} /s | {card}", flush=True)
+    k2_bound = bound((19,) * 5, N, 4, TF32_PEAK, passes=3)[0]
+    k2_ms = ms["K1 f32 at 19^5 (fused_eval_batch)"]
+    print(f"[14 K2] the wgmma kernel at 19^5, plan "
+          f"{fused_eval._wg_plan((19,) * 5)}: {k2_ms:.4f} ms, 3xTF32 bound "
+          f"{k2_bound:.4f} ms ({100 * k2_bound / k2_ms:.1f} %) | {card}",
+          flush=True)
     for name, (n, k, m, dtype, scale) in {
             "GEMM f32 11^5": (N, 1331, 121, torch.float32, 1),
             "GEMM f64 11^5": (N, 1331, 121, torch.float64, 1),

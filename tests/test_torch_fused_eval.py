@@ -199,12 +199,13 @@ def test_operand_cache_under_threads():
 
 
 def test_cpu_tensors_launch_nothing():
-    before = fused_eval.launches
+    before = fused_eval.launches, fused_eval.wgmma_launches
     tensor, nodes, weights, diffs, domain = _random_problem((3, 5, 7), 6)
     fused_eval.fused_eval_batch(torch.tensor(tensor), _t(nodes),
                                 _t(weights), _t(diffs),
                                 _points(domain, nodes, 50, 6))
-    assert fused_eval.launches == before == 0
+    assert (fused_eval.launches, fused_eval.wgmma_launches) == before \
+        == (0, 0)
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -245,14 +246,57 @@ def test_supports_fused():
     # The right-prime-free split of (2, 2, 4096) packs 4,100 row lanes
     # per point: past the 227 KB of shared memory a block may use.
     assert not fused_eval.supports_fused((2, 2, 4096), torch.float32)
-    # 36^6 fits a block's shared memory, but its padded pack has 2.2e9
-    # elements, past the kernel's 32-bit offsets.
+    # 36^6 fits a block's shared memory (64 points a block), but its
+    # padded depth x width is 2.2e9 elements, past the cap both kernels
+    # keep (the f64 kernel's 32-bit offsets).
     assert fused_eval._smem_bytes((36,) * 6) <= fused_eval._MAX_SMEM_BYTES
+    assert fused_eval._wg_plan((36,) * 6) == (1, 3)
     assert not fused_eval.supports_fused((36,) * 6, torch.float32)
-    # 11^5 needs 91,620 bytes per block: the T ring 26,112, two A stages
-    # of two TF32 planes 34,816, partial sums 2,048, rows 28,160 and the
+    # 11^5 needs 226,324 bytes per block: 1,024 to align the ring, three
+    # stages of 65,552 (T's two planes 32,768, A's two 32,768, two
+    # mbarriers 16), rows 28,160 (128 points at stride 55) and the
     # right-prime lane table 484.
-    assert fused_eval._smem_bytes((11,) * 5) == 91620
+    assert fused_eval._smem_bytes((11,) * 5) == 226324
+    assert fused_eval._wg_plan((11,) * 5) == (2, 3)
+
+
+def _mma_sync_f32_fits(shape):
+    """The f32 envelope of the ``mma.sync`` kernel the ``wgmma`` one
+    replaced: 128 points a block; a ring of three 16-deep T stages and
+    two A stages of two TF32 planes, at a row stride of 136; four column
+    warps' partial sums; the rows and the lane table; a padded depth x
+    width under 2^31 elements."""
+    if not 3 <= len(shape) <= 16:
+        return False
+    s, n_left, n_mid, n_rp = fused_eval._geometry(shape)
+    smem = (4 * ((3 + 4) * 16 * 136 + 4 * 128 + 128 * sum(shape))
+            + 2 * n_rp * (len(shape) - s - 1))
+    elements = -(-n_mid * n_rp // 16) * 16 * (-(-n_left // 128) * 128)
+    return smem <= 232448 and elements < 2 ** 31
+
+
+def test_envelope_keeps_every_grid_the_mma_sync_kernel_took():
+    import itertools
+    named = [(11,) * 5, (15,) * 5, (17,) * 5, (19,) * 5, (9,) * 6,
+             (8, 9, 7), (3, 5, 7)]
+    shapes = list(named)
+    for d, sizes in ((3, (2, 3, 5, 8, 16, 40, 100, 200, 320, 330)),
+                     (4, (2, 5, 11, 30, 60, 150)),
+                     (5, (3, 7, 11, 19, 25, 40)),
+                     (6, (2, 9, 16, 36))):
+        shapes += itertools.product(sizes, repeat=d)
+    shapes += [(n,) * d for d in range(7, 17) for n in (2, 3, 4, 6, 9)]
+    taken = [sh for sh in shapes if _mma_sync_f32_fits(sh)]
+    assert len(taken) > 1000 and set(named) <= set(taken)
+    lost = [sh for sh in taken if not fused_eval.supports_fused(
+        sh, torch.float32)]
+    assert lost == []
+    # The plan of every grid, from its shape alone: the 64-point plan
+    # only where a 128-point block's rows leave no room for two stages.
+    for sh in taken:
+        consumers, stages = fused_eval._wg_plan(sh)
+        if consumers == 1:
+            assert fused_eval._wg_smem_bytes(sh, 2, 2) > 232448, sh
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -278,13 +322,20 @@ class TestStreamGrids:
         for shape in [(15,) * 5, (17,) * 5, (19,) * 5, (9,) * 6]:
             assert _pick_plan(shape)[1], shape          # K2 on the TPU
             assert fused_eval.supports_fused(shape, torch.float32), shape
-        assert fused_eval._smem_bytes((9,) * 6) == 90948
-        assert fused_eval._smem_bytes((17,) * 5) == 107652
-        assert fused_eval._smem_bytes((19,) * 5) == 113060
-        # Two f32 blocks share an SM's 228 KB (1 KB reserved per block),
-        # as the kernel's register plan for the f32 instance assumes.
-        for shape in [(11,) * 5, (15,) * 5, (17,) * 5, (19,) * 5, (9,) * 6]:
-            assert 2 * (fused_eval._smem_bytes(shape) + 1024) <= 233472
+        # 9^6 takes three ring stages, 15^5 to 19^5 two (their rows
+        # leave no room for a third).
+        assert fused_eval._smem_bytes((9,) * 6) == 226164
+        assert fused_eval._smem_bytes((17,) * 5) == 176804
+        assert fused_eval._smem_bytes((19,) * 5) == 182212
+        # One f32 block an SM (its 384 threads take the SM's registers
+        # at 168 a thread): each grid's plan fits the SM's 228 KB with
+        # the 1 KB reserved per block, and holds two consumer
+        # warpgroups, 128 points.
+        plans = {(11,) * 5: (2, 3), (15,) * 5: (2, 2), (17,) * 5: (2, 2),
+                 (19,) * 5: (2, 2), (9,) * 6: (2, 3)}
+        for shape, plan in plans.items():
+            assert fused_eval._wg_plan(shape) == plan, shape
+            assert fused_eval._smem_bytes(shape) + 1024 <= 233472
 
     @pytest.mark.parametrize("orders,n,seed", [((0,) * 6, 150, 3),
                                                ((1, 0, 0, 0, 1, 0), 64, 4)])
@@ -368,12 +419,81 @@ def test_tf32_round_matches_cvt_rna_on_chosen_bits():
     assert [v & 0xFFFFFFFF for v in got.tolist()] == [r for _, r in cases]
 
 
+@pytest.mark.parametrize("shape", [(11,) * 5, (9,) * 6, (19,) * 5,
+                                   (3, 5, 7)])
+def test_f32_pack_planes_rebuild_t3(shape):
+    """The f32 pack holds T3's TF32 big plane and its remainder: big is
+    TF32, big + small is the f32 T3 (in the kernel's r-major order, row
+    r * n_mid + j) exactly, the padding is zero, and each stage's
+    [128][32] tile is K-major with the 128-byte swizzle (column n's k at
+    (k // 4 ^ n % 8) * 4 + k % 4), as the kernel reads it."""
+    tensor, nodes, weights, diffs, _ = _random_problem(shape, 13)
+    orders = (0,) * len(shape)
+    pack, _, _ = fused_eval._pack(torch.tensor(tensor), _t(nodes),
+                                  _t(weights), _t(diffs), orders, shape,
+                                  torch.float32)
+    _, n_left, n_mid, n_rp = fused_eval._geometry(shape)
+    k = n_mid * n_rp
+    k_pad, ld = -(-k // 32) * 32, -(-n_left // 128) * 128
+    assert pack.dtype == torch.float32 and pack.is_contiguous()
+    assert pack.shape == (ld // 128, k_pad // 32, 2, 128, 32)
+    t3 = torch.zeros((k_pad, ld), dtype=torch.float32)
+    t3[:k, :n_left] = torch.tensor(tensor).reshape(
+        n_left, n_mid, n_rp).permute(2, 1, 0).reshape(k, n_left).float()
+    # The layout, index by index: pack[ct, kt, plane, n, phys].
+    kk = torch.arange(32)
+    nn = torch.arange(128)
+    phys = ((kk[None, :] // 4) ^ (nn[:, None] % 8)) * 4 + kk[None, :] % 4
+    planes = torch.empty((2, k_pad, ld))
+    for ct in range(ld // 128):
+        for kt in range(k_pad // 32):
+            tile = pack[ct, kt]                       # (2, 128, 32)
+            logical = torch.empty_like(tile)
+            logical[:, nn[:, None], kk[None, :]] = tile[:, nn[:, None], phys]
+            planes[:, kt * 32:(kt + 1) * 32, ct * 128:(ct + 1) * 128] = \
+                logical.transpose(1, 2)
+    big, small = planes
+    assert torch.equal(big, fused_eval._tf32_round(t3))
+    assert not (big.view(torch.int32) & 0x1FFF).any()
+    assert torch.equal(big + small, t3)
+    assert not big[k:].any() and not big[:, n_left:].any()
+    assert not small[k:].any() and not small[:, n_left:].any()
+    assert torch.equal(fused_eval._t3_of_pack(pack), t3)
+
+
+def test_chunked_3xtf32_sums_chunks_in_order():
+    """``_matmul_3xtf32_chunked`` adds the chunks' three-pass sums in
+    order: one chunk as deep as the contraction is the plain three-pass
+    sum, and 128-deep chunks are that sum over each chunk, added one
+    after the other."""
+    rng = np.random.default_rng(21)
+    a = torch.tensor(rng.standard_normal((64, 300)), dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal((300, 40)), dtype=torch.float32)
+    whole = fused_eval._matmul_3xtf32_chunked(a, b, depth=300)
+    one = fused_eval._matmul_3xtf32_chunked(a[:, :128], b[:128], depth=300)
+    two = fused_eval._matmul_3xtf32_chunked(a[:, 128:256], b[128:256],
+                                            depth=300)
+    three = fused_eval._matmul_3xtf32_chunked(a[:, 256:], b[256:],
+                                              depth=300)
+    assert torch.equal(fused_eval._matmul_3xtf32_chunked(a, b),
+                       one + two + three)
+    assert not torch.equal(whole, one + two + three)
+    exact = a.double() @ b.double()
+    scale = exact.abs().max()
+    assert (whole.double() - exact).abs().max() / scale < 1e-6
+    # The small parts reach the tensor cores truncated to TF32.
+    x = torch.tensor([1.0 + 2.0 ** -12 + 2.0 ** -30], dtype=torch.float32)
+    assert fused_eval._tf32_trunc(x).item() == 1.0
+    assert fused_eval._tf32_trunc(-x).item() == -1.0
+
+
 @pytest.mark.parametrize("name", ["bs-11^5", "9^6"])
 def test_3xtf32_emulation_holds_the_f32_ceilings(name):
-    """The kernel's three TF32 passes, emulated in plain PyTorch, stay
-    within 5e-5 of the plain f32 version and 2e-4 of the JAX f64
-    ``eval_batch``, node hits included; one TF32 pass alone misses the
-    2e-4 ceiling, which is why the kernel takes three."""
+    """The kernel's three TF32 passes and chunked accumulation, emulated
+    in plain PyTorch, stay within 5e-5 of the plain f32 version and 2e-4
+    of the JAX f64 ``eval_batch``, node hits included; one TF32 pass
+    alone misses the 2e-4 ceiling, which is why the kernel takes
+    three."""
     if name == "bs-11^5":
         tensor, nodes, weights, diffs, domain = _bs11_problem()
     else:
@@ -393,7 +513,7 @@ def test_3xtf32_emulation_holds_the_f32_ceilings(name):
         p32 = torch.tensor(pts, dtype=torch.float32)
         plain = fused_eval._contract_packed(*packed, shape, p32)
         emulated = fused_eval._contract_packed(
-            *packed, shape, p32, matmul=fused_eval._matmul_3xtf32)
+            *packed, shape, p32, matmul=fused_eval._matmul_3xtf32_chunked)
         assert _dev(emulated.numpy(), plain.numpy()) <= 5e-5
         assert _dev(emulated.numpy(), ref64) <= F32_TOL
         single = fused_eval._contract_packed(
