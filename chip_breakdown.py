@@ -17,10 +17,14 @@ The f32 kernel (K1, K2: ``fused_eval_kernel_wgmma``, warp-specialised
   barriers' round trips;
 - ``products only``: neither A nor T copies, only the products on
   stale operands and the barriers' round trips;
-- ``2-stage ring``: every plan takes two ring stages, not three;
-- ``whole-depth sums``: the tensor cores sum the whole contraction
-  before the one IEEE add, instead of a 128-deep chunk at a time;
-- ``1-stage chunks``: an IEEE add after every 32-deep stage.
+- ``2-stage ring``: every plan takes two ring stages, not three (the
+  wrapper's plans, ``ops/fused_eval._WG_PLANS``, changed; the kernel as
+  committed);
+- ``lane table for two dims``: grids with two right-prime dims (11^5,
+  19^5) form the right-prime product through the lane table, as every
+  other grid does, instead of stepping it like an odometer;
+- ``A small rounded``: A's small part is rounded to TF32 (as
+  ``cvt.rna`` rounds), not left for the tensor cores to truncate;
 
 The f64 kernel (K3, ``fused_eval_kernel<double>``, ``mma.sync`` DMMA):
 ``f64 no A formation``, ``f64 no MMA``, ``f64 no T copies`` and
@@ -29,9 +33,10 @@ refuses reads "refused" or nan).
 
 The variants of the ``mma.sync`` f32 kernel that the ``wgmma`` one
 replaced (no T split, one f32 block per SM, sums on the tensor cores, k8
-steps unrolled) were retired with it: T is split at pack time now, a
-block takes an SM by design, and ``whole-depth sums`` is the new form of
-the tensor-core sums.
+steps unrolled) were retired with it: T is split at pack time now, and a
+block takes an SM by design.  So were the ``wgmma`` kernel's chunked
+sums (``whole-depth sums``, ``1-stage chunks``), once the sums became
+one stage deep (``PERF.md`` §6).
 
 Variants that drop work compute wrong values by design; only the kernels
 and the variants that keep their function are held to the plain versions
@@ -82,22 +87,23 @@ _NO_T = [("      mbar_arrive_expect_tx(&full[q], kCopyBytes);\n"
           "(kCopyBytes / 4),\n"
           "                  kCopyBytes, &full[slot]);\n",
           "        mbar_arrive(&full[slot]);\n")]
-_CHUNK = "constexpr int kWgChunk = 4;"
 
-# name -> (dtype timed, substitutions)
+_SMALL = [(f"        s.{c} = v[{i}] - b.{c};",
+           f"        s.{c} = tf32_big(v[{i}] - b.{c});")
+          for i, c in enumerate("xyzw")]
+
+# name -> (dtype timed, substitutions); no substitution: the kernel's
+# own library, under the f32 plans of PLANS.
 VARIANTS = {
     "no A formation": (torch.float32, [_NO_A]),
     "no MMA": (torch.float32, [_NO_MMA]),
     "no T copies": (torch.float32, _NO_T),
     "copies only": (torch.float32, [_NO_A, _NO_MMA]),
     "products only": (torch.float32, [_NO_A] + _NO_T),
-    "2-stage ring": (torch.float32, [(
-        "kWgPlans[4][2] = {{2, 3}, {2, 2}, {1, 3}, {1, 2}};",
-        "kWgPlans[4][2] = {{2, 2}, {2, 2}, {1, 2}, {1, 2}};")]),
-    "whole-depth sums": (torch.float32, [(
-        _CHUNK, "constexpr int kWgChunk = 1 << 20;")]),
-    "1-stage chunks": (torch.float32, [(
-        _CHUNK, "constexpr int kWgChunk = 1;")]),
+    "2-stage ring": (torch.float32, []),
+    "lane table for two dims": (torch.float32, [(
+        "const bool two = d - s - 1 == 2;", "const bool two = false;")]),
+    "A small rounded": (torch.float32, _SMALL),
     "f64 no A formation": (torch.float64, [(
         "    if (q + 1 < n_q) form_a(ks + 1 == n_k ? 0 : ks + 1, "
         "(q + 1) & 1);\n", "")]),
@@ -108,8 +114,19 @@ VARIANTS = {
     "f64 4-stage ring": (torch.float64, [(
         "constexpr int kStages = 3;", "constexpr int kStages = 4;")]),
 }
-SAME_FUNCTION = ("kernel", "2-stage ring", "whole-depth sums",
-                 "1-stage chunks", "f64 4-stage ring")
+PLANS = {"2-stage ring": ((2, 2), (1, 2))}
+SAME_FUNCTION = ("kernel", "2-stage ring", "lane table for two dims",
+                 "A small rounded", "f64 4-stage ring")
+
+
+def use(libs, name) -> None:
+    """Route the fused evaluators through variant ``name``'s library and
+    f32 plans."""
+    fused_eval._library = lambda lib=libs[name][1]: lib
+    fused_eval._WG_PLANS = PLANS.get(name, _KERNEL_PLANS)
+
+
+_KERNEL_PLANS = fused_eval._WG_PLANS
 
 
 def build(name: str, source: str) -> ctypes.CDLL:
@@ -158,6 +175,9 @@ def main(selected=()) -> None:
     for name, (dtype, subs) in VARIANTS.items():
         if selected and not any(name.startswith(s) for s in selected):
             continue
+        if not subs:
+            libs[name] = (dtype, libs["kernel"][1])
+            continue
         source = base
         for old, new in subs:
             if old not in source:
@@ -167,6 +187,8 @@ def main(selected=()) -> None:
         libs[name] = (dtype, build(name, source))
     log = _build.build_log
     for name, (_, lib) in libs.items():
+        if name in PLANS:
+            continue
         report = [line.strip() for line in
                   log(lib._name).read_text().splitlines()
                   if "Used " in line or "spill" in line]
@@ -187,7 +209,7 @@ def main(selected=()) -> None:
         for name in SAME_FUNCTION:
             if name not in libs or libs[name][0] not in (None, dtype):
                 continue
-            fused_eval._library = lambda lib=libs[name][1]: lib
+            use(libs, name)
             try:
                 out = run(*ops19, p, (1, 0, 0, 0, 0)).double()
             except RuntimeError:   # refused: over the shared memory
@@ -206,7 +228,7 @@ def main(selected=()) -> None:
             p = torch.tensor(pts, dtype=dtype, device="cuda")
             times = {}
             for name in names + names[::-1]:
-                fused_eval._library = lambda lib=libs[name][1]: lib
+                use(libs, name)
                 try:
                     t = mean_ms(lambda: run(*ops, p))
                 except RuntimeError:   # refused: over the shared memory

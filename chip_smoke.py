@@ -444,13 +444,20 @@ def tt_bound(shapes, n, peak, passes=1):
 def build_report(lib) -> str:
     """Registers and spills of each kernel instance from the build's
     ``ptxas -v`` report, and the tensor-core instructions in its SASS
-    where ``cuobjdump`` exists: the f32 ``wgmma`` kernel's two plans
-    (two consumer warpgroups, 128 points a block; one, 64 points) and
-    their ``HGMMA``, the f64 kernel's ``DMMA``.  Fails on a spill or a
-    missing MMA."""
-    instances = {"fused_eval_kernel_wgmmaILi2E": ("f32", "HGMMA"),
-                 "fused_eval_kernel_wgmmaILi1E": ("f32 64-point", "HGMMA"),
-                 "fused_eval_kernelIdE": ("f64", "DMMA")}
+    where ``cuobjdump`` exists: the f32 ``wgmma`` kernel's three
+    instances, each keyed by its whole template prefix (two consumer
+    warpgroups with the odometer for two right-prime dims, ``<2, 2>``;
+    two with the lane table, ``<2, -1>``; one, 64 points a block,
+    ``<1, -1>``) and their ``HGMMA``, the f64 kernel's ``DMMA``.  Fails
+    on a spill or a missing MMA in any of them."""
+    instances = {
+        "fused_eval_kernel_wgmmaILi2ELi2E": ("f32", "HGMMA",
+                                             ((11,) * 5, (19,) * 5)),
+        "fused_eval_kernel_wgmmaILi2ELin1E": ("f32 lane table", "HGMMA",
+                                              ((3, 5, 7), (8, 9, 7))),
+        "fused_eval_kernel_wgmmaILi1ELin1E": ("f32 64-point", "HGMMA",
+                                              ((3, 5, 200),)),
+        "fused_eval_kernelIdE": ("f64", "DMMA", ((11,) * 5, (19,) * 5))}
     regs, spills, func = {}, {}, None
     for line in _build.build_log(lib._name).read_text().splitlines():
         m = re.search(r"(?:entry function|Function properties for) '?(\S+?)'?"
@@ -466,21 +473,18 @@ def build_report(lib) -> str:
         if m and func:
             regs[func] = int(m.group(1))
     parts = []
-    for name, mma in instances.values():
+    for name, _, grids in instances.values():
         check(name in regs and name in spills,
               f"no ptxas report of the {name} instance")
         check(spills[name] == 0, f"{name} instance spills "
                                  f"{spills[name]} bytes")
-        if name == "f32 64-point":
-            parts.append(f"{name}: {regs[name]} registers, 0 spills, "
-                         f"{fused_eval._smem_bytes((3, 5, 200)):,} bytes of "
-                         f"dynamic shared memory at (3, 5, 200)")
-            continue
-        dtype = torch.float32 if name == "f32" else torch.float64
-        parts.append(f"{name}: {regs[name]} registers, 0 spills, "
-                     f"{fused_eval._smem_bytes((11,) * 5, dtype):,} / "
-                     f"{fused_eval._smem_bytes((19,) * 5, dtype):,} bytes "
-                     f"of dynamic shared memory at 11^5 / 19^5")
+        dtype = torch.float64 if name == "f64" else torch.float32
+        parts.append(
+            f"{name}: {regs[name]} registers, 0 spills, "
+            + " / ".join(f"{fused_eval._smem_bytes(g, dtype):,}"
+                         for g in grids)
+            + " bytes of dynamic shared memory at "
+            + " / ".join("x".join(map(str, g)) for g in grids))
     cuobjdump = shutil.which("cuobjdump") or str(
         Path(_build.find_nvcc()).parent / "cuobjdump")
     if not Path(cuobjdump).is_file():
@@ -492,11 +496,11 @@ def build_report(lib) -> str:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            func = next((v for k, v in instances.items()
+            func = next((v[:2] for k, v in instances.items()
                          if k in m.group(1)), None)
         elif func and re.search(rf"\b{func[1]}\.", line):
             counts[func] = counts.get(func, 0) + 1
-    for name, mma in instances.values():
+    for name, mma, _ in instances.values():
         n = counts.get((name, mma), 0)
         check(n > 0, f"no {mma} instruction in the {name} instance's SASS")
         parts.append(f"{mma} in {name}: {n}")

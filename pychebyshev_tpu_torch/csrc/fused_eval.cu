@@ -43,7 +43,8 @@
 // - f32 (K1, K2) runs on the TF32 tensor cores at 495 TFLOP/s in three
 //   passes: each operand x splits into big = tf32(x) (`cvt.rna`) and
 //   small = x - big (exact in f32; the tensor cores read its top 19
-//   bits), and the product is small*big + big*small + big*big, which
+//   bits: rounding A's small part as well cost 1 % and moved no
+//   deviation), and the product is small*big + big*small + big*big, which
 //   keeps f32 accuracy where one TF32 pass keeps about three decimal
 //   digits.  Bound: 3 * 2 * prod(shape) FLOP per point, 2.05 ms at 11^5
 //   (2.19 ms on the padded 1,344 x 128 tiles).  Only `wgmma` reaches
@@ -73,19 +74,21 @@
 //   and a subtraction.
 // - Each consumer warpgroup owns 64 points x 128 columns and issues, a
 //   stage, 4 k8 steps x 3 passes of `wgmma` m64n128k8 TF32 from the
-//   ring, keeping one stage's products in flight; when they have
-//   finished, each of its warps arrives once on the stage's "empty"
-//   mbarrier.  The producer runs up to the ring's depth ahead.  The
-//   block's 384 threads start at 168 registers, and setmaxnreg gives a
-//   consumer thread 224 (two 64-value accumulators) and a producer
-//   thread 56.
+//   ring; when they have finished, each of its warps arrives once on the
+//   stage's "empty" mbarrier.  The producer runs up to the ring's depth
+//   ahead.  The block's 384 threads start at 168 registers, and
+//   setmaxnreg gives a consumer thread 224 (two 64-value accumulators)
+//   and a producer thread 56.
 // - The tensor cores' f32 accumulation does not round to nearest, so a
 //   sum carried through thousands of products drifts (on a random 19^5
 //   tensor, a 6,859-deep contraction carried whole read 3.9e-5 of scale
 //   from the plain version, near the 5e-5 ceiling; 5.3e-5 in this
-//   kernel).  So the products are summed on the tensor cores over
-//   chunks of kWgChunk = 4 stages (128 deep: 2.1e-6), and each chunk's
-//   sum is added to the running accumulator in IEEE f32.
+//   kernel).  So the products are summed on the tensor cores over one
+//   stage, 32 deep, and each stage's sum is added to the running
+//   accumulator in IEEE f32: 1.4e-6 there.  Chunks of four stages, one
+//   stage's products kept in flight while the next stage's issue, read
+//   2.1e-6, were 1-3 % faster at 11^5 and 14 % slower at 19^5, whose
+//   two ring stages then come back to the producer later.
 // - A column tile done, each consumer thread weights its accumulator
 //   columns by w_left (from the rows), sums its two rows across the
 //   four lanes that hold them, and keeps the sum in registers; after
@@ -489,15 +492,11 @@ fused_eval_kernel(const T* __restrict__ points,
 // ---------------------------------------------------------------------
 // f32: warp-specialised 3xTF32 wgmma (K1, K2).
 // Keep these in step with ops/fused_eval.py (_WG_DEPTH, _COL_TILE,
-// _WG_CHUNK, _WG_PLANS, _wg_smem_bytes, _split_planes).
+// _wg_smem_bytes, _split_planes); the plan is _wg_plan's.
 constexpr int kWgBN = 128;    // columns per tile: wgmma's N
 constexpr int kWgBK = 32;     // contraction steps per stage: 128 bytes
-constexpr int kWgChunk = 4;   // stages summed on the tensor cores
 constexpr int kWgTileBytes = kWgBN * kWgBK * 4;   // one T plane, 16 KB
 constexpr int kWgRowBytes = kWgBK * 4;            // a point's A row
-// Plans (consumer warpgroups, ring stages) in order of preference: the
-// first whose shared memory fits is taken.
-constexpr int kWgPlans[4][2] = {{2, 3}, {2, 2}, {1, 3}, {1, 2}};
 
 // kC consumer warpgroups (64 points each) after one producer warpgroup,
 // which forms A with 128 / (64 kC) threads a point.  With two consumers
@@ -850,43 +849,32 @@ fused_eval_kernel_wgmma(const float* __restrict__ points,
     float total0 = 0.0f, total1 = 0.0f;
     const uint32_t ring_addr = smem_u32(ring);
     const uint32_t a_off = 2 * kWgTileBytes + c * 64 * kWgRowBytes;
-    int slot = 0, prev = 0;
+    int slot = 0;
     uint32_t phase = 0;
     for (int ct = 0; ct < n_ct; ++ct) {
-      for (int kt0 = 0; kt0 < n_kt; kt0 += kWgChunk) {
-        const int kt1 = min(kt0 + kWgChunk, n_kt);
-        for (int kt = kt0; kt < kt1; ++kt) {
-          mbar_wait(&full[slot], phase);
-          const uint32_t st = ring_addr + slot * P::kStageBytes;
-          const uint64_t tb = sw128_desc(st);
-          const uint64_t ts = sw128_desc(st + kWgTileBytes);
-          const uint64_t ab = sw128_desc(st + a_off);
-          const uint64_t as = sw128_desc(st + a_off + P::kAPlaneBytes);
-          const int fresh = kt == kt0;   // a chunk's first stage
-          fence_acc(acc);
-          wgmma_fence();
+      for (int kt = 0; kt < n_kt; ++kt) {
+        mbar_wait(&full[slot], phase);
+        const uint32_t st = ring_addr + slot * P::kStageBytes;
+        const uint64_t tb = sw128_desc(st);
+        const uint64_t ts = sw128_desc(st + kWgTileBytes);
+        const uint64_t ab = sw128_desc(st + a_off);
+        const uint64_t as = sw128_desc(st + a_off + P::kAPlaneBytes);
+        fence_acc(acc);
+        wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            wgmma_tf32(acc, as + 2 * kk, tb + 2 * kk, !(fresh && kk == 0));
-            wgmma_tf32(acc, ab + 2 * kk, ts + 2 * kk, 1);
-            wgmma_tf32(acc, ab + 2 * kk, tb + 2 * kk, 1);
-          }
-          wgmma_commit();
-          fence_acc(acc);
-          if (!fresh) {   // the previous stage's products have finished
-            wgmma_wait<1>();
-            fence_acc(acc);
-            if (lane == 0) mbar_arrive(&empty[prev]);
-          }
-          prev = slot;
-          if (++slot == n_stages) {
-            slot = 0;
-            phase ^= 1;
-          }
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_tf32(acc, as + 2 * kk, tb + 2 * kk, kk != 0);
+          wgmma_tf32(acc, ab + 2 * kk, ts + 2 * kk, 1);
+          wgmma_tf32(acc, ab + 2 * kk, tb + 2 * kk, 1);
         }
+        wgmma_commit();
         wgmma_wait<0>();
         fence_acc(acc);
-        if (lane == 0) mbar_arrive(&empty[prev]);
+        if (lane == 0) mbar_arrive(&empty[slot]);
+        if (++slot == n_stages) {
+          slot = 0;
+          phase ^= 1;
+        }
 #pragma unroll
         for (int i = 0; i < 64; ++i) run[i] += acc[i];
       }
@@ -1042,33 +1030,33 @@ int launch_wgmma(const Geometry& g, int stages, long long smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Choose the f32 plan from the shape, then launch it on `stream`.
+// Check the f32 plan (consumer warpgroups, ring stages) that the
+// wrapper chose from the shape, then launch it on `stream`.
 int launch_f32(const void* points, const void* nodes, const void* weights,
                const void* pack, void* out, int n_points, int d,
-               const void* shape, int s, void* stream) {
+               const void* shape, int s, int consumers, int stages,
+               void* stream) {
   Geometry g;
   const int err0 = make_geometry(g, d, shape, s, kWgBK, kWgBN);
-  if (err0 != 0 || n_points < 0) {
+  if (err0 != 0 || n_points < 0 || consumers < 1 || consumers > 2 ||
+      stages < 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (const auto& plan : kWgPlans) {
-    const long long smem = wg_smem_bytes(g, plan[0], plan[1]);
-    if (smem > kMaxSmemBytes) continue;
-    if (n_points == 0) return static_cast<int>(cudaSuccess);
-    // Two right-prime dims (11^5, 15^5 to 19^5, 9^6) take the kernel
-    // that steps their product like an odometer; any other count the
-    // lane table's product.
-    const bool two = d - s - 1 == 2;
-    if (plan[0] == 1) {
-      return launch_wgmma<1, -1>(g, plan[1], smem, points, nodes, weights,
-                                 pack, out, n_points, stream);
-    }
-    return two ? launch_wgmma<2, 2>(g, plan[1], smem, points, nodes,
-                                    weights, pack, out, n_points, stream)
-               : launch_wgmma<2, -1>(g, plan[1], smem, points, nodes,
-                                     weights, pack, out, n_points, stream);
+  const long long smem = wg_smem_bytes(g, consumers, stages);
+  if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_points == 0) return static_cast<int>(cudaSuccess);
+  // Two right-prime dims (11^5, 15^5 to 19^5, 9^6) take the kernel that
+  // steps their product like an odometer; any other count the lane
+  // table's product.
+  const bool two = d - s - 1 == 2;
+  if (consumers == 1) {
+    return launch_wgmma<1, -1>(g, stages, smem, points, nodes, weights,
+                               pack, out, n_points, stream);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return two ? launch_wgmma<2, 2>(g, stages, smem, points, nodes, weights,
+                                  pack, out, n_points, stream)
+             : launch_wgmma<2, -1>(g, stages, smem, points, nodes, weights,
+                                   pack, out, n_points, stream);
 }
 
 }  // namespace
@@ -1076,15 +1064,16 @@ int launch_f32(const void* points, const void* nodes, const void* weights,
 extern "C" {
 
 // Launch on `stream`.  `shape` is a host array of d ints; `s` the split
-// index; `pack` the f32 stage images of ops/fused_eval.py::_pack.
+// index; `pack` the f32 stage images of ops/fused_eval.py::_pack;
+// `consumers` and `stages` the plan of ops/fused_eval.py::_wg_plan.
 // Returns a cudaError_t (0 on success); the launch is checked with
 // cudaGetLastError, and nothing is synchronized.
 int fused_eval_f32(const void* points, const void* nodes,
                    const void* weights, const void* pack, void* out,
                    int n_points, int d, const void* shape, int s,
-                   void* stream) {
+                   int consumers, int stages, void* stream) {
   return launch_f32(points, nodes, weights, pack, out, n_points, d, shape,
-                    s, stream);
+                    s, consumers, stages, stream);
 }
 
 // The same for f64 operands; `t3` the padded [k_pad][ld] f64 pack.

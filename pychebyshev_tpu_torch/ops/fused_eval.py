@@ -31,8 +31,8 @@ layout: ``ops.fused_dd`` runs the f64 kernel of the same source.
   tests.
 - Derivative orders are applied to the tensor once, in f64 on its
   device, before the cast to f32.
-- ``launches`` counts kernel launches, and ``wgmma_launches`` those of
-  the ``wgmma`` kernel (plain integers; reset them by assignment).
+- ``launches`` counts kernel launches (a plain integer; reset it by
+  assignment).
 - The kernel has no backward, and neither has the Pallas kernel it
   replaces (``jax.grad`` through it fails to linearize).  So the route
   refuses, on every device, an operand or point tensor that requires
@@ -68,12 +68,10 @@ from pychebyshev_tpu_torch.utils.tracing import span
 
 __all__ = ["fused_eval_batch", "fused_eval_batch_reference",
            "supports_fused", "clear_fused_cache", "refuse_grad",
-           "launches", "wgmma_launches"]
+           "launches"]
 
 #: Kernel launches since import (or since the caller last reset it).
 launches = 0
-#: Launches of the ``wgmma`` kernel, the f32 path, counted the same way.
-wgmma_launches = 0
 
 # Kernel geometry; keep in step with the constants in csrc/fused_eval.cu.
 _ENTRY = {torch.float32: "fused_eval_f32", torch.float64: "fused_eval_f64"}
@@ -88,11 +86,11 @@ _STAGES = 3
 _WARPS_N = 4
 _PAD = 4
 # The f32 kernel (wgmma): stages 32 deep (one 128-byte swizzle row of
-# f32), summed on the tensor cores over chunks of _WG_CHUNK stages; 64
-# points a consumer warpgroup.  Plans (consumer warpgroups, ring
-# stages), the first that fits shared memory taken.
+# f32), each stage's products summed on the tensor cores and added in
+# IEEE f32; 64 points a consumer warpgroup.  Plans (consumer warpgroups, ring
+# stages), the first that fits shared memory taken; the kernel takes the
+# plan from the wrapper and only checks that it fits.
 _WG_DEPTH = 32
-_WG_CHUNK = 4
 _WG_PLANS = ((2, 3), (2, 2), (1, 3), (1, 2))
 
 
@@ -312,7 +310,7 @@ def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _matmul_3xtf32_chunked(a: torch.Tensor, b: torch.Tensor,
-                           depth: int = _WG_DEPTH * _WG_CHUNK
+                           depth: int = _WG_DEPTH
                            ) -> torch.Tensor:
     """The f32 kernel's product in plain PyTorch: big = ``tf32(x)``,
     small = x - big read by the tensor cores as TF32 (truncated), and
@@ -431,13 +429,16 @@ def _library() -> ctypes.CDLL:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points' signatures on a loaded library."""
-    for entry in _ENTRY.values():
+    """Declare the C entry points' signatures on a loaded library: the
+    f32 entry takes the plan (consumer warpgroups, ring stages) after the
+    split index."""
+    for dtype, entry in _ENTRY.items():
+        plan = [ctypes.c_int] * 2 if dtype == torch.float32 else []
         fn = getattr(lib, entry)
         fn.argtypes = (
             [ctypes.c_void_p] * 5
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-               ctypes.c_void_p])
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+            + plan + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.fused_eval_error_string.argtypes = [ctypes.c_int]
     lib.fused_eval_error_string.restype = ctypes.c_char_p
@@ -446,9 +447,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _launch(pack, nodes_cat, weights_cat, shape, points):
     """Launch the kernel of ``pack.dtype`` on the current stream, in the
-    ``route.kernel_launch`` span.  Raises on a refused launch; counting
-    it is the caller's job."""
+    ``route.kernel_launch`` span; the f32 kernel with the plan
+    ``_wg_plan`` chooses.  Raises on a refused launch; counting it is the
+    caller's job."""
     entry = _ENTRY[pack.dtype]
+    plan = _wg_plan(shape) if pack.dtype == torch.float32 else ()
     n = points.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"{n} points exceed the kernel's int32 count")
@@ -464,7 +467,7 @@ def _launch(pack, nodes_cat, weights_cat, shape, points):
                 points.data_ptr(), nodes_cat.data_ptr(),
                 weights_cat.data_ptr(), pack.data_ptr(), out.data_ptr(), n,
                 len(shape), ctypes.cast(dims, ctypes.c_void_p),
-                _split_index(shape), stream)
+                _split_index(shape), *plan, stream)
     if err != 0:
         msg = lib.fused_eval_error_string(err).decode()
         raise RuntimeError(f"{entry} launch failed: {msg} "
@@ -482,7 +485,7 @@ def fused_eval_batch(tensor, nodes, weights, diff_matrices, points,
     (see ``_operand_cache``).  Refuses a tensor that requires grad
     (``refuse_grad``).
     """
-    global launches, wgmma_launches
+    global launches
     refuse_grad("fused_eval_batch", tensor, nodes, weights, diff_matrices,
                 points)
     shape, orders, points = _prepare(tensor, nodes, weights, diff_matrices,
@@ -492,9 +495,7 @@ def fused_eval_batch(tensor, nodes, weights, diff_matrices, points,
                               diff_matrices, orders, shape, torch.float32)
     if tensor.device.type == "cuda":
         out = _launch(*packed, shape, points)
-        launched = points.shape[0] > 0   # an empty batch launches nothing
-        launches += launched
-        wgmma_launches += launched
+        launches += points.shape[0] > 0   # an empty batch launches nothing
         return out
     return _contract_packed(*packed, shape, points)
 

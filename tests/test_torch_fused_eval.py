@@ -199,13 +199,12 @@ def test_operand_cache_under_threads():
 
 
 def test_cpu_tensors_launch_nothing():
-    before = fused_eval.launches, fused_eval.wgmma_launches
+    before = fused_eval.launches
     tensor, nodes, weights, diffs, domain = _random_problem((3, 5, 7), 6)
     fused_eval.fused_eval_batch(torch.tensor(tensor), _t(nodes),
                                 _t(weights), _t(diffs),
                                 _points(domain, nodes, 50, 6))
-    assert (fused_eval.launches, fused_eval.wgmma_launches) == before \
-        == (0, 0)
+    assert fused_eval.launches == before == 0
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -464,20 +463,21 @@ def test_f32_pack_planes_rebuild_t3(shape):
 def test_chunked_3xtf32_sums_chunks_in_order():
     """``_matmul_3xtf32_chunked`` adds the chunks' three-pass sums in
     order: one chunk as deep as the contraction is the plain three-pass
-    sum, and 128-deep chunks are that sum over each chunk, added one
-    after the other."""
+    sum, and chunks of the kernel's depth (one 32-deep stage) are that
+    sum over each chunk, added one after the other."""
     rng = np.random.default_rng(21)
     a = torch.tensor(rng.standard_normal((64, 300)), dtype=torch.float32)
     b = torch.tensor(rng.standard_normal((300, 40)), dtype=torch.float32)
     whole = fused_eval._matmul_3xtf32_chunked(a, b, depth=300)
-    one = fused_eval._matmul_3xtf32_chunked(a[:, :128], b[:128], depth=300)
-    two = fused_eval._matmul_3xtf32_chunked(a[:, 128:256], b[128:256],
-                                            depth=300)
-    three = fused_eval._matmul_3xtf32_chunked(a[:, 256:], b[256:],
-                                              depth=300)
-    assert torch.equal(fused_eval._matmul_3xtf32_chunked(a, b),
-                       one + two + three)
-    assert not torch.equal(whole, one + two + three)
+    depth = fused_eval._WG_DEPTH
+    assert depth == 32
+    in_order = None
+    for k0 in range(0, 300, depth):
+        part = fused_eval._matmul_3xtf32_chunked(
+            a[:, k0:k0 + depth], b[k0:k0 + depth], depth=300)
+        in_order = part if in_order is None else in_order + part
+    assert torch.equal(fused_eval._matmul_3xtf32_chunked(a, b), in_order)
+    assert not torch.equal(whole, in_order)
     exact = a.double() @ b.double()
     scale = exact.abs().max()
     assert (whole.double() - exact).abs().max() / scale < 1e-6
